@@ -1,0 +1,81 @@
+"""Converter option surface — semantic parity with reference types.go:58-90.
+
+A copy of the reference package's ``PackOption`` and ``ConvertError``;
+converter/pack.py states which options this package's ``pack_layer``
+supports and refuses the rest."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from nydus_snapshotter_tpu_torch import constants
+from nydus_snapshotter_tpu_torch.models import layout
+
+
+class ConvertError(RuntimeError):
+    pass
+
+
+@dataclass
+class PackOption:
+    """Options for packing one OCI layer tar into a nydus blob.
+
+    Field semantics follow reference PackOption (pkg/converter/types.go:58-90);
+    fields that configured the external builder binary are replaced by engine
+    selection knobs (``backend``, ``chunking``). The fields the reference's
+    ``pack_layer`` never reads (work_dir, oci_ref, timeout) and the lz4
+    acceleration knob are left out.
+    """
+
+    fs_version: str = layout.RAFS_V6
+    chunk_dict_path: str = ""
+    prefetch_patterns: str = ""
+    # The reference defaults to lz4_block; this package packs "none" only
+    # so far (the lz4/zstd lanes are host codecs not ported yet), so that
+    # is its default.
+    compressor: str = "none"  # "none" | "zstd" | "lz4_block"
+    aligned_chunk: bool = False
+    chunk_size: int = constants.CHUNK_SIZE_DEFAULT
+    batch_size: int = 0
+    encrypt: bool = False
+    # Engine selection (replaces BuilderPath): fused = the device full path
+    # (ops/fused_convert, the default here); numpy = the host differential
+    # path (numpy CDC + hashlib). The reference's hybrid/jax values name
+    # its own arms and are refused by this package's pack_layer.
+    backend: str = "fused"
+    chunking: str = "cdc"  # "cdc" | "fixed"
+    # "" = engine default for the backend (the only value pack_layer takes
+    # here; the reference also has "host" and "jax").
+    digest_backend: str = ""
+    # Chunk-digest algorithm (reference `nydus-image --digester`,
+    # RafsSuperFlags 0x4 blake3 / 0x8 sha256). This package digests sha256
+    # only so far. The blob ID stays sha256 (OCI convention).
+    digester: str = "sha256"
+
+    def validate(self) -> None:
+        if self.fs_version not in (layout.RAFS_V5, layout.RAFS_V6):
+            raise ConvertError(f"invalid fs version {self.fs_version!r}")
+        if self.compressor not in ("none", "zstd", "lz4_block"):
+            raise ConvertError(f"unsupported compressor {self.compressor!r}")
+        cs = self.chunk_size
+        if cs & (cs - 1) or not (constants.CHUNK_SIZE_MIN <= cs <= constants.CHUNK_SIZE_MAX):
+            raise ConvertError(
+                f"chunk size must be power of two in "
+                f"[{constants.CHUNK_SIZE_MIN:#x}, {constants.CHUNK_SIZE_MAX:#x}]"
+            )
+        if self.digest_backend not in ("", "host", "jax"):
+            raise ConvertError(
+                f"unsupported digest backend {self.digest_backend!r}"
+            )
+        if self.digester not in ("sha256", "blake3"):
+            raise ConvertError(f"unsupported digester {self.digester!r}")
+        bs = self.batch_size
+        # Reference bound (types.go:78-79): power of two in 0x1000-0x1000000
+        # or zero (disabled).
+        if bs and (
+            bs & (bs - 1) or not (constants.CHUNK_SIZE_MIN <= bs <= constants.CHUNK_SIZE_MAX)
+        ):
+            raise ConvertError(
+                f"batch size must be zero or a power of two in "
+                f"[{constants.CHUNK_SIZE_MIN:#x}, {constants.CHUNK_SIZE_MAX:#x}]"
+            )

@@ -1,0 +1,126 @@
+"""Chunk SHA-256 read straight from the layer buffer: kernel K2 and wrapper.
+
+``sha256_chunks(buffer, offs, sizes)`` digests chunk m = buffer[offs[m] :
+offs[m] + sizes[m]] and returns its state words. It is the function the
+reference computes as ``sha256_batch_pallas(_gather_pack_sha(buffer, offs,
+sizes, cap), (sizes + 8) // 64 + 1)``; the plain version below is exactly
+that composition in torch. A CPU tensor takes the plain version; a CUDA
+tensor launches csrc/sha256.cu or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nydus_snapshotter_tpu_torch.ops import cuda_build, sha256
+from nydus_snapshotter_tpu_torch.tensors import MASK32, as_int32
+
+KERNEL = cuda_build.Kernel(
+    "sha256.cu",
+    "ntpu_sha256_chunks",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p],
+)
+
+# Rows per plain-version slice are chosen so one slice's padded blocks stay
+# within this many bytes.
+_PLAIN_SLICE_BYTES = 1 << 25
+
+
+def gather_pack_sha(
+    buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor, cap_blocks: int
+) -> torch.Tensor:
+    """Gather chunks at byte-exact offsets and emit SHA-padded blocks.
+
+    -> int32[M, cap_blocks, 16] big-endian words (u32 patterns): bytes
+    below ``size``, 0x80 at ``size``, zeros after, and the 64-bit bit
+    length in words 14-15 of block (size + 8) // 64. Built one 64-byte
+    block column at a time so the index tensor stays [M, 64].
+    """
+    m = offs.shape[0]
+    dev = buffer.device
+    out = torch.empty((m, cap_blocks, 16), dtype=torch.int32, device=dev)
+    off = offs.to(torch.int64)[:, None]
+    size = sizes.to(torch.int64)[:, None]
+    last = (size[:, 0] + 8) // 64  # index of the block holding the length
+    hi = size[:, 0] >> 29
+    lo = (size[:, 0] << 3) & MASK32
+    byte_iota = torch.arange(64, dtype=torch.int64, device=dev)
+    top = max(buffer.numel() - 1, 0)
+    for j in range(cap_blocks):
+        pos = j * 64 + byte_iota  # [64] message byte index
+        raw = buffer[(off + pos).clamp_(max=top)].to(torch.int64)
+        padded = torch.where(pos < size, raw, 0)
+        padded = torch.where(pos == size, 0x80, padded)
+        b = padded.reshape(m, 16, 4)
+        words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+        is_last = last == j
+        words[:, 14] = torch.where(is_last, hi, words[:, 14])
+        words[:, 15] = torch.where(is_last, lo, words[:, 15])
+        out[:, j] = as_int32(words)
+    return out
+
+
+def sha256_chunks_plain(
+    buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor
+) -> torch.Tensor:
+    """The plain PyTorch version of K2 (any device): gather + pad + batch
+    SHA-256, in row slices so the padded blocks stay bounded."""
+    m = offs.shape[0]
+    if m == 0:
+        return torch.empty((0, 8), dtype=torch.int32, device=buffer.device)
+    counts = (sizes.to(torch.int64) + 8) // 64 + 1
+    cap = int(counts.max())
+    rows = max(1, _PLAIN_SLICE_BYTES // (cap * 64))
+    parts = []
+    for s in range(0, m, rows):
+        blocks = gather_pack_sha(buffer, offs[s : s + rows], sizes[s : s + rows], cap)
+        parts.append(sha256.sha256_batch(blocks, counts[s : s + rows]))
+    return torch.cat(parts)
+
+
+def _check_extents(buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor) -> None:
+    lo_off, lo_size, hi_end = torch.stack(
+        [offs.min().long(), sizes.min().long(), (offs.long() + sizes.long()).max()]
+    ).tolist()
+    if lo_off < 0 or lo_size < 0 or hi_end > buffer.numel():
+        raise ValueError(
+            f"chunk extents leave the buffer (min off {lo_off}, min size "
+            f"{lo_size}, max end {hi_end}, buffer {buffer.numel()})"
+        )
+
+
+def sha256_chunks(
+    buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor
+) -> torch.Tensor:
+    """buffer u8[N], offs/sizes int32[M] -> int32[M, 8] SHA-256 states
+    (big-endian words as u32 patterns)."""
+    if buffer.dtype != torch.uint8 or buffer.dim() != 1:
+        raise ValueError(f"buffer must be u8[N], got {buffer.dtype}{list(buffer.shape)}")
+    for name, t in (("offs", offs), ("sizes", sizes)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device != buffer.device:
+            raise ValueError(f"{name} must be int32[M] on {buffer.device}")
+    if offs.shape != sizes.shape:
+        raise ValueError("offs and sizes differ in length")
+    m = offs.shape[0]
+    if m:
+        _check_extents(buffer, offs, sizes)
+    if buffer.device.type == "cpu":
+        return sha256_chunks_plain(buffer, offs, sizes)
+    if buffer.device.type != "cuda":
+        raise ValueError(f"unsupported device {buffer.device}")
+    if not (buffer.is_contiguous() and offs.is_contiguous() and sizes.is_contiguous()):
+        raise ValueError("buffer, offs and sizes must be contiguous")
+    # Words are read as aligned u32 pairs: the base and length must keep
+    # every such word inside the allocation.
+    if buffer.data_ptr() % 4 or buffer.numel() % 4:
+        raise ValueError("buffer must be 4-byte aligned with a length divisible by 4")
+    out = torch.empty((m, 8), dtype=torch.int32, device=buffer.device)
+    if m:
+        with torch.cuda.device(buffer.device):
+            KERNEL.launch(
+                buffer.data_ptr(), offs.data_ptr(), sizes.data_ptr(), out.data_ptr(),
+                m, torch.cuda.current_stream().cuda_stream,
+            )
+    return out

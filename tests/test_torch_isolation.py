@@ -1,0 +1,88 @@
+"""The PyTorch port stands alone: no JAX, no reference package, no silent CPU.
+
+tests/conftest.py imports jax into every test process, so the import check
+runs the port's main path in a fresh interpreter.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from nydus_snapshotter_tpu_torch import entry
+from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
+from nydus_snapshotter_tpu_torch.parallel import sharded_dict
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = textwrap.dedent(
+    """
+    import hashlib, io, sys, tarfile
+    import numpy as np
+    from nydus_snapshotter_tpu_torch import entry
+    from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
+    from nydus_snapshotter_tpu_torch.parallel import sharded_dict
+
+    data = np.random.default_rng(1).integers(0, 256, 20_000, dtype=np.uint8).tobytes()
+    eng = FusedDeviceEngine(chunk_size=0x1000, device="cpu")
+    res = eng.process_many([data, b"abc"])
+    assert res.digests[1] == [hashlib.sha256(b"abc").digest()]
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        ti = tarfile.TarInfo("f"); ti.size = 3; tf.addfile(ti, io.BytesIO(b"abc"))
+    pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000), device="cpu")
+    fwd, args = entry.entry(device="cpu")
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
+    print("LEAKED", bad)
+    sys.exit(1 if bad else 0)
+    """
+)
+
+
+def test_main_path_imports_neither_jax_nor_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: FusedDeviceEngine(),
+        lambda: sharded_dict.ShardedChunkDict(np.zeros((0, 8), np.uint32)),
+        lambda: sharded_dict.from_tables(np.zeros((64, 8), np.uint32), np.zeros(64, np.int32), 1),
+        lambda: entry.entry(),
+        lambda: pack_layer(b"", PackOption(backend="fused")),
+    ],
+    ids=["engine", "dict", "from_tables", "entry", "pack_layer"],
+)
+def test_entry_points_refuse_missing_cuda(call):
+    if torch.cuda.is_available():
+        return  # only meaningful on a host without CUDA, such as CI
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+def test_forward_step_on_cpu():
+    import hashlib
+
+    fwd, args = entry.entry(device="cpu")
+    bm_s, bm_l, digests = fwd(*args)
+    windows, _ms, _ml, buf, offs, sizes = args
+    assert bm_s.shape == (windows.shape[0], entry.WINDOW // 32) == bm_l.shape
+    raw = buf.numpy()
+    for i in range(offs.numel()):
+        o, s = int(offs[i]), int(sizes[i])
+        want = hashlib.sha256(raw[o : o + s].tobytes()).digest()
+        assert digests[i].numpy().view(np.uint32).astype(">u4").tobytes() == want
