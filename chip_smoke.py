@@ -6,18 +6,27 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 0. device — the card's name and power limit as nvidia-smi reports them;
-1. build  — nvcc compiles the three kernels of csrc/ in parallel;
+1. build  — nvcc compiles the three kernels of csrc/ and the round-latency
+   probe in parallel; the probe measures the cycles of one SHA-256 round's
+   dependent chain (SHF -> LOP3 -> IADD3) on this card for K2's bound;
 2. main path — ``FusedDeviceEngine.process_many`` over a 1 GiB
    node:21-shaped layer (log-normal file sizes, 40/40/20 text/binary/random)
    at 64 KiB average chunks, probing a 2^23-entry chunk dict that holds the
    digests of a third of the layer's files. Launch counters are zeroed just
-   before and read just after; every chunk digest is checked against
-   hashlib, the cuts of >= 64 MiB of files against the numpy chunker, and
-   every probe answer against a host numpy probe;
+   before and read just after (K2 must launch exactly once: every chunk in
+   one launch); every chunk digest is checked against hashlib, the cuts of
+   >= 64 MiB of files against the numpy chunker, and every probe answer
+   against a host numpy probe;
 3. kernels — each kernel against its plain PyTorch version on the card, on
-   the main path's inputs (K1 over a 64 MiB slice of the layer buffer, K2
-   over one full pass-2 bucket, K3 over every query of phase 2); exact
-   equality required;
+   the main path's inputs and on edge shapes; exact equality required.
+   K1: a 64 MiB slice of the layer buffer, and 3 rows at n = 32k for a k
+   that leaves a thread's run partial, from an unaligned base. K2: one
+   launch over the largest bucket of <= 128 blocks per chunk (the
+   reference's pass-2 plan, ``plan_buckets``) mixed
+   with chunks of sizes {0, 1, 55, 56, 63, 64, 119, 120, 4095, max} at
+   offsets 0..3 mod 4 (256 bucket rows and every edge row also against
+   hashlib; the edge rows' plain version runs on the host copy of the
+   buffer). K3: every query of phase 2;
 4. pack — ``pack_layer`` over a ~256 MiB node:21-shaped tar, fused backend
    against the numpy (host) backend: blob, bootstrap and blob id identical;
 5. timings — CUDA events, median of 5 runs after a warm-up; end-to-end
@@ -31,13 +40,16 @@ beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import io
 import json
+import re
 import subprocess
 import sys
 import tarfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -67,6 +79,16 @@ K1_OPS_PER_POS = 1 + 1 + 2 * 2
 # steps x 10 (s0 and s1: 2 SHF + 1 shift + 1 LOP3 each, 2 IADD3), 8 state
 # adds and one byte swap per message word.
 K2_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 16
+# K2's serial term: a chunk's blocks chain through the state. Within a
+# round, e' = (d + h + K[r] + W[r]) + S1(e) + Ch(e, f, g): d, h, K and W
+# are known rounds ahead, so their sum is taken off the chain, and e'
+# depends on e through 3 instructions — the rotates of S1 (SHF, in
+# parallel), their 3-input xor (LOP3; Ch is a LOP3 beside it), and one
+# IADD3 of S1, Ch and that sum. a' = T1 + S0(a) + Maj(a, b, c) has the
+# same depth. The cycles of that 3-instruction chain are measured on the
+# card in phase 1 (csrc/round_latency.cu).
+K2_ROUND_DEPTH = 3
+ROUND_PROBE_STEPS = 1 << 16
 # K3, per chain row examined: 8 word compares and the group ballot test.
 K3_OPS_PER_ROW = 8 * 2
 
@@ -184,6 +206,11 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def sha_blocks(sizes: np.ndarray) -> np.ndarray:
+    """SHA-256 blocks of each chunk after padding."""
+    return (sizes.astype(np.int64) + 8) // 64 + 1
+
+
 def host_probe(keys: np.ndarray, values: np.ndarray, q: np.ndarray, depth: int):
     """numpy probe of the unpadded table -> (answers i32[Q], rows examined)."""
     cap = keys.shape[0]
@@ -231,6 +258,59 @@ def bound_ms(nbytes: float, ops: float, int_ops_per_s: float) -> tuple[float, st
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k2_bound(sizes: np.ndarray, int_ops_per_s: float, sm_hz: float, round_cycles: float):
+    """K2's bound over chunks of these sizes -> (ms, by, throughput-term ms,
+    what bounds the throughput term, serial-term ms).
+
+    The throughput term is the larger of the bytes (each chunk byte read
+    once, offset + size in, 32 B of digest out) and all blocks' operations
+    over the card; the serial term is the longest chunk's dependent chain
+    (all its blocks x 64 rounds x the measured cycles of one round's
+    critical path), which no parallelism shortens."""
+    blocks = sha_blocks(sizes)
+    through, by = bound_ms(
+        float(sizes.astype(np.int64).sum()) + len(sizes) * (8 + 32),
+        float(blocks.sum()) * K2_OPS_PER_BLOCK, int_ops_per_s,
+    )
+    serial = float(blocks.max()) * 64 * round_cycles / sm_hz * 1e3
+    if serial > through:
+        return serial, "operations", through, by, serial
+    return through, by, through, by, serial
+
+
+def sass_opcodes(lib) -> dict[str, int]:
+    """Opcode counts of the machine code in a built kernel library."""
+    from nydus_snapshotter_tpu_torch.ops import cuda_build
+
+    tool = str(Path(cuda_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts: dict[str, int] = {}
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def round_cycles(probe) -> float:
+    """SM cycles of one SHA-256 round's dependent chain (SHF -> LOP3 ->
+    IADD3), from one thread running ``ROUND_PROBE_STEPS`` of them
+    (second of two runs: the first warms the instruction cache)."""
+    import torch
+
+    dev = torch.device(DEVICE, 0)
+    arg = torch.tensor([6, 0x3C6EF372, 0x1F83D9AB, 0x9B05688C, 0x510E527F, 0x6A09E667],
+                       dtype=torch.int64, device=dev).to(torch.int32)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    for _ in range(2):
+        probe.launch(arg.data_ptr(), out.data_ptr(), cycles.data_ptr(), ROUND_PROBE_STEPS,
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return int(cycles.item()) / ROUND_PROBE_STEPS
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -267,12 +347,27 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build_all(list(kernels.values()))
-    log(f"[1] build: 3 kernels in {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    probe = cuda_build.Kernel("round_latency.cu", "ntpu_round_latency",
+                              [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+    cuda_build.build_all(list(kernels.values()) + [probe])
+    log(f"[1] build: 3 kernels and the round-latency probe in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
     for key, k in kernels.items():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas {k.source}: {line.strip()}")
+    rc = round_cycles(probe)
+    ops = sass_opcodes(cuda_build.library_path(probe.source))
+    # The probe must compile to the chain it claims to time: one SHF, LOP3
+    # and IADD3 per unrolled round (a 2-operand add compiles to IMAD), and
+    # at least a cycle per dependent instruction (else it was folded).
+    if min(ops.get(op, 0) for op in ("SHF", "LOP3", "IADD3")) < 64 or rc < K2_ROUND_DEPTH:
+        raise AssertionError(f"round probe: {rc} cycles per round, SASS {ops}")
+    log(f"[1] SHA-256 round critical path on this card: {rc:.3f} cycles per round "
+        f"(SHF -> LOP3 -> IADD3, dependent; {rc / K2_ROUND_DEPTH:.3f} per instruction) over "
+        f"{ROUND_PROBE_STEPS} rounds in one thread, clock64; the probe's SASS: "
+        + ", ".join(f"{op} {n}" for op, n in sorted(ops.items()) if op in
+                    ("SHF", "LOP3", "IADD3", "IMAD", "IADD", "LOP", "SHL", "SHR", "PRMT")))
 
     # -- 2. main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -318,6 +413,8 @@ def main() -> int:
     for key, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {key} was not launched on the main path")
+    if launches["sha"] != 1:
+        raise AssertionError(f"K2 launched {launches['sha']} times; pass 2 makes one launch")
 
     t0 = time.perf_counter()
     for f, cuts, digs in zip(files, res.cuts, res.digests):
@@ -348,11 +445,13 @@ def main() -> int:
         f"{checked} bytes; {len(q_host)} probe answers == host probe ({n_hits} hits) "
         f"in {time.perf_counter() - t0:.1f} s")
 
-    # -- 3. each kernel against its plain version, main-path inputs --------
+    # -- 3. each kernel against its plain version: main-path inputs, edges -
+    t0 = time.perf_counter()
     buf, table = eng.layout(files)
     buffer_dev = torch.from_numpy(buf).to(dev)
     cand_s, cand_l = eng.candidates(buffer_dev, n_bytes)
-    buckets, _order = eng.plan_buckets(table, eng.resolve(cand_s, cand_l, table))
+    cuts = eng.resolve(cand_s, cand_l, table)
+    buckets, _order = eng.plan_buckets(table, cuts)  # the reference's plan: one small-chunk set
     p = eng.params
     W, TAIL = fused_convert.WINDOW, fused_convert.TAIL
     main = buffer_dev.view(-1, W)
@@ -365,6 +464,19 @@ def main() -> int:
     k1 = gear_cuda.gear_bitmaps(*k1_args)
     k1_plain = gear_cuda.gear_bitmaps_plain(*k1_args)
     k1_err = max(max_abs_err(a, b) for a, b in zip(k1, k1_plain))
+    # Edge: a k whose last run is partial (k odd at two words per run),
+    # several tiles per row, from a base one byte past an allocation.
+    rng = np.random.default_rng(SEED + 4)
+    k1_edge_n = 32 * (2 * 4321 + 1)
+    assert k1_edge_n % gear_cuda.RUN
+    flat = torch.from_numpy(rng.integers(0, 256, 3 * (k1_edge_n + TAIL) + 1, dtype=np.uint8)).to(dev)
+    for n_edge, x_edge in (
+        (k1_edge_n, flat[1:].view(3, k1_edge_n + TAIL)),
+        (32, flat[: 3 * (32 + TAIL)].view(3, 32 + TAIL)),
+    ):
+        got = gear_cuda.gear_bitmaps(x_edge, p.mask_small, 0x3, n_edge)
+        want = gear_cuda.gear_bitmaps_plain(x_edge, p.mask_small, 0x3, n_edge)
+        k1_err = max([k1_err] + [max_abs_err(a, b) for a, b in zip(got, want)])
 
     dev_buckets = [
         (b, torch.from_numpy(b.offsets).to(dev), torch.from_numpy(b.sizes).to(dev)) for b in buckets
@@ -372,17 +484,47 @@ def main() -> int:
     small = [x for x in dev_buckets if x[0].cap_blocks <= K2_PLAIN_MAX_CAP] or dev_buckets
     kb, koffs, ksizes = max(small, key=lambda x: x[0].count)
     k2_args = (buffer_dev, koffs, ksizes)
-    k2 = sha256_cuda.sha256_chunks(*k2_args)
-    k2_plain = sha256_cuda.sha256_chunks_plain(*k2_args)
-    k2_err = max_abs_err(k2, k2_plain)
-    k2_host = to_u32(k2)
+    # Edge chunks mixed into that bucket: the padding boundaries, a long
+    # full-block run and the longest chunk, at every offset mod 4 (and
+    # mixed word offsets mod 16).
+    edge_sizes = np.asarray([0, 1, 55, 56, 63, 64, 119, 120, 4095, p.max_size], np.int64)
+    e_sizes, e_offs = [], []
+    for i, size in enumerate(edge_sizes):
+        for a in range(4):
+            base = int(rng.integers(0, (n_bytes - int(edge_sizes.max()) - 16) // 16)) * 16
+            e_offs.append(base + 4 * ((i + a) % 4) + a)
+            e_sizes.append(int(size))
+    e_offs, e_sizes = np.asarray(e_offs, np.int32), np.asarray(e_sizes, np.int32)
+    mix_offs = torch.cat([koffs, torch.from_numpy(e_offs).to(dev)])
+    mix_sizes = torch.cat([ksizes, torch.from_numpy(e_sizes).to(dev)])
+    k2_mix = sha256_cuda.sha256_chunks(buffer_dev, mix_offs, mix_sizes)  # one launch
+    nk = len(kb.offsets)
+    short = e_sizes < 4096
+    # The edge rows' plain version runs on the host copy of the same buffer:
+    # it steps in Python per 64-byte block, and a 4097-block chunk costs
+    # ~4k steps of ~2k tiny ops, several times faster on the CPU than as
+    # kernel launches on the card.
+    k2_err = max(
+        max_abs_err(k2_mix[:nk], sha256_cuda.sha256_chunks_plain(*k2_args)),
+        max_abs_err(
+            k2_mix[nk:].cpu(),
+            sha256_cuda.sha256_chunks_plain(
+                torch.from_numpy(buf), torch.from_numpy(e_offs), torch.from_numpy(e_sizes)
+            ),
+        ),
+    )
+    k2_host = to_u32(k2_mix)
     for r in np.random.default_rng(SEED + 2).choice(kb.count, min(256, kb.count), replace=False):
         o, s = int(kb.offsets[r]), int(kb.sizes[r])
         if sha256.digest_to_bytes(k2_host[r]) != hashlib.sha256(buf[o:o + s]).digest():
             raise AssertionError("K2 digest differs from hashlib")
+    for r, (o, s) in enumerate(zip(e_offs.tolist(), e_sizes.tolist())):
+        if sha256.digest_to_bytes(k2_host[nk + r]) != hashlib.sha256(buf[o:o + s]).digest():
+            raise AssertionError(f"K2 digest of a {s}-byte chunk at offset {o} differs from hashlib")
 
-    states = [sha256_cuda.sha256_chunks(buffer_dev, o, s) for _b, o, s in dev_buckets]
-    allq = torch.cat(states)
+    extents = eng.chunk_extents(table, cuts)
+    all_offs, all_sizes_dev = torch.from_numpy(extents).to(dev)
+    allq = sha256_cuda.sha256_chunks(buffer_dev, all_offs, all_sizes_dev)  # pass 2's launch
     tk, tv = cdict.device_tables()  # the tables the main path probed
     wstart, off = probe_cuda.window_starts(allq, keys.shape[0])
     k3_args = (tk, tv, allq, wstart, off, depth)
@@ -393,9 +535,13 @@ def main() -> int:
     for label, err in (("K1", k1_err), ("K2", k2_err), ("K3", k3_err)):
         if err != 0:
             raise AssertionError(f"{label} kernel differs from its plain version (max err {err})")
-    log(f"[3] kernels == plain versions: K1 over {rows_k1.shape[0]} x {W} positions; K2 over "
-        f"bucket cap {kb.cap_blocks} blocks ({kb.count} chunks + {len(kb.offsets) - kb.count} "
-        f"pad rows; 256 sampled == hashlib); K3 over {allq.shape[0]} queries, depth {depth}")
+    log(f"[3] kernels == plain versions: K1 over {rows_k1.shape[0]} x {W} positions and 3 x "
+        f"{k1_edge_n} / 3 x 32 edge rows (unaligned base); K2 in one launch over bucket cap "
+        f"{kb.cap_blocks} blocks ({kb.count} chunks + {nk - kb.count} pad rows) + "
+        f"{len(e_sizes)} edge chunks ({int(short.sum())} up to 4095 bytes, "
+        f"{int((~short).sum())} of {p.max_size}; their plain version on the host); 256 sampled "
+        f"rows and every edge row == hashlib; K3 over {allq.shape[0]} queries, depth {depth}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -420,7 +566,10 @@ def main() -> int:
     k1_main_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps(rows_full, p.mask_small, p.mask_large, W))
     k2_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(*k2_args))
     k2_plain_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks_plain(*k2_args))
-    k2_main_ms = cuda_ms(lambda: [sha256_cuda.sha256_chunks(buffer_dev, o, s) for _b, o, s in dev_buckets])
+    k2_main_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, all_offs, all_sizes_dev))
+    top_row = int(all_sizes_dev.argmax())  # the longest chunk alone: one thread's chain
+    k2_longest_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(
+        buffer_dev, all_offs[top_row:top_row + 1], all_sizes_dev[top_row:top_row + 1]))
     k3_ms = cuda_ms(lambda: probe_cuda.probe_padded(*k3_args))
     k3_plain_ms = cuda_ms(lambda: probe_cuda.probe_padded_plain(*k3_args))
 
@@ -448,43 +597,45 @@ def main() -> int:
 
     k1_pos = rows_k1.shape[0] * W
     k1_bound = bound_ms(rows_k1.numel() + 2 * k1_pos / 8, k1_pos * K1_OPS_PER_POS, int_ops_per_s)
-    k2_blocks = float(((kb.sizes.astype(np.int64) + 8) // 64 + 1).sum())
-    k2_bound = bound_ms(
-        float(kb.sizes.astype(np.int64).sum()) + len(kb.sizes) * (8 + 32),
-        k2_blocks * K2_OPS_PER_BLOCK, int_ops_per_s,
-    )
+    sm_hz = max_sm_mhz * 1e6
+    k2_blocks = float(sha_blocks(kb.sizes).sum())
+    k2_bd = k2_bound(kb.sizes, int_ops_per_s, sm_hz, rc)
     q_all = to_u32(allq)
     _, rows_seen = host_probe(keys, values, q_all, depth)
     k3_hits = to_u32(k3).astype(bool)
     k3_bytes = len(q_all) * (32 + 8 + 4) + float(rows_seen.sum()) * 32 + float(k3_hits.sum()) * 4
     k3_bound = bound_ms(k3_bytes, float(rows_seen.sum()) * K3_OPS_PER_ROW, int_ops_per_s)
-    n_buckets = len(buckets)
     main_pos = rows_full.shape[0] * W
     k1_main_bound = bound_ms(rows_full.numel() + 2 * main_pos / 8, main_pos * K1_OPS_PER_POS, int_ops_per_s)
-    all_sizes = np.concatenate([b.sizes for b in buckets]).astype(np.int64)
-    k2_main_bound = bound_ms(
-        float(all_sizes.sum()) + len(all_sizes) * (8 + 32),
-        float(((all_sizes + 8) // 64 + 1).sum()) * K2_OPS_PER_BLOCK, int_ops_per_s,
-    )
+    all_sizes = extents[1]
+    k2_main_bd = k2_bound(all_sizes, int_ops_per_s, sm_hz, rc)
+    longest = int(sha_blocks(all_sizes).max())
     log(f"[5] K1 gear_bitmaps: {k1_ms:.4f} ms over {k1_pos} positions (plain {k1_plain_ms:.3f} ms, "
         f"bound {k1_bound[0]:.4f} ms by {k1_bound[1]}); whole main-path buffer "
         f"{rows_full.shape[0]} x {W}: {k1_main_ms:.4f} ms (bound {k1_main_bound[0]:.4f} ms), "
         f"1 launch per process_many")
     log(f"[5] K2 sha256_chunks: {k2_ms:.4f} ms over bucket cap {kb.cap_blocks} "
-        f"({int(k2_blocks)} blocks; plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by "
-        f"{k2_bound[1]}); all {n_buckets} buckets of one process_many: {k2_main_ms:.4f} ms "
-        f"(bound {k2_main_bound[0]:.4f} ms), {n_buckets} launches per process_many")
+        f"({int(k2_blocks)} blocks; plain {k2_plain_ms:.3f} ms, bound {k2_bd[0]:.4f} ms: "
+        f"throughput term {k2_bd[2]:.4f} ms, serial term {k2_bd[4]:.4f} ms); all "
+        f"{len(all_sizes)} chunks of one process_many (longest {longest} blocks) in "
+        f"{launches['sha']} launch: {k2_main_ms:.4f} ms (bound {k2_main_bd[0]:.4f} ms: throughput "
+        f"term {k2_main_bd[2]:.4f} ms by {k2_main_bd[3]}, serial term {k2_main_bd[4]:.4f} ms = "
+        f"{longest} blocks x 64 rounds x {rc:.3f} cycles (measured, {K2_ROUND_DEPTH} dependent "
+        f"instructions) at {max_sm_mhz:.0f} MHz; the "
+        f"{'serial' if k2_main_bd[4] > k2_main_bd[2] else 'throughput'} term bounds); the longest "
+        f"chunk alone: {k2_longest_ms:.4f} ms = "
+        f"{k2_longest_ms * 1e-3 * max_sm_mhz * 1e6 / longest:.0f} cycles per block at the max clock")
     log(f"[5] K3 probe_padded: {k3_ms:.4f} ms over {len(q_all)} queries "
         f"({int(rows_seen.sum())} chain rows; plain {k3_plain_ms:.3f} ms, bound "
         f"{k3_bound[0]:.4f} ms by {k3_bound[1]}), 1 launch per process_many")
 
-    def row(key, name, source, replaces, err, ms, plain, bound, main_ms, main_bound, work):
+    def row(key, name, source, replaces, err, ms, plain, bound, main_ms, main_bound, work, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "status": "ported: built, equal to plain, launched on the main path",
-            "work": work, "main_path_ms": main_ms, "main_path_bound_ms": main_bound[0],
+            "work": work, "main_path_ms": main_ms, "main_path_bound_ms": main_bound[0], **extra,
         }
 
     pkg = "nydus_snapshotter_tpu_torch/csrc/"
@@ -494,7 +645,12 @@ def main() -> int:
             k1_bound, k1_main_ms, k1_main_bound, f"{rows_k1.shape[0]}x{W} positions"),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_plain_ms,
-            k2_bound, k2_main_ms, k2_main_bound, f"bucket cap {kb.cap_blocks}: {len(kb.sizes)} rows, {int(k2_blocks)} blocks"),
+            k2_bd, k2_main_ms, k2_main_bd,
+            f"bucket cap {kb.cap_blocks}: {len(kb.sizes)} rows, {int(k2_blocks)} blocks",
+            bound_terms_ms={"throughput": k2_bd[2], "serial": k2_bd[4]},
+            main_path_bound_terms_ms={"throughput": k2_main_bd[2], "serial": k2_main_bd[4]},
+            longest_chunk_ms=k2_longest_ms, longest_chunk_blocks=longest,
+            round_cycles=rc, round_depth=K2_ROUND_DEPTH),
         row("probe", "probe_padded", pkg + "probe.cu",
             "nydus_snapshotter_tpu/ops/probe_pallas.py:151", k3_err, k3_ms, k3_plain_ms,
             k3_bound, k3_ms, k3_bound, f"{len(q_all)} queries, depth {depth}"),

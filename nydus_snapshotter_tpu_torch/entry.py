@@ -44,7 +44,7 @@ def example_args(
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     windows = rng.integers(0, 256, (n_win, win + gear.GEAR_WINDOW - 1), dtype=np.uint8)
-    buf = rng.integers(0, 256, -(-n_msgs * msg_len // 4) * 4, dtype=np.uint8)
+    buf = rng.integers(0, 256, -(-n_msgs * msg_len // 16) * 16, dtype=np.uint8)
     offs = np.arange(n_msgs, dtype=np.int32) * msg_len
     sizes = np.full(n_msgs, msg_len, dtype=np.int32)
     return (

@@ -8,12 +8,12 @@ and never come back; only kilobytes of metadata cross between the phases:
   and their indices (``torch.nonzero``), checked against a static
   capacity. The host gets the candidate words, not the N/32-byte bitmaps.
 - **Host middle.** FastCDC cut resolution over the sparse candidates per
-  file (ops/cdc.resolve_cuts) and the bucket plan (power-of-two
-  block-capacity classes, exact counts).
-- **Pass 2.** Per bucket, SHA-256 of every chunk read straight from the
-  device buffer by (offset, size) (kernel K2, ops/sha256_cuda.py), then the
-  chunk-dict probe over every digest (kernel K3, ops/probe_cuda.py). The
-  host gets 32 B of digest and 4 B of dict answer per chunk.
+  file (ops/cdc.resolve_cuts) and the chunk extents in stream order.
+- **Pass 2.** SHA-256 of every chunk, read straight from the device buffer
+  by (offset, size), in one launch (kernel K2,
+  ops/sha256_cuda.py), then the chunk-dict probe over every digest (kernel
+  K3, ops/probe_cuda.py). The host gets 32 B of digest and 4 B of dict
+  answer per chunk.
 
 Replaces the one-process hot loop of the reference's ``nydus-image
 create`` (chunk + digest + dedup inside pkg/converter/tool/builder.go:148-178;
@@ -103,7 +103,7 @@ def _pass1(buffer: torch.Tensor, n: int, mask_s: int, mask_l: int):
 
 @dataclass(frozen=True)
 class Bucket:
-    """One power-of-two block-capacity class of the pass-2 plan.
+    """One power-of-two block-capacity class of the reference's pass-2 plan.
 
     offsets/sizes are pow2-padded (padding rows have size 0 and offset 0
     and are discarded on assembly); ``count`` is the live prefix.
@@ -132,8 +132,8 @@ class FusedDeviceEngine:
     (a parallel/sharded_dict.ShardedChunkDict on the engine's device) adds
     the dedup probe to pass 2. ``stats`` accumulates batches, bytes and the
     wall seconds of pass 1 (gear + compaction + candidate download), the
-    host middle (cut resolution + bucket plan) and pass 2 (digest + probe +
-    result download).
+    host middle (cut resolution + chunk extents) and pass 2 (digest + probe
+    + result download).
     """
 
     def __init__(self, chunk_size: int = 0x100000, device: "str | torch.device | None" = None):
@@ -224,14 +224,29 @@ class FusedDeviceEngine:
             )
         return cuts
 
+    def chunk_extents(
+        self, table: list[tuple[int, int]], cuts: list[np.ndarray]
+    ) -> np.ndarray:
+        """int32[2, M]: the absolute offset and the size of every chunk,
+        in stream order (pass 2's rows; ``layout`` keeps them in int32)."""
+        offs, sizes = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+        for (f_off, _f_len), f_cuts in zip(table, cuts):
+            ends = np.asarray(f_cuts, np.int64)
+            starts = np.concatenate([[0], ends])[:-1]
+            offs.append(f_off + starts)
+            sizes.append(ends - starts)
+        return np.stack([np.concatenate(offs), np.concatenate(sizes)]).astype(np.int32)
+
     def plan_buckets(
         self, table: list[tuple[int, int]], cuts: list[np.ndarray]
     ) -> tuple[list[Bucket], list[tuple[int, int]]]:
-        """Bucket chunks by pow2 padded-block class with EXACT counts.
+        """The reference's pass-2 plan: chunks bucketed by pow2
+        padded-block class with EXACT counts.
 
         Returns (buckets, flat chunk order) where the flat order is
-        (bucket cap, row) per chunk in stream order, used to scatter
-        results back.
+        (bucket cap, row) per chunk in stream order. The port's pass 2
+        digests every chunk in one launch and does not use the plan; it is
+        kept to hold the port's chunk rows against the reference's plan.
         """
         max_blocks = sha256.n_padded_blocks(self.params.max_size)
         per_class: dict[int, list[tuple[int, int]]] = {}
@@ -287,24 +302,18 @@ class FusedDeviceEngine:
     def digest_probe(
         self,
         buffer_dev: torch.Tensor,
-        buckets: list[Bucket],
+        extents: np.ndarray,
         chunk_dict: "ShardedChunkDict | None" = None,
-    ) -> tuple[list[torch.Tensor], torch.Tensor | None]:
-        """Pass 2: per-bucket digest states int32[M_i, 8] + optional dict
-        probe int32[sum M_i] over the concatenated bucket rows.
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Pass 2 over the chunk extents int32[2, M] (:meth:`chunk_extents`):
+        digest states int32[M, 8] from ONE K2 launch, and the optional dict
+        probe int32[M] over them.
 
         The dict owns its padded device tables (staged once, dropped when
         its tables change), so repeated batches never re-upload them.
         """
-        dev = buffer_dev.device
-        states = [
-            sha256_cuda.sha256_chunks(
-                buffer_dev,
-                torch.from_numpy(b.offsets).to(dev),
-                torch.from_numpy(b.sizes).to(dev),
-            )
-            for b in buckets
-        ]
+        offs, sizes = torch.from_numpy(extents).to(buffer_dev.device)  # one upload
+        states = sha256_cuda.sha256_chunks(buffer_dev, offs, sizes)
         probe = None
         if chunk_dict is not None:
             if chunk_dict.device != self.device:
@@ -312,9 +321,8 @@ class FusedDeviceEngine:
                     f"chunk dict lives on {chunk_dict.device}, the engine on {self.device}"
                 )
             tk, tv = chunk_dict.device_tables()
-            allq = torch.cat(states, dim=0)
-            wstart, off = probe_cuda.window_starts(allq, chunk_dict.capacity)
-            probe = probe_cuda.probe_padded(tk, tv, allq, wstart, off, chunk_dict.max_depth)
+            wstart, off = probe_cuda.window_starts(states, chunk_dict.capacity)
+            probe = probe_cuda.probe_padded(tk, tv, states, wstart, off, chunk_dict.max_depth)
         return states, probe
 
     def process_many(
@@ -339,15 +347,13 @@ class FusedDeviceEngine:
         cand_s, cand_l = self.candidates(buffer_dev, n)
         t1 = perf_counter()
         cuts = self.resolve(cand_s, cand_l, table)
-        buckets, order = self.plan_buckets(table, cuts)
+        extents = self.chunk_extents(table, cuts)
         t2 = perf_counter()
-        states, probe = self.digest_probe(buffer_dev, buckets, chunk_dict)
-        # Digest bytes per bucket row: the state words are big-endian words
-        # of the digest, so one byteswapping view serializes a whole bucket.
-        raw = {
-            b.cap_blocks: to_u32(s).astype(">u4").tobytes() for b, s in zip(buckets, states)
-        }
-        probe_all = probe.cpu().numpy() if probe is not None else None
+        states, probe = self.digest_probe(buffer_dev, extents, chunk_dict)
+        # The state words are big-endian words of the digest, so one
+        # byteswapping view serializes every row.
+        raw = to_u32(states).astype(">u4").tobytes()
+        probe_np = probe.cpu().numpy().astype(np.int32) if probe is not None else None
         t3 = perf_counter()
         self.stats["batches"] += 1
         self.stats["bytes"] += n
@@ -355,21 +361,9 @@ class FusedDeviceEngine:
         self.stats["host_s"] += t2 - t1
         self.stats["pass2_s"] += t3 - t2
 
-        flat_digests = [raw[cap][32 * row : 32 * row + 32] for cap, row in order]
-        probe_np = None
-        if probe_all is not None:
-            # probe ran over the concatenation of bucket rows (incl.
-            # padding); remap to stream order via each bucket's row base
-            base = {}
-            acc = 0
-            for b in buckets:
-                base[b.cap_blocks] = acc
-                acc += len(b.offsets)
-            idx = np.asarray([base[cap] + row for cap, row in order], dtype=np.int64)
-            probe_np = probe_all[idx].astype(np.int32)
         out_digests: list[list[bytes]] = []
         pos = 0
         for f_cuts in cuts:
-            out_digests.append(flat_digests[pos : pos + len(f_cuts)])
+            out_digests.append([raw[32 * i : 32 * i + 32] for i in range(pos, pos + len(f_cuts))])
             pos += len(f_cuts)
         return FusedResult(cuts=cuts, digests=out_digests, probe=probe_np)

@@ -4,7 +4,9 @@ Counterpart of the reference's ops/gear_pallas.py with the same signature:
 ``gear_bitmaps(x u8[B, n+31], mask_s, mask_l, n)`` returns two packed
 bitmaps in stream order. A CPU tensor takes the plain version
 (ops/chunker._hash_bitmaps_kernel); a CUDA tensor launches
-csrc/gear_bitmaps.cu or raises.
+csrc/gear_bitmaps.cu or raises. The kernel computes the rolling recurrence
+h = (h << 1) + mix32(x), each thread over a run of ``RUN`` positions that
+it enters 31 bytes early from h = 0.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from nydus_snapshotter_tpu_torch.ops import chunker, cuda_build, gear
 
 TAIL = gear.GEAR_WINDOW - 1  # 31
+RUN = 64  # positions per thread of csrc/gear_bitmaps.cu (its kRun)
 
 KERNEL = cuda_build.Kernel(
     "gear_bitmaps.cu",

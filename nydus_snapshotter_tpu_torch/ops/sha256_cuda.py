@@ -5,7 +5,8 @@ offs[m] + sizes[m]] and returns its state words. It is the function the
 reference computes as ``sha256_batch_pallas(_gather_pack_sha(buffer, offs,
 sizes, cap), (sizes + 8) // 64 + 1)``; the plain version below is exactly
 that composition in torch. A CPU tensor takes the plain version; a CUDA
-tensor launches csrc/sha256.cu or raises.
+tensor launches csrc/sha256.cu or raises. The kernel digests the rows
+longest first (:func:`longest_first`), one launch for all of them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from nydus_snapshotter_tpu_torch.tensors import MASK32, as_int32
 KERNEL = cuda_build.Kernel(
     "sha256.cu",
     "ntpu_sha256_chunks",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p],
 )
 
 # Rows per plain-version slice are chosen so one slice's padded blocks stay
@@ -66,18 +67,33 @@ def sha256_chunks_plain(
     buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor
 ) -> torch.Tensor:
     """The plain PyTorch version of K2 (any device): gather + pad + batch
-    SHA-256, in row slices so the padded blocks stay bounded."""
+    SHA-256, in row slices so the padded blocks stay bounded.
+
+    The rows are taken longest first, so each slice is padded to the
+    blocks of its own first (longest) row: short chunks are never padded
+    to the length of a long one in another slice."""
     m = offs.shape[0]
-    if m == 0:
-        return torch.empty((0, 8), dtype=torch.int32, device=buffer.device)
+    out = torch.empty((m, 8), dtype=torch.int32, device=buffer.device)
+    order = longest_first(sizes).long()
+    offs, sizes = offs[order], sizes[order]
     counts = (sizes.to(torch.int64) + 8) // 64 + 1
-    cap = int(counts.max())
-    rows = max(1, _PLAIN_SLICE_BYTES // (cap * 64))
-    parts = []
-    for s in range(0, m, rows):
-        blocks = gather_pack_sha(buffer, offs[s : s + rows], sizes[s : s + rows], cap)
-        parts.append(sha256.sha256_batch(blocks, counts[s : s + rows]))
-    return torch.cat(parts)
+    counts_host = counts.tolist()
+    s = 0
+    while s < m:
+        cap = counts_host[s]
+        e = min(m, s + max(1, _PLAIN_SLICE_BYTES // (cap * 64)))
+        blocks = gather_pack_sha(buffer, offs[s:e], sizes[s:e], cap)
+        out[order[s:e]] = sha256.sha256_batch(blocks, counts[s:e])
+        s = e
+    return out
+
+
+def longest_first(sizes: torch.Tensor) -> torch.Tensor:
+    """int32[M] row order for K2: sizes descending, ties in row order.
+
+    The serial floor of a launch is its longest chunk, so the longest
+    chunks start first and a warp holds chunks of similar length."""
+    return torch.argsort(sizes, descending=True, stable=True).to(torch.int32)
 
 
 def _check_extents(buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor) -> None:
@@ -112,15 +128,16 @@ def sha256_chunks(
         raise ValueError(f"unsupported device {buffer.device}")
     if not (buffer.is_contiguous() and offs.is_contiguous() and sizes.is_contiguous()):
         raise ValueError("buffer, offs and sizes must be contiguous")
-    # Words are read as aligned u32 pairs: the base and length must keep
-    # every such word inside the allocation.
-    if buffer.data_ptr() % 4 or buffer.numel() % 4:
-        raise ValueError("buffer must be 4-byte aligned with a length divisible by 4")
+    # Full blocks are read as aligned 16-byte pieces: the base and length
+    # must keep every such piece inside the allocation.
+    if buffer.data_ptr() % 16 or buffer.numel() % 16:
+        raise ValueError("buffer must be 16-byte aligned with a length divisible by 16")
     out = torch.empty((m, 8), dtype=torch.int32, device=buffer.device)
     if m:
         with torch.cuda.device(buffer.device):
+            perm = longest_first(sizes)
             KERNEL.launch(
-                buffer.data_ptr(), offs.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-                m, torch.cuda.current_stream().cuda_stream,
+                buffer.data_ptr(), offs.data_ptr(), sizes.data_ptr(), perm.data_ptr(),
+                out.data_ptr(), m, torch.cuda.current_stream().cuda_stream,
             )
     return out

@@ -3,18 +3,19 @@
 ``FusedDeviceEngine(device="cpu")`` runs every kernel's plain version; the
 reference engine runs its XLA formulation with the Pallas probe in
 interpret mode. Same streams, same dict tables: cuts, digests and probe
-answers must be identical, and the plan (buckets) too.
+answers must be identical, and the reference's bucket plan too.
 """
 
 import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from nydus_snapshotter_tpu.ops import fused_convert as jfc
 from nydus_snapshotter_tpu.parallel.sharded_dict import _build_host_tables as j_build
 from nydus_snapshotter_tpu.parallel.sharded_dict import _table_max_depth as j_depth
-from nydus_snapshotter_tpu_torch.ops import fused_convert
+from nydus_snapshotter_tpu_torch.ops import fused_convert, probe_cuda, sha256_cuda
 from nydus_snapshotter_tpu_torch.parallel.sharded_dict import from_tables
 
 # Small average chunk: many chunks per small stream, and short chunks keep
@@ -76,6 +77,56 @@ class TestFusedAgainstReference:
                 assert hashlib.sha256(s[prev:int(cut)]).digest() == d
                 prev = int(cut)
         assert port.stats["batches"] == 1 and port.stats["bytes"] == sum(map(len, streams))
+
+    def test_one_sha_launch_per_pass2(self, dict_tables, monkeypatch):
+        """Pass 2 digests every chunk in ONE sha256_chunks call over the
+        stream-order extents; its rows equal per-bucket calls of the
+        reference's plan, and the engine's results the reference's."""
+        src, _flat, keys, values, depth = dict_tables
+        streams = [src[1]] + _corpus(29, [70_000, 5, 12_345, 0, 41_000])
+        calls = []
+        real = sha256_cuda.sha256_chunks
+
+        def counted(*args):
+            calls.append(args[1].shape[0])
+            return real(*args)
+
+        monkeypatch.setattr(sha256_cuda, "sha256_chunks", counted)
+        port = fused_convert.FusedDeviceEngine(chunk_size=CHUNK, device="cpu")
+        cdict = from_tables(keys, values, depth, device="cpu")
+        got = port.process_many(streams, chunk_dict=cdict)
+        n_chunks = sum(len(c) for c in got.cuts)
+        assert calls == [n_chunks]
+
+        arrs = [np.frombuffer(s, np.uint8) for s in streams]
+        buf, table = port.layout(arrs)
+        buckets, order = port.plan_buckets(table, got.cuts)
+        assert len(buckets) > 2 and len(order) == n_chunks
+        buffer = torch.from_numpy(buf)
+        extents = port.chunk_extents(table, got.cuts)
+        assert extents.dtype == np.int32 and extents.shape == (2, n_chunks)
+        calls.clear()
+        states, probe = port.digest_probe(buffer, extents, cdict)
+        assert calls == [n_chunks] and states.shape == (n_chunks, 8)
+        tk, tv = cdict.device_tables()
+        per_bucket = {}
+        for b in buckets:
+            want = real(buffer, torch.from_numpy(b.offsets), torch.from_numpy(b.sizes))
+            wstart, off = probe_cuda.window_starts(want, cdict.capacity)
+            per_bucket[b.cap_blocks] = (
+                b, want, probe_cuda.probe_padded(tk, tv, want, wstart, off, depth)
+            )
+        for i, (cap, row) in enumerate(order):
+            b, want, want_probe = per_bucket[cap]
+            assert (extents[0, i], extents[1, i]) == (b.offsets[row], b.sizes[row])
+            assert torch.equal(states[i], want[row]) and probe[i] == want_probe[row]
+
+        ref = jfc.FusedDeviceEngine(chunk_size=CHUNK).process_many(
+            streams, chunk_dict=(keys, values), depth=depth, probe_kernel="pallas-interpret"
+        )
+        for i in range(len(streams)):
+            assert np.array_equal(got.cuts[i], ref.cuts[i]) and got.digests[i] == ref.digests[i]
+        assert np.array_equal(got.probe, ref.probe) and (got.probe > 0).any()
 
     def test_plan_matches_reference(self):
         streams = _corpus(19, [50_000, 9_000, 0, 33_000])
@@ -141,6 +192,6 @@ class TestFusedEdges:
     def test_dict_on_another_device_is_refused(self):
         eng = fused_convert.FusedDeviceEngine(chunk_size=CHUNK, device="cpu")
         d = from_tables(np.zeros((64, 8), np.uint32), np.zeros(64, np.int32), 1, device="cpu")
-        d.device = fused_convert.torch.device("meta")
+        d.device = torch.device("meta")
         with pytest.raises(ValueError):
             eng.process_many([b"x" * 100], chunk_dict=d)

@@ -21,6 +21,7 @@ from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
 from nydus_snapshotter_tpu_torch.tensors import to_u32
 
 RNG_SEED = 20261016
+TAIL = 31
 
 
 def _u32(t):
@@ -86,6 +87,72 @@ class TestBitmaps:
             gear_cuda.gear_bitmaps(x, 1, 1, 64)
         with pytest.raises(ValueError):
             gear_cuda.gear_bitmaps(torch.zeros((1, 40 + 31), dtype=torch.uint8), 1, 1, 40)
+
+
+def _runs_model(x: np.ndarray, mask_s: int, mask_l: int, n: int, run: int):
+    """numpy model of K1's schedule: each run of ``run`` positions starts
+    31 bytes before its first position with h = 0 and steps
+    h = (h << 1) + mix32(x) — the rolling recurrence, not the 32-term sum.
+    x u8[B, n+31] -> (u32[B, n/32], u32[B, n/32])."""
+    g = jgear.gear_table()[x]  # uint32[B, n+31]
+    starts = np.arange(0, n, run)
+    h = np.zeros((x.shape[0], starts.size), np.uint32)
+    hits_s = np.zeros((x.shape[0], n), bool)
+    hits_l = np.zeros((x.shape[0], n), bool)
+    for k in range(run + TAIL):
+        byte = np.minimum(starts + k, n + TAIL - 1)  # past the row: never kept
+        h = (h << np.uint32(1)) + g[:, byte]
+        if k < TAIL:
+            continue
+        pos = starts + k - TAIL
+        keep = pos < n
+        hits_s[:, pos[keep]] = (h[:, keep] & np.uint32(mask_s)) == 0
+        hits_l[:, pos[keep]] = (h[:, keep] & np.uint32(mask_l)) == 0
+
+    def pack(hits):
+        return np.packbits(hits, axis=1, bitorder="little").view("<u4").astype(np.uint32)
+
+    return pack(hits_s), pack(hits_l)
+
+
+class TestRunRecurrence:
+    """K1 runs the recurrence over runs of ``gear_cuda.RUN`` positions; the
+    identity it relies on, held against the reference's hashes and its
+    Pallas kernel on rows cut from one stream (seams between rows)."""
+
+    @pytest.mark.parametrize("kind", ["random", "resonant"])
+    def test_runs_match_gear_hashes_and_pallas(self, kind):
+        from nydus_snapshotter_tpu.scenario.corpus import cdc_resonant_data
+
+        rows = 3
+        run = gear_cuda.RUN
+        n = 32 * (gear_pallas.LANES * gear_pallas.ROWS_PER_TILE // 32 - 3)
+        assert n % 32 == 0 and n % run != 0
+        n_pallas = gear_pallas.LANES * gear_pallas.ROWS_PER_TILE
+        size = (rows - 1) * n + n_pallas
+        params = cdc.CDCParams(CHUNK)
+        ms, ml = params.mask_small, params.mask_large
+        if kind == "random":
+            stream = np.random.default_rng(RNG_SEED + 7).integers(0, 256, size, dtype=np.uint8)
+        else:  # every min_size unit ends in a small-mask hit
+            stream = np.frombuffer(cdc_resonant_data(5, size, CHUNK, "min"), np.uint8)
+        padded = np.concatenate([np.zeros(TAIL, np.uint8), stream])
+        # row i = the 31 bytes before stream[i*n] + the row's own bytes
+        x = np.stack([padded[i * n : i * n + n + TAIL] for i in range(rows)])
+        xp = np.stack([padded[i * n : i * n + n_pallas + TAIL] for i in range(rows)])
+
+        got_s, got_l = _runs_model(x, ms, ml, n, run)
+        hashes = jgear.gear_hashes_np(stream[: rows * n]).reshape(rows, n)
+        want_s = np.packbits((hashes & np.uint32(ms)) == 0, axis=1, bitorder="little").view("<u4")
+        want_l = np.packbits((hashes & np.uint32(ml)) == 0, axis=1, bitorder="little").view("<u4")
+        assert np.array_equal(got_s, want_s) and np.array_equal(got_l, want_l)
+        assert want_s.any()
+        ps, pl_ = gear_pallas.gear_bitmaps(jnp.asarray(xp), ms, ml, n_pallas, interpret=True)
+        assert np.array_equal(got_s, np.asarray(ps)[:, : n // 32])
+        assert np.array_equal(got_l, np.asarray(pl_)[:, : n // 32])
+        # and the port's plain version, at the kernel's shape
+        gs, gl = gear_cuda.gear_bitmaps(torch.from_numpy(x), ms, ml, n)
+        assert np.array_equal(_u32(gs), got_s) and np.array_equal(_u32(gl), got_l)
 
 
 def _corpus(kind: str, size: int, seed: int) -> bytes:

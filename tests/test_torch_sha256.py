@@ -109,6 +109,36 @@ class TestChunkDigests:
                 buf, torch.tensor([0], dtype=torch.int64), torch.tensor([1], dtype=torch.int32)
             )
 
+    def test_plain_slices_take_their_own_cap(self, monkeypatch):
+        """A long chunk among many short ones: the plain version pads each
+        slice to its own longest row, and the rows come back in order."""
+        rng = np.random.default_rng(7)
+        sizes = np.asarray([100, 5000, 0, 64, 130, 90, 119, 3, 120, 77, 1], np.int32)
+        buf = rng.integers(0, 256, int(sizes.sum()) + 64, dtype=np.uint8)
+        offs = np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int32) + 5
+        slices = []
+        real = sha256_cuda.gather_pack_sha
+
+        def recorded(b, o, s, cap):
+            slices.append((o.shape[0], cap))
+            return real(b, o, s, cap)
+
+        monkeypatch.setattr(sha256_cuda, "gather_pack_sha", recorded)
+        monkeypatch.setattr(sha256_cuda, "_PLAIN_SLICE_BYTES", 4 * 3 * 64)
+        got = to_u32(
+            sha256_cuda.sha256_chunks_plain(
+                torch.from_numpy(buf), torch.from_numpy(offs), torch.from_numpy(sizes)
+            )
+        )
+        for i, (o, s) in enumerate(zip(offs, sizes)):
+            assert sha256.digest_to_bytes(got[i]) == hashlib.sha256(buf[o : o + s].tobytes()).digest()
+        # the 79-block chunk alone, then the short rows padded to 3 blocks
+        # or fewer (never to 79), each slice within the slice budget
+        assert slices[0] == (1, 79)
+        assert sum(r for r, _ in slices) == len(sizes)
+        assert all(cap <= 3 and r * cap * 64 <= 4 * 3 * 64 for r, cap in slices[1:])
+        assert [cap for _, cap in slices] == sorted((cap for _, cap in slices), reverse=True)
+
     def test_empty_batch(self):
         out = sha256_cuda.sha256_chunks(
             torch.zeros(8, dtype=torch.uint8),
@@ -116,3 +146,23 @@ class TestChunkDigests:
             torch.zeros(0, dtype=torch.int32),
         )
         assert out.shape == (0, 8)
+
+
+class TestLongestFirst:
+    def test_perm_is_descending_permutation(self):
+        sizes = torch.from_numpy(np.asarray([5, 0, 4096, 64, 4096, 1, 0, 300], np.int32))
+        perm = sha256_cuda.longest_first(sizes)
+        assert perm.dtype == torch.int32
+        assert sorted(perm.tolist()) == list(range(sizes.numel()))
+        ordered = sizes[perm.long()].tolist()
+        assert ordered == sorted(sizes.tolist(), reverse=True)
+        # ties keep row order (stable), so the schedule is deterministic
+        assert perm.tolist()[:2] == [2, 4] and perm.tolist()[-2:] == [1, 6]
+
+    def test_digests_scattered_through_perm_equal_unpermuted(self):
+        buf, offs, sizes = _odd_extents(4)
+        tb, to, ts = torch.from_numpy(buf), torch.from_numpy(offs), torch.from_numpy(sizes)
+        perm = sha256_cuda.longest_first(ts).long()
+        out = torch.empty((len(offs), 8), dtype=torch.int32)
+        out[perm] = sha256_cuda.sha256_chunks(tb, to[perm], ts[perm])
+        assert torch.equal(out, sha256_cuda.sha256_chunks(tb, to, ts))
