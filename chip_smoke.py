@@ -26,12 +26,26 @@ Phases (any failure exits non-zero; nothing is caught):
    with chunks of sizes {0, 1, 55, 56, 63, 64, 119, 120, 4095, max} at
    offsets 0..3 mod 4 (256 bucket rows and every edge row also against
    hashlib; the edge rows' plain version runs on the host copy of the
-   buffer). K3: every query of phase 2;
+   buffer). K3: every query of phase 2, and hand-made padded tables at
+   depths 1, 15, 16, 17, 54, 64 and 256 (hits at chain rows 0, 15, 16, 17
+   and depth - 1, a key-equal row of value 0 ahead of the real match,
+   all-zero queries against empty rows, a chain from slot C - 1 that ends
+   on the table's last row, misses);
 4. pack — ``pack_layer`` over a ~256 MiB node:21-shaped tar, fused backend
    against the numpy (host) backend: blob, bootstrap and blob id identical;
-5. timings — CUDA events, median of 5 runs after a warm-up; end-to-end
-   GiB/s of ``process_many`` with its pass1/host/pass2 split, and the
-   device's busy share of it from one torch.profiler trace.
+5. timings — each kernel alone (``kernel_ms``: many launches of its C entry
+   with pointers prepared in advance, between two CUDA events) and through
+   its wrapper (``call_ms``: one call between two events, median of 5 after
+   a warm-up, checks and host syncs included); end-to-end GiB/s of
+   ``process_many`` with its pass1/host/pass2 split, and the device's busy
+   share of it from one torch.profiler trace;
+6. registry — K3's second workload, the JAX package's registry-scale dict
+   (tools/registry_scale.py): 32,000,000 digests from
+   ``default_rng(42)``, 2,000,000 queries (1M planted rows, then 1M random
+   digests) through one ``ShardedChunkDict.lookup_u32``; K3 must launch
+   once, every planted query answer its insertion index, every answer
+   equal the plain version on the card and a 65,536-query sample the host
+   probe.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -63,6 +77,16 @@ K1_SLICE = 64 << 20
 K2_PLAIN_MAX_CAP = 128  # the plain SHA-256 loops in Python per 64-byte block
 REPS = 5
 DEVICE = "cuda"
+
+# K3's registry-scale workload: tools/registry_scale.py's deployment.
+REGISTRY_SEED = 42
+REGISTRY_ENTRIES = 32_000_000
+REGISTRY_QUERIES = 2_000_000
+REGISTRY_SAMPLE = 65_536  # queries also checked against the host probe
+PLAIN_SLICE_QUERIES = 1 << 18  # the plain probe gathers [Q, depth, 8] per slice
+K3_EDGE_DEPTHS = (1, 15, 16, 17, 54, 64, 256)
+K3_FIRST_STEP = 16  # chain rows of K3's first step (csrc/probe.cu kFirstRows)
+L2_FLUSH_BYTES = 128 << 20  # written before a cold launch: > the 50 MB L2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes per clock
@@ -198,6 +222,67 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def c_launch(kernel, *args):
+    """A launch of ``kernel``'s C entry with ``args`` (tensors become their
+    pointers now) on the current stream; the closure keeps the tensors
+    alive."""
+    import torch
+
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    ptrs.append(torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        kernel.launch(*ptrs)
+
+    launch.tensors = args
+    return launch
+
+
+def kernel_ms(launch, n: int, sm_hz: float, flush=None, reps: int = 3) -> float:
+    """Kernel-alone ms per launch: ``n`` back-to-back ``launch()`` calls
+    between two CUDA events, divided by ``n``; median of ``reps`` after a
+    warm-up.
+
+    ``launch`` calls a kernel's C entry directly, with pointers prepared in
+    advance: no wrapper checks, no host sync. A spin kernel holds the stream
+    while the host enqueues all ``n`` launches, so the host's launch cost
+    stays out of the window; the hold doubles until the enqueue fits in
+    it. With ``flush`` (called before each launch to evict the L2), each
+    launch is timed by its own pair of events and the pairs are summed."""
+    import torch
+
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    hold_s = 1e-3 + n * 50e-6
+    times = []
+    while len(times) < reps:
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(n if flush else 1)]
+        torch.cuda._sleep(int(hold_s * sm_hz))
+        t0 = time.perf_counter()
+        if flush is None:
+            pairs[0][0].record()
+            for _ in range(n):
+                launch()
+            pairs[0][1].record()
+        else:
+            for start, end in pairs:
+                flush()
+                start.record()
+                launch()
+                end.record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue_s > 0.8 * hold_s:  # the card may have waited on the host
+            hold_s *= 2
+            if hold_s > 2.0:
+                raise AssertionError(f"the host took {enqueue_s:.3f} s to enqueue {n} launches")
+            continue
+        times.append(sum(s.elapsed_time(e) for s, e in pairs) / n)
+    return float(np.median(times))
+
+
 def max_abs_err(got, want) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -223,6 +308,103 @@ def host_probe(keys: np.ndarray, values: np.ndarray, q: np.ndarray, depth: int):
     ans = np.where(found, vals[np.arange(len(q)), first], 0).astype(np.int32)
     rows = np.where(found, first + 1, depth)
     return ans, rows
+
+
+def k3_edge_case(depth: int, rng):
+    """A hand-made table for K3 at ``depth`` -> (keys u32[C,8], values
+    i32[C], queries u32[Q,8], expected answers i32[Q]).
+
+    C = 1024 slots of random keys and values, rows 0..7 empty (key 0,
+    value 0). Planted: hits at chain rows 0, 15, 16, 17 and depth - 1 (those
+    below depth), from random slots and from slot C - 1 (its chain wraps);
+    a key-equal row of value 0 ahead of the real match; all-zero queries
+    (answer 0: only empty rows hold a zero key); random misses. Planted
+    rows never overlap, so each planted query's answer is known."""
+    cap = 1024
+    keys = rng.integers(1, 2**32, (cap, 8), dtype=np.uint32)
+    values = rng.integers(1, 2**31 - 1, cap, dtype=np.int64).astype(np.int32)
+    keys[:8], values[:8] = 0, 0
+    used = set(range(8))
+    queries, want = [], []
+
+    def plant(slot0: int, rows: list[int], vals: list[int]) -> bool:
+        slots = [(slot0 + r) % cap for r in rows]
+        if used.intersection(slots):
+            return False
+        q = rng.integers(0, 2**32, 8, dtype=np.uint32)
+        q[1] = np.uint32(slot0 + cap * int(rng.integers(0, 2**20)))
+        for s, v in zip(slots, vals):
+            keys[s], values[s] = q, v
+        used.update(slots)
+        queries.append(q)
+        want.append(vals[-1])
+        return True
+
+    hit_rows = sorted({r for r in (0, 15, 16, 17, depth - 1) if r < depth})
+    for r in hit_rows:
+        for slot0 in (cap - 1, None, None):
+            while not plant(cap - 1 if slot0 else int(rng.integers(8, cap)), [r],
+                            [int(rng.integers(1, 2**31 - 1))]):
+                if slot0:  # slot C - 1 is taken by an earlier row's plant
+                    break
+    if depth >= 2:  # key-equal, value 0 at a row ahead of the real match
+        for lo, hi in sorted({(0, depth - 1), (depth // 3, depth - 1),
+                              (max(0, K3_FIRST_STEP - 2), depth - 1)}):
+            if lo < hi:
+                while not plant(int(rng.integers(8, cap)), [lo, hi], [0, int(rng.integers(1, 2**31 - 1))]):
+                    pass
+    for _ in range(4):  # all-zero queries: chains through the empty rows
+        queries.append(np.zeros(8, np.uint32))
+        want.append(0)
+    for _ in range(8):  # misses
+        queries.append(rng.integers(0, 2**32, 8, dtype=np.uint32))
+        want.append(0)
+    return keys, values, np.stack(queries), np.asarray(want, np.int32)
+
+
+def plain_sliced(keys_pad, vals_pad, q, wstart, off, depth: int):
+    """K3's plain version over slices of the queries (its gather is
+    [Q, depth, 8])."""
+    import torch
+
+    from nydus_snapshotter_tpu_torch.ops import probe_cuda
+
+    return torch.cat([
+        probe_cuda.probe_padded_plain(keys_pad, vals_pad, q[s:s + PLAIN_SLICE_QUERIES],
+                                      wstart[s:s + PLAIN_SLICE_QUERIES],
+                                      off[s:s + PLAIN_SLICE_QUERIES], depth)
+        for s in range(0, q.shape[0], PLAIN_SLICE_QUERIES)
+    ])
+
+
+def chain_stats(keys_pad, vals_pad, q, wstart, off, depth: int) -> dict:
+    """Chain rows a probe of these queries examines (a hit stops at its
+    row, a miss walks the whole chain), and where the hits sit; on the
+    queries' device, in slices."""
+    import torch
+
+    rows_total, hits, within_first, deepest = 0, 0, 0, -1
+    ar = torch.arange(depth, dtype=torch.int64, device=q.device)
+    for s in range(0, q.shape[0], PLAIN_SLICE_QUERIES):
+        e = s + PLAIN_SLICE_QUERIES
+        rows = (wstart[s:e].long() + off[s:e])[:, None] + ar
+        match = (keys_pad[rows] == q[s:e, None, :]).all(dim=2) & (vals_pad[rows] != 0)
+        found = match.any(dim=1)
+        first = match.to(torch.int32).argmax(dim=1)
+        rows_total += int(torch.where(found, first + 1, depth).sum())
+        hits += int(found.sum())
+        within_first += int((found & (first < K3_FIRST_STEP)).sum())
+        if found.any():
+            deepest = max(deepest, int(first[found].max()))
+    return {"rows": rows_total, "hits": hits, "hits_in_first_step": within_first,
+            "deepest_hit_row": deepest}
+
+
+def k3_bound(n_queries: int, rows: float, hits: float, int_ops_per_s: float):
+    """K3's bound: each query's 32 B digest and 8 B of chain start in, 4 B
+    of answer out, 32 B per chain row examined and 4 B of value per hit."""
+    return bound_ms(n_queries * (32 + 8 + 4) + rows * 32 + hits * 4,
+                    rows * K3_OPS_PER_ROW, int_ops_per_s)
 
 
 def device_busy(fn) -> tuple[float, dict[str, float]]:
@@ -311,6 +493,88 @@ def round_cycles(probe) -> float:
     return int(cycles.item()) / ROUND_PROBE_STEPS
 
 
+def registry_workload():
+    """tools/registry_scale.py's dict and queries -> (digests u32[N,8],
+    planted rows i64[M/2], queries u32[M,8]: the planted rows' digests, then
+    random digests)."""
+    n, m = REGISTRY_ENTRIES, REGISTRY_QUERIES
+    rng = np.random.default_rng(REGISTRY_SEED)
+    digests = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    hit_rows = rng.choice(n, m // 2, replace=False)
+    queries = np.concatenate(
+        [digests[hit_rows], rng.integers(0, 2**32, (m - m // 2, 8), dtype=np.uint32)]
+    )
+    return digests, hit_rows, queries
+
+
+def registry_phase(dev, int_ops_per_s: float, sm_hz: float) -> dict:
+    """Phase 6: K3 at registry scale, the JAX package's
+    tools/registry_scale.py deployment, through ``lookup_u32``."""
+    import torch
+
+    from nydus_snapshotter_tpu_torch.ops import probe_cuda
+    from nydus_snapshotter_tpu_torch.parallel import sharded_dict
+    from nydus_snapshotter_tpu_torch.tensors import from_u32
+
+    t0 = time.perf_counter()
+    n, m = REGISTRY_ENTRIES, REGISTRY_QUERIES
+    digests, hit_rows, queries = registry_workload()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cdict = sharded_dict.ShardedChunkDict(digests, device=dev)
+    build_s = time.perf_counter() - t0
+    del digests
+    keys, values, depth, _epoch = cdict.fused_probe_tables()
+    t0 = time.perf_counter()
+    tk, tv = cdict.device_tables()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+
+    probe_cuda.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    got = cdict.lookup_u32(queries)
+    lookup_s = time.perf_counter() - t0
+    launches = probe_cuda.KERNEL.launches
+    if launches != 1:
+        raise AssertionError(f"K3 launched {launches} times in one lookup_u32")
+    if not np.array_equal(got[: m // 2], hit_rows):
+        raise AssertionError("a planted query does not answer its insertion index")
+    qd = from_u32(queries, dev)
+    ws, off = probe_cuda.window_starts(qd, cdict.capacity)
+    if not np.array_equal(plain_sliced(tk, tv, qd, ws, off, depth).cpu().numpy() - 1, got):
+        raise AssertionError("K3 differs from its plain version at registry scale")
+    sample = np.random.default_rng(REGISTRY_SEED + 1).choice(m, REGISTRY_SAMPLE, replace=False)
+    want, _ = host_probe(keys, values, queries[sample], depth)
+    if not np.array_equal(want.astype(np.int64) - 1, got[sample]):
+        raise AssertionError("K3 differs from the host probe on the registry sample")
+    st = chain_stats(tk, tv, qd, ws, off, depth)
+
+    k_ms = kernel_ms(c_launch(probe_cuda.KERNEL, tk, tv, qd, ws, off, torch.empty_like(ws), m,
+                              depth), 20, sm_hz)
+    call_ms = cuda_ms(lambda: probe_cuda.probe_padded(tk, tv, qd, ws, off, depth))
+    plain_ms = cuda_ms(lambda: plain_sliced(tk, tv, qd, ws, off, depth), reps=3)
+    bound = k3_bound(m, st["rows"], st["hits"], int_ops_per_s)
+    log(f"[6] registry dict: {n} digests (default_rng({REGISTRY_SEED})), {cdict.capacity} slots "
+        f"({keys.nbytes >> 20} MiB of keys), max chain {depth}; generated in {gen_s:.1f} s, "
+        f"built in {build_s:.1f} s, padded and uploaded in {upload_s:.2f} s")
+    log(f"[6] registry lookup_u32: {m} queries in one call, {launches} K3 launch, "
+        f"{lookup_s * 1e3:.1f} ms wall = {m / lookup_s / 1e6:.2f} M queries/s; {st['hits']} hits, "
+        f"every planted query == its insertion index, every answer == the plain version, "
+        f"{REGISTRY_SAMPLE} sampled == host probe; {st['rows']} chain rows examined, "
+        f"{st['hits_in_first_step']} hits in the first {K3_FIRST_STEP} rows, deepest hit row "
+        f"{st['deepest_hit_row']}")
+    log(f"[6] registry K3: kernel {k_ms:.4f} ms, call {call_ms:.4f} ms (plain {plain_ms:.2f} ms, "
+        f"bound {bound[0]:.4f} ms by {bound[1]}: {k_ms / bound[0]:.2f}x)")
+    return {
+        "queries": m, "entries": n, "capacity": cdict.capacity, "depth": depth,
+        "launches": launches, "kernel_ms": k_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "lookup_ms": lookup_s * 1e3,
+        "queries_per_s": m / lookup_s, "chain_rows": st["rows"], "hits": st["hits"],
+        "hits_in_first_step": st["hits_in_first_step"], "deepest_hit_row": st["deepest_hit_row"],
+        "build_s": build_s, "upload_s": upload_s,
+    }
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -326,7 +590,7 @@ def main() -> int:
             cdc, cuda_build, fused_convert, gear_cuda, probe_cuda, sha256, sha256_cuda,
         )
         from nydus_snapshotter_tpu_torch.parallel import sharded_dict
-        from nydus_snapshotter_tpu_torch.tensors import to_u32
+        from nydus_snapshotter_tpu_torch.tensors import from_u32, to_u32
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 2
@@ -531,6 +795,23 @@ def main() -> int:
     k3 = probe_cuda.probe_padded(*k3_args)
     k3_plain = probe_cuda.probe_padded_plain(*k3_args)
     k3_err = max_abs_err(k3, k3_plain)
+    # Edge tables, each cut to C - 1 + depth rows so that the chain from
+    # slot C - 1 ends on the table's last row.
+    n_edge_q = 0
+    for edge_depth in K3_EDGE_DEPTHS:
+        ek, ev, eq, ewant = k3_edge_case(edge_depth, rng)
+        cap = ek.shape[0]
+        ekp, evp = probe_cuda.pad_tables(ek, ev, edge_depth)
+        ekp = from_u32(ekp[: cap - 1 + edge_depth], dev)
+        evp = torch.from_numpy(evp.reshape(-1)[: cap - 1 + edge_depth].copy()).to(dev)
+        eqd = from_u32(eq, dev)
+        ews, eoff = probe_cuda.window_starts(eqd, cap)
+        got = probe_cuda.probe_padded(ekp, evp, eqd, ews, eoff, edge_depth)
+        k3_err = max(k3_err, max_abs_err(got, probe_cuda.probe_padded_plain(
+            ekp, evp, eqd, ews, eoff, edge_depth)))
+        if not np.array_equal(got.cpu().numpy(), ewant):
+            raise AssertionError(f"K3 edge table at depth {edge_depth}: planted answers differ")
+        n_edge_q += len(eq)
     torch.cuda.synchronize()
     for label, err in (("K1", k1_err), ("K2", k2_err), ("K3", k3_err)):
         if err != 0:
@@ -540,8 +821,9 @@ def main() -> int:
         f"{kb.cap_blocks} blocks ({kb.count} chunks + {nk - kb.count} pad rows) + "
         f"{len(e_sizes)} edge chunks ({int(short.sum())} up to 4095 bytes, "
         f"{int((~short).sum())} of {p.max_size}; their plain version on the host); 256 sampled "
-        f"rows and every edge row == hashlib; K3 over {allq.shape[0]} queries, depth {depth}; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"rows and every edge row == hashlib; K3 over {allq.shape[0]} queries, depth {depth}, "
+        f"and {n_edge_q} queries on edge tables at depths {K3_EDGE_DEPTHS} (planted answers "
+        f"as expected); {time.perf_counter() - t0:.1f} s")
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -561,16 +843,38 @@ def main() -> int:
         f"{t_fused:.2f} s, numpy {t_numpy:.2f} s")
 
     # -- 5. timings --------------------------------------------------------
-    k1_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps(*k1_args))
-    k1_plain_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps_plain(*k1_args))
-    k1_main_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps(rows_full, p.mask_small, p.mask_large, W))
-    k2_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(*k2_args))
-    k2_plain_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks_plain(*k2_args))
-    k2_main_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, all_offs, all_sizes_dev))
+    sm_hz = max_sm_mhz * 1e6
+
+    def k1_c(x):  # K1's C entry over rows x, outputs allocated here
+        o = torch.empty((2, x.shape[0], W // 32), dtype=torch.int32, device=dev)
+        return c_launch(gear_cuda.KERNEL, x, o[0], o[1], x.shape[0], W, p.mask_small, p.mask_large)
+
+    def k2_c(offs, sizes):  # K2's C entry; its row order computed once, here
+        out = torch.empty((offs.shape[0], 8), dtype=torch.int32, device=dev)
+        return c_launch(sha256_cuda.KERNEL, buffer_dev, offs, sizes,
+                        sha256_cuda.longest_first(sizes), out, offs.shape[0])
+
     top_row = int(all_sizes_dev.argmax())  # the longest chunk alone: one thread's chain
-    k2_longest_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(
-        buffer_dev, all_offs[top_row:top_row + 1], all_sizes_dev[top_row:top_row + 1]))
-    k3_ms = cuda_ms(lambda: probe_cuda.probe_padded(*k3_args))
+    longest_args = (all_offs[top_row:top_row + 1], all_sizes_dev[top_row:top_row + 1])
+    l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    k1_ms = kernel_ms(k1_c(rows_k1), 100, sm_hz)
+    k1_main_ms = kernel_ms(k1_c(rows_full), 20, sm_hz)
+    k2_ms = kernel_ms(k2_c(koffs, ksizes), 50, sm_hz)
+    k2_main_ms = kernel_ms(k2_c(all_offs, all_sizes_dev), 10, sm_hz)
+    k2_longest_ms = kernel_ms(k2_c(*longest_args), 10, sm_hz)
+    k3_launch = c_launch(probe_cuda.KERNEL, tk, tv, allq, wstart, off,
+                         torch.empty_like(wstart), allq.shape[0], depth)
+    k3_ms = kernel_ms(k3_launch, 200, sm_hz)
+    k3_cold_ms = kernel_ms(k3_launch, 100, sm_hz, flush=l2_flush.zero_)
+    del l2_flush
+    k1_call_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps(*k1_args))
+    k1_plain_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps_plain(*k1_args))
+    k1_main_call_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps(rows_full, p.mask_small, p.mask_large, W))
+    k2_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(*k2_args))
+    k2_plain_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks_plain(*k2_args))
+    k2_main_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, all_offs, all_sizes_dev))
+    k2_longest_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, *longest_args))
+    k3_call_ms = cuda_ms(lambda: probe_cuda.probe_padded(*k3_args))
     k3_plain_ms = cuda_ms(lambda: probe_cuda.probe_padded_plain(*k3_args))
 
     e2e, splits = [], []
@@ -584,7 +888,8 @@ def main() -> int:
     e2e_s = float(np.median(e2e))
     split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
     log(f"[5] process_many: median {e2e_s:.3f} s over {REPS} runs -> "
-        f"{n_bytes / 2**30 / e2e_s:.3f} GiB/s end to end; pass1 {split['pass1_s']:.3f} s, "
+        f"{n_bytes / 2**30 / e2e_s:.3f} GiB/s end to end (runs: "
+        + ", ".join(f"{x:.3f}" for x in e2e) + f" s); pass1 {split['pass1_s']:.3f} s, "
         f"host {split['host_s']:.3f} s, pass2 {split['pass2_s']:.3f} s")
     busy_ms, by_name = device_busy(
         lambda: eng.process_many(files, chunk_dict=cdict)
@@ -597,63 +902,70 @@ def main() -> int:
 
     k1_pos = rows_k1.shape[0] * W
     k1_bound = bound_ms(rows_k1.numel() + 2 * k1_pos / 8, k1_pos * K1_OPS_PER_POS, int_ops_per_s)
-    sm_hz = max_sm_mhz * 1e6
     k2_blocks = float(sha_blocks(kb.sizes).sum())
     k2_bd = k2_bound(kb.sizes, int_ops_per_s, sm_hz, rc)
     q_all = to_u32(allq)
     _, rows_seen = host_probe(keys, values, q_all, depth)
-    k3_hits = to_u32(k3).astype(bool)
-    k3_bytes = len(q_all) * (32 + 8 + 4) + float(rows_seen.sum()) * 32 + float(k3_hits.sum()) * 4
-    k3_bound = bound_ms(k3_bytes, float(rows_seen.sum()) * K3_OPS_PER_ROW, int_ops_per_s)
+    k3_bd = k3_bound(len(q_all), float(rows_seen.sum()), float(to_u32(k3).astype(bool).sum()),
+                     int_ops_per_s)
     main_pos = rows_full.shape[0] * W
     k1_main_bound = bound_ms(rows_full.numel() + 2 * main_pos / 8, main_pos * K1_OPS_PER_POS, int_ops_per_s)
     all_sizes = extents[1]
     k2_main_bd = k2_bound(all_sizes, int_ops_per_s, sm_hz, rc)
     longest = int(sha_blocks(all_sizes).max())
-    log(f"[5] K1 gear_bitmaps: {k1_ms:.4f} ms over {k1_pos} positions (plain {k1_plain_ms:.3f} ms, "
-        f"bound {k1_bound[0]:.4f} ms by {k1_bound[1]}); whole main-path buffer "
-        f"{rows_full.shape[0]} x {W}: {k1_main_ms:.4f} ms (bound {k1_main_bound[0]:.4f} ms), "
+    log(f"[5] K1 gear_bitmaps over {k1_pos} positions: kernel {k1_ms:.4f} ms, call "
+        f"{k1_call_ms:.4f} ms (plain {k1_plain_ms:.3f} ms, bound {k1_bound[0]:.4f} ms by "
+        f"{k1_bound[1]}); whole main-path buffer {rows_full.shape[0]} x {W}: kernel "
+        f"{k1_main_ms:.4f} ms, call {k1_main_call_ms:.4f} ms (bound {k1_main_bound[0]:.4f} ms), "
         f"1 launch per process_many")
-    log(f"[5] K2 sha256_chunks: {k2_ms:.4f} ms over bucket cap {kb.cap_blocks} "
-        f"({int(k2_blocks)} blocks; plain {k2_plain_ms:.3f} ms, bound {k2_bd[0]:.4f} ms: "
-        f"throughput term {k2_bd[2]:.4f} ms, serial term {k2_bd[4]:.4f} ms); all "
-        f"{len(all_sizes)} chunks of one process_many (longest {longest} blocks) in "
-        f"{launches['sha']} launch: {k2_main_ms:.4f} ms (bound {k2_main_bd[0]:.4f} ms: throughput "
-        f"term {k2_main_bd[2]:.4f} ms by {k2_main_bd[3]}, serial term {k2_main_bd[4]:.4f} ms = "
-        f"{longest} blocks x 64 rounds x {rc:.3f} cycles (measured, {K2_ROUND_DEPTH} dependent "
-        f"instructions) at {max_sm_mhz:.0f} MHz; the "
-        f"{'serial' if k2_main_bd[4] > k2_main_bd[2] else 'throughput'} term bounds); the longest "
-        f"chunk alone: {k2_longest_ms:.4f} ms = "
-        f"{k2_longest_ms * 1e-3 * max_sm_mhz * 1e6 / longest:.0f} cycles per block at the max clock")
-    log(f"[5] K3 probe_padded: {k3_ms:.4f} ms over {len(q_all)} queries "
-        f"({int(rows_seen.sum())} chain rows; plain {k3_plain_ms:.3f} ms, bound "
-        f"{k3_bound[0]:.4f} ms by {k3_bound[1]}), 1 launch per process_many")
+    log(f"[5] K2 sha256_chunks over bucket cap {kb.cap_blocks} ({int(k2_blocks)} blocks): kernel "
+        f"{k2_ms:.4f} ms, call {k2_call_ms:.4f} ms (plain {k2_plain_ms:.3f} ms, bound "
+        f"{k2_bd[0]:.4f} ms: throughput term {k2_bd[2]:.4f} ms, serial term {k2_bd[4]:.4f} ms); "
+        f"all {len(all_sizes)} chunks of one process_many (longest {longest} blocks) in "
+        f"{launches['sha']} launch: kernel {k2_main_ms:.4f} ms, call {k2_main_call_ms:.4f} ms "
+        f"(bound {k2_main_bd[0]:.4f} ms: throughput term {k2_main_bd[2]:.4f} ms by "
+        f"{k2_main_bd[3]}, serial term {k2_main_bd[4]:.4f} ms = {longest} blocks x 64 rounds x "
+        f"{rc:.3f} cycles (measured, {K2_ROUND_DEPTH} dependent instructions) at "
+        f"{max_sm_mhz:.0f} MHz; the {'serial' if k2_main_bd[4] > k2_main_bd[2] else 'throughput'} "
+        f"term bounds); the longest chunk alone: kernel {k2_longest_ms:.4f} ms = "
+        f"{k2_longest_ms * 1e-3 * sm_hz / longest:.0f} cycles per block at the max clock, call "
+        f"{k2_longest_call_ms:.4f} ms")
+    log(f"[5] K3 probe_padded over {len(q_all)} queries ({int(rows_seen.sum())} chain rows, depth "
+        f"{depth}): kernel {k3_ms:.4f} ms back to back (L2 warm), {k3_cold_ms:.4f} ms after an "
+        f"L2 flush, call {k3_call_ms:.4f} ms (plain {k3_plain_ms:.3f} ms, bound "
+        f"{k3_bd[0]:.4f} ms by {k3_bd[1]}), 1 launch per process_many")
 
-    def row(key, name, source, replaces, err, ms, plain, bound, main_ms, main_bound, work, **extra):
+    # -- 6. registry -------------------------------------------------------
+    registry = registry_phase(dev, int_ops_per_s, sm_hz)
+
+    def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
+            main_bound, work, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "launches": launches[key], "max_abs_err": err, "ms": kern, "plain_ms": plain,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "status": "ported: built, equal to plain, launched on the main path",
-            "work": work, "main_path_ms": main_ms, "main_path_bound_ms": main_bound[0], **extra,
+            "work": work, "kernel_ms": kern, "call_ms": call, "main_path_kernel_ms": main_kern,
+            "main_path_call_ms": main_call, "main_path_bound_ms": main_bound[0], **extra,
         }
 
     pkg = "nydus_snapshotter_tpu_torch/csrc/"
     line = {"kernels": [
         row("gear", "gear_bitmaps", pkg + "gear_bitmaps.cu",
-            "nydus_snapshotter_tpu/ops/gear_pallas.py:115", k1_err, k1_ms, k1_plain_ms,
-            k1_bound, k1_main_ms, k1_main_bound, f"{rows_k1.shape[0]}x{W} positions"),
+            "nydus_snapshotter_tpu/ops/gear_pallas.py:115", k1_err, k1_ms, k1_call_ms, k1_plain_ms,
+            k1_bound, k1_main_ms, k1_main_call_ms, k1_main_bound, f"{rows_k1.shape[0]}x{W} positions"),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
-            "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_plain_ms,
-            k2_bd, k2_main_ms, k2_main_bd,
+            "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
+            k2_bd, k2_main_ms, k2_main_call_ms, k2_main_bd,
             f"bucket cap {kb.cap_blocks}: {len(kb.sizes)} rows, {int(k2_blocks)} blocks",
             bound_terms_ms={"throughput": k2_bd[2], "serial": k2_bd[4]},
             main_path_bound_terms_ms={"throughput": k2_main_bd[2], "serial": k2_main_bd[4]},
-            longest_chunk_ms=k2_longest_ms, longest_chunk_blocks=longest,
-            round_cycles=rc, round_depth=K2_ROUND_DEPTH),
+            longest_chunk_kernel_ms=k2_longest_ms, longest_chunk_call_ms=k2_longest_call_ms,
+            longest_chunk_blocks=longest, round_cycles=rc, round_depth=K2_ROUND_DEPTH),
         row("probe", "probe_padded", pkg + "probe.cu",
-            "nydus_snapshotter_tpu/ops/probe_pallas.py:151", k3_err, k3_ms, k3_plain_ms,
-            k3_bound, k3_ms, k3_bound, f"{len(q_all)} queries, depth {depth}"),
+            "nydus_snapshotter_tpu/ops/probe_pallas.py:151", k3_err, k3_ms, k3_call_ms, k3_plain_ms,
+            k3_bd, k3_ms, k3_call_ms, k3_bd, f"{len(q_all)} queries, depth {depth}",
+            kernel_cold_ms=k3_cold_ms, registry=registry),
     ]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -1,68 +1,221 @@
 // K3 — open-addressing chunk-dict probe over the wrap-free padded table.
 //
 // Replaces: nydus_snapshotter_tpu/ops/probe_pallas.py `_kernel` (launched by
-// `probe_padded`, wrapped by `probe`). Same function: the table is
-// `pad_tables`' layout, keys u32[C + W, 8] and values i32[C + W] (the head
-// replicated after the end), so the chain of query q — rows
-// wstart[q] + off[q] + r for r < depth — never wraps. The answer is the
-// value of the first chain row whose key equals the query AND whose value
-// is not 0 (values are dict index + 1); a miss answers 0. A row with value
-// 0 never matches, so an empty slot's all-zero key cannot hit a zero query.
+// `probe_padded`, line 151). Same function: the table is `pad_tables`'
+// layout, keys u32[C + W, 8] and values i32[C + W] (the head replicated
+// after the end), so the chain of query q — rows wstart[q] + off[q] + r for
+// r < depth — never wraps. The answer is the value of the first chain row
+// whose key equals the query AND whose value is not 0 (values are dict
+// index + 1); a miss answers 0. A row with value 0 never matches, so an
+// empty slot's all-zero key cannot hit a zero query. There is no early stop
+// at an empty slot (the reference has none): a miss walks its whole chain.
 //
 // Bound on this card: bytes. Each chain row examined reads 32 key bytes
-// and (on a key match) 4 value bytes, at random table positions, against
-// a handful of compares.
+// (4 more for a hit's value) at a random table position, against a handful
+// of compares; at registry scale (2^26 slots, 2M queries) that is ~1.9 GB.
 //
-// Design: a group of 8 threads per query, one digest word each, so every
-// 32-byte row read is one coalesced sector. `__ballot_sync` over the
-// group's 8 lanes gives the row's equality; the group stops at its first
-// match. Occupancy (many groups in flight per SM) hides the row latency
-// that the TPU kernel hid with explicit DMA windows.
+// Design: the chain rows of a query are contiguous and their addresses are
+// known before any compare, so every load of a step is issued before the
+// first compare, the counterpart of the TPU kernel's whole-window DMAs.
+// - A query is a warp. Two lanes share a 32-byte row, each reading one
+//   16-byte half with a 128-bit read-only load, so one load instruction
+//   reads 16 contiguous rows (512 B).
+// - The first step reads chain rows [0, 16): at registry scale 99.95% of
+//   hits sit there. A chain that did not answer goes on in steps of 4
+//   loads a lane (64 rows), for any depth. Lanes past row0 + depth are
+//   masked off.
+// - A row matches when both halves equal the query's (one __shfl_xor_sync
+//   pairs them). Only a key-equal row's value is loaded, in one trip for
+//   all such rows of the step; the first with value != 0 in chain order
+//   (__ffs of a ballot, load by load) answers.
+// - Latency: up to 64 warps (32 registers) on an SM, each with 512 B to
+//   2 KB in flight: above the ~20 KB per SM that 3.35 TB/s x ~0.8 us of
+//   latency over 132 SMs asks for, so at registry scale the kernel is
+//   bound by bytes. A short batch (the main path's 38 592 queries) is
+//   bound by its dependent trips: the query, the first step, then the
+//   value or the next step.
+// Variants, measured against each other by tools/torch_probe_variants.py
+// on an H100 (PERF.md): 16 or 8 lanes per query (NTPU_PROBE_LANES; 40 and
+// 44 registers) tie with the warp within 3% on both workloads, so the
+// warp stays, with the fewest registers and one load a lane in the first
+// step; loading every row's value with its key (NTPU_PROBE_VALUES_WITH_KEYS)
+// saves a hit one trip but moves 0.28 GB more at registry scale and is
+// ~10% slower there; persistent groups that keep the next query's first
+// step in flight (NTPU_PROBE_PIPELINE) take 57 registers, halve the
+// resident warps and lose on both workloads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef NTPU_PROBE_LANES
+#define NTPU_PROBE_LANES 32
+#endif
+#ifndef NTPU_PROBE_VALUES_WITH_KEYS
+#define NTPU_PROBE_VALUES_WITH_KEYS 0
+#endif
+#ifndef NTPU_PROBE_PIPELINE
+#define NTPU_PROBE_PIPELINE 0
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;  // 32 queries per block
+constexpr int kThreads = 256;
+constexpr int kLanes = NTPU_PROBE_LANES;  // lanes per query
+constexpr int kRowsPerLoad = kLanes / 2;  // rows one load instruction of a group reads
+constexpr int kFirstRows = 16;            // chain rows of the first step
+constexpr int kStepLoads = 4;             // loads a lane in each later step
+constexpr int kStepRows = kStepLoads * kRowsPerLoad;  // chain rows of a later step
+constexpr bool kValuesWithKeys = NTPU_PROBE_VALUES_WITH_KEYS != 0;
+constexpr bool kPipeline = NTPU_PROBE_PIPELINE != 0;
+static_assert(kLanes == 8 || kLanes == 16 || kLanes == 32, "a query is 8, 16 or 32 lanes");
 
-__global__ void __launch_bounds__(kThreads)
-probe_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ vals,
-             const uint32_t* __restrict__ q, const int32_t* __restrict__ wstart,
-             const int32_t* __restrict__ off, int32_t* __restrict__ out,
-             int64_t nq, int depth) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t qi = tid >> 3;
-  if (qi >= nq) return;  // whole groups of 8 leave together
-  const int word = threadIdx.x & 7;
-  const unsigned gmask = 0xFFu << (threadIdx.x & 24);
-  const uint32_t qw = q[qi * 8 + word];
-  const int64_t row0 = static_cast<int64_t>(wstart[qi]) + off[qi];
-  int32_t res = 0;
-  for (int r = 0; r < depth; ++r) {
-    const int64_t row = row0 + r;
-    const unsigned eq = __ballot_sync(gmask, keys[row * 8 + word] == qw) & gmask;
-    if (eq == gmask) {  // uniform across the group
-      const int32_t v = vals[row];
-      if (v != 0) {
-        res = v;
-        break;
-      }
+struct Group {
+  const uint4* keys;  // the key table as 16-byte half-rows
+  const int32_t* vals;
+  int64_t row0;       // the query's first chain row
+  int depth;
+  uint4 half;         // this lane's half of the query digest
+  int sub;            // this lane's row within one load of the group
+  int side;           // which half of the row this lane reads
+  unsigned mask;      // the group's lanes
+};
+
+// Issue the key loads of chain rows [r0, r0 + kLoads * kRowsPerLoad).
+template <int kLoads>
+__device__ __forceinline__ void load(const Group& g, int r0, uint4 (&k)[kLoads],
+                                     int32_t (&v)[kLoads]) {
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int r = r0 + j * kRowsPerLoad + g.sub;
+    const int64_t row = g.row0 + r;
+    k[j] = r < g.depth ? __ldg(g.keys + row * 2 + g.side) : make_uint4(0, 0, 0, 0);
+    if (kValuesWithKeys) v[j] = r < g.depth && g.side == 0 ? __ldg(g.vals + row) : 0;
+  }
+}
+
+// The loaded rows -> the value of the first (in chain order) whose key
+// equals the query and whose value is not 0, else 0.
+template <int kLoads>
+__device__ __forceinline__ int32_t match(const Group& g, int r0, const uint4 (&k)[kLoads],
+                                         int32_t (&v)[kLoads]) {
+  bool eq[kLoads];
+  unsigned any = 0;
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int r = r0 + j * kRowsPerLoad + g.sub;
+    const bool e = r < g.depth && k[j].x == g.half.x && k[j].y == g.half.y &&
+                   k[j].z == g.half.z && k[j].w == g.half.w;
+    eq[j] = __shfl_xor_sync(g.mask, e, 1) && e;  // both halves of the row
+    any |= __ballot_sync(g.mask, eq[j]);
+  }
+  if (!(any & g.mask)) return 0;  // no key-equal row: the common case for a miss
+  if (!kValuesWithKeys) {
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int64_t row = g.row0 + r0 + j * kRowsPerLoad + g.sub;
+      v[j] = eq[j] && g.side == 0 ? __ldg(g.vals + row) : 0;
     }
   }
-  if (word == 0) out[qi] = res;
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const unsigned hit = __ballot_sync(g.mask, eq[j] && g.side == 0 && v[j] != 0) & g.mask;
+    if (hit) return __shfl_sync(g.mask, v[j], __ffs(hit) - 1);
+  }
+  return 0;  // every key-equal row held value 0
+}
+
+constexpr int kFirstLoads = kFirstRows / kRowsPerLoad;
+
+// The chain after a first step that did not answer, in steps of kStepRows.
+__device__ __forceinline__ int32_t rest(const Group& g) {
+  int32_t res = 0;
+  for (int r0 = kFirstRows; res == 0 && r0 < g.depth; r0 += kStepRows) {
+    uint4 k[kStepLoads];
+    int32_t v[kStepLoads];
+    load(g, r0, k, v);
+    res = match(g, r0, k, v);
+  }
+  return res;
+}
+
+__device__ __forceinline__ void start(Group& g, const uint4* q, const int32_t* wstart,
+                                      const int32_t* off, int64_t qi) {
+  g.row0 = static_cast<int64_t>(__ldg(wstart + qi)) + __ldg(off + qi);
+  g.half = __ldg(q + qi * 2 + g.side);
+}
+
+__global__ void __launch_bounds__(kThreads)
+probe_kernel(const uint4* __restrict__ keys, const int32_t* __restrict__ vals,
+             const uint4* __restrict__ q, const int32_t* __restrict__ wstart,
+             const int32_t* __restrict__ off, int32_t* __restrict__ out, int64_t nq, int depth) {
+  int64_t qi = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
+  if (qi >= nq) return;  // whole groups leave together
+  const int lane = threadIdx.x & 31;
+  const int base = lane & ~(kLanes - 1);
+  Group g;
+  g.keys = keys;
+  g.vals = vals;
+  g.depth = depth;
+  g.side = lane & 1;
+  g.sub = (lane - base) >> 1;
+  g.mask = kLanes == 32 ? 0xFFFFFFFFu : ((1u << kLanes) - 1) << base;
+  start(g, q, wstart, off, qi);
+  uint4 k[kFirstLoads];
+  int32_t v[kFirstLoads];
+  load(g, 0, k, v);
+  if (!kPipeline) {  // one query per group
+    int32_t res = match(g, 0, k, v);
+    if (res == 0) res = rest(g);
+    if (lane == base) out[qi] = res;
+    return;
+  }
+  // Persistent groups: query qi + stride's index and first step are in
+  // flight while query qi is matched.
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * (kThreads / kLanes);
+  Group next = g;
+  if (qi + stride < nq) start(next, q, wstart, off, qi + stride);
+  while (true) {
+    const bool more = qi + stride < nq;
+    uint4 kn[kFirstLoads];
+    int32_t vn[kFirstLoads];
+    Group after = next;
+    if (more) {
+      load(next, 0, kn, vn);
+      if (qi + 2 * stride < nq) start(after, q, wstart, off, qi + 2 * stride);
+    }
+    int32_t res = match(g, 0, k, v);
+    if (res == 0) res = rest(g);
+    if (lane == base) out[qi] = res;
+    if (!more) return;
+    qi += stride;
+    g = next;
+    next = after;
+#pragma unroll
+    for (int j = 0; j < kFirstLoads; ++j) {
+      k[j] = kn[j];
+      v[j] = vn[j];
+    }
+  }
 }
 
 }  // namespace
 
-// keys: u32[rows, 8]; vals: i32[rows]; q: u32[nq, 8]; wstart, off, out: i32[nq].
+// keys: u32[rows, 8]; vals: i32[rows]; q: u32[nq, 8] (all 16-byte aligned);
+// wstart, off, out: i32[nq]; depth >= 1.
 extern "C" int ntpu_probe(const void* keys, const void* vals, const void* q,
                           const void* wstart, const void* off, void* out, int64_t nq,
                           int depth, void* stream) {
-  const unsigned blocks = static_cast<unsigned>((nq * 8 + kThreads - 1) / kThreads);
-  probe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(vals),
-      static_cast<const uint32_t*>(q), static_cast<const int32_t*>(wstart),
+  int64_t blocks = (nq * kLanes + kThreads - 1) / kThreads;
+  if (kPipeline) {  // persistent: as many blocks as the card holds at once
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_kernel, kThreads, 0);
+    blocks = blocks < static_cast<int64_t>(sms) * per_sm ? blocks : static_cast<int64_t>(sms) * per_sm;
+  }
+  probe_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(keys), static_cast<const int32_t*>(vals),
+      static_cast<const uint4*>(q), static_cast<const int32_t*>(wstart),
       static_cast<const int32_t*>(off), static_cast<int32_t*>(out), nq, depth);
   return static_cast<int>(cudaGetLastError());
 }

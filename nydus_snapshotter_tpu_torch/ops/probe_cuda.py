@@ -14,7 +14,9 @@ ops/probe_pallas.py):
 The answer is the value of the first chain row whose key equals the query
 and whose value is not 0 (values are dict index + 1), else 0.
 ``probe_padded`` takes a CPU tensor through the plain version and a CUDA
-tensor through csrc/probe.cu, or raises.
+tensor through csrc/probe.cu, or raises. The kernel walks a chain in steps
+(rows [0, 16), then 64 rows at a time) with every load of a step in flight
+before the first compare.
 """
 
 from __future__ import annotations
@@ -114,6 +116,9 @@ def probe_padded(
         raise ValueError(f"unsupported device {dev}")
     if not all(t.is_contiguous() for t in (keys_pad, vals_pad, queries, wstart, off)):
         raise ValueError("probe operands must be contiguous")
+    # The kernel reads keys and queries as aligned 16-byte half-rows.
+    if keys_pad.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("keys_pad and queries must be 16-byte aligned")
     out = torch.empty(nq, dtype=torch.int32, device=dev)
     if nq:
         with torch.cuda.device(dev):
