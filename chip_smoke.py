@@ -340,19 +340,16 @@ def k3_edge_case(depth: int, rng):
         want.append(vals[-1])
         return True
 
-    hit_rows = sorted({r for r in (0, 15, 16, 17, depth - 1) if r < depth})
-    for r in hit_rows:
-        for slot0 in (cap - 1, None, None):
-            while not plant(cap - 1 if slot0 else int(rng.integers(8, cap)), [r],
-                            [int(rng.integers(1, 2**31 - 1))]):
-                if slot0:  # slot C - 1 is taken by an earlier row's plant
-                    break
-    if depth >= 2:  # key-equal, value 0 at a row ahead of the real match
-        for lo, hi in sorted({(0, depth - 1), (depth // 3, depth - 1),
-                              (max(0, K3_FIRST_STEP - 2), depth - 1)}):
-            if lo < hi:
-                while not plant(int(rng.integers(8, cap)), [lo, hi], [0, int(rng.integers(1, 2**31 - 1))]):
-                    pass
+    for r in sorted({r for r in (0, 15, 16, 17, depth - 1) if r < depth}):
+        plant(cap - 1, [r], [int(rng.integers(1, 2**31 - 1))])  # skipped once C - 1 is taken
+        for _ in range(2):
+            while not plant(int(rng.integers(8, cap)), [r], [int(rng.integers(1, 2**31 - 1))]):
+                pass
+    for lo in sorted({0, depth // 3, K3_FIRST_STEP - 2}):
+        if lo < depth - 1:  # key-equal, value 0, ahead of the real match at depth - 1
+            while not plant(int(rng.integers(8, cap)), [lo, depth - 1],
+                            [0, int(rng.integers(1, 2**31 - 1))]):
+                pass
     for _ in range(4):  # all-zero queries: chains through the empty rows
         queries.append(np.zeros(8, np.uint32))
         want.append(0)

@@ -36,13 +36,13 @@
 //   value or the next step.
 // Variants, measured against each other by tools/torch_probe_variants.py
 // on an H100 (PERF.md): 16 or 8 lanes per query (NTPU_PROBE_LANES; 40 and
-// 44 registers) tie with the warp within 3% on both workloads, so the
-// warp stays, with the fewest registers and one load a lane in the first
-// step; loading every row's value with its key (NTPU_PROBE_VALUES_WITH_KEYS)
-// saves a hit one trip but moves 0.28 GB more at registry scale and is
-// ~10% slower there; persistent groups that keep the next query's first
-// step in flight (NTPU_PROBE_PIPELINE) take 57 registers, halve the
-// resident warps and lose on both workloads.
+// 44 registers) are within 3% of the warp on the main path and at
+// registry scale, so the warp stays, with the fewest registers and one
+// load a lane in the first step; loading every row's value with its key
+// (NTPU_PROBE_VALUES_WITH_KEYS) saves a hit one trip but moves 0.28 GB
+// more at registry scale and is ~9% slower there. Persistent groups that
+// kept the next query's first step in flight took 57 registers, halved
+// the resident warps and lost on both workloads; that variant was removed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,9 +52,6 @@
 #endif
 #ifndef NTPU_PROBE_VALUES_WITH_KEYS
 #define NTPU_PROBE_VALUES_WITH_KEYS 0
-#endif
-#ifndef NTPU_PROBE_PIPELINE
-#define NTPU_PROBE_PIPELINE 0
 #endif
 
 namespace {
@@ -66,7 +63,6 @@ constexpr int kFirstRows = 16;            // chain rows of the first step
 constexpr int kStepLoads = 4;             // loads a lane in each later step
 constexpr int kStepRows = kStepLoads * kRowsPerLoad;  // chain rows of a later step
 constexpr bool kValuesWithKeys = NTPU_PROBE_VALUES_WITH_KEYS != 0;
-constexpr bool kPipeline = NTPU_PROBE_PIPELINE != 0;
 static_assert(kLanes == 8 || kLanes == 16 || kLanes == 32, "a query is 8, 16 or 32 lanes");
 
 struct Group {
@@ -80,10 +76,13 @@ struct Group {
   unsigned mask;      // the group's lanes
 };
 
-// Issue the key loads of chain rows [r0, r0 + kLoads * kRowsPerLoad).
+// Chain rows [r0, r0 + kLoads * kRowsPerLoad) -> the value of the first
+// (in chain order) whose key equals the query and whose value is not 0,
+// else 0. Every key load is issued before the first compare.
 template <int kLoads>
-__device__ __forceinline__ void load(const Group& g, int r0, uint4 (&k)[kLoads],
-                                     int32_t (&v)[kLoads]) {
+__device__ __forceinline__ int32_t step(const Group& g, int r0) {
+  uint4 k[kLoads];
+  int32_t v[kLoads];
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
     const int r = r0 + j * kRowsPerLoad + g.sub;
@@ -91,13 +90,6 @@ __device__ __forceinline__ void load(const Group& g, int r0, uint4 (&k)[kLoads],
     k[j] = r < g.depth ? __ldg(g.keys + row * 2 + g.side) : make_uint4(0, 0, 0, 0);
     if (kValuesWithKeys) v[j] = r < g.depth && g.side == 0 ? __ldg(g.vals + row) : 0;
   }
-}
-
-// The loaded rows -> the value of the first (in chain order) whose key
-// equals the query and whose value is not 0, else 0.
-template <int kLoads>
-__device__ __forceinline__ int32_t match(const Group& g, int r0, const uint4 (&k)[kLoads],
-                                         int32_t (&v)[kLoads]) {
   bool eq[kLoads];
   unsigned any = 0;
 #pragma unroll
@@ -124,78 +116,27 @@ __device__ __forceinline__ int32_t match(const Group& g, int r0, const uint4 (&k
   return 0;  // every key-equal row held value 0
 }
 
-constexpr int kFirstLoads = kFirstRows / kRowsPerLoad;
-
-// The chain after a first step that did not answer, in steps of kStepRows.
-__device__ __forceinline__ int32_t rest(const Group& g) {
-  int32_t res = 0;
-  for (int r0 = kFirstRows; res == 0 && r0 < g.depth; r0 += kStepRows) {
-    uint4 k[kStepLoads];
-    int32_t v[kStepLoads];
-    load(g, r0, k, v);
-    res = match(g, r0, k, v);
-  }
-  return res;
-}
-
-__device__ __forceinline__ void start(Group& g, const uint4* q, const int32_t* wstart,
-                                      const int32_t* off, int64_t qi) {
-  g.row0 = static_cast<int64_t>(__ldg(wstart + qi)) + __ldg(off + qi);
-  g.half = __ldg(q + qi * 2 + g.side);
-}
-
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const uint4* __restrict__ keys, const int32_t* __restrict__ vals,
              const uint4* __restrict__ q, const int32_t* __restrict__ wstart,
              const int32_t* __restrict__ off, int32_t* __restrict__ out, int64_t nq, int depth) {
-  int64_t qi = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
+  const int64_t qi = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
   if (qi >= nq) return;  // whole groups leave together
   const int lane = threadIdx.x & 31;
   const int base = lane & ~(kLanes - 1);
   Group g;
   g.keys = keys;
   g.vals = vals;
+  g.row0 = static_cast<int64_t>(__ldg(wstart + qi)) + __ldg(off + qi);
   g.depth = depth;
   g.side = lane & 1;
+  g.half = __ldg(q + qi * 2 + g.side);
   g.sub = (lane - base) >> 1;
   g.mask = kLanes == 32 ? 0xFFFFFFFFu : ((1u << kLanes) - 1) << base;
-  start(g, q, wstart, off, qi);
-  uint4 k[kFirstLoads];
-  int32_t v[kFirstLoads];
-  load(g, 0, k, v);
-  if (!kPipeline) {  // one query per group
-    int32_t res = match(g, 0, k, v);
-    if (res == 0) res = rest(g);
-    if (lane == base) out[qi] = res;
-    return;
-  }
-  // Persistent groups: query qi + stride's index and first step are in
-  // flight while query qi is matched.
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * (kThreads / kLanes);
-  Group next = g;
-  if (qi + stride < nq) start(next, q, wstart, off, qi + stride);
-  while (true) {
-    const bool more = qi + stride < nq;
-    uint4 kn[kFirstLoads];
-    int32_t vn[kFirstLoads];
-    Group after = next;
-    if (more) {
-      load(next, 0, kn, vn);
-      if (qi + 2 * stride < nq) start(after, q, wstart, off, qi + 2 * stride);
-    }
-    int32_t res = match(g, 0, k, v);
-    if (res == 0) res = rest(g);
-    if (lane == base) out[qi] = res;
-    if (!more) return;
-    qi += stride;
-    g = next;
-    next = after;
-#pragma unroll
-    for (int j = 0; j < kFirstLoads; ++j) {
-      k[j] = kn[j];
-      v[j] = vn[j];
-    }
-  }
+  int32_t res = step<kFirstRows / kRowsPerLoad>(g, 0);
+  for (int r0 = kFirstRows; res == 0 && r0 < depth; r0 += kStepRows)
+    res = step<kStepLoads>(g, r0);
+  if (lane == base) out[qi] = res;
 }
 
 }  // namespace
@@ -205,14 +146,7 @@ probe_kernel(const uint4* __restrict__ keys, const int32_t* __restrict__ vals,
 extern "C" int ntpu_probe(const void* keys, const void* vals, const void* q,
                           const void* wstart, const void* off, void* out, int64_t nq,
                           int depth, void* stream) {
-  int64_t blocks = (nq * kLanes + kThreads - 1) / kThreads;
-  if (kPipeline) {  // persistent: as many blocks as the card holds at once
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_kernel, kThreads, 0);
-    blocks = blocks < static_cast<int64_t>(sms) * per_sm ? blocks : static_cast<int64_t>(sms) * per_sm;
-  }
+  const int64_t blocks = (nq * kLanes + kThreads - 1) / kThreads;
   probe_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(keys), static_cast<const int32_t*>(vals),
       static_cast<const uint4*>(q), static_cast<const int32_t*>(wstart),

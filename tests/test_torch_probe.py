@@ -14,6 +14,8 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
+
 from nydus_snapshotter_tpu.ops import probe_pallas
 from nydus_snapshotter_tpu.parallel import mesh as mesh_lib
 from nydus_snapshotter_tpu.parallel.sharded_dict import INSERT_MAX_PROBE, MAX_PROBE
@@ -45,42 +47,6 @@ def _queries(digests, m, seed=9):
     )
     rng.shuffle(q)
     return q
-
-
-def _edge_case(depth, rng, cap=1024):
-    """(keys u32[C,8], values i32[C], queries u32[Q,8], answers i32[Q]):
-    random full rows, rows 0..7 empty; planted rows never overlap."""
-    keys = rng.integers(1, 2**32, (cap, 8), dtype=np.uint32)
-    values = rng.integers(1, 2**31 - 1, cap).astype(np.int32)
-    keys[:8], values[:8] = 0, 0
-    used = set(range(8))
-    queries, want = [], []
-
-    def plant(slot0, rows, vals):
-        slots = [(slot0 + r) % cap for r in rows]
-        if used.intersection(slots):
-            return False
-        q = rng.integers(0, 2**32, 8, dtype=np.uint32)
-        q[1] = slot0 + cap * int(rng.integers(0, 2**20))
-        for s, v in zip(slots, vals):
-            keys[s], values[s] = q, v
-        used.update(slots)
-        queries.append(q)
-        want.append(vals[-1])
-        return True
-
-    for r in sorted({r for r in (0, 15, 16, 17, depth - 1) if r < depth}):
-        plant(cap - 1, [r], [int(rng.integers(1, 2**31 - 1))])
-        for _ in range(2):
-            while not plant(int(rng.integers(8, cap)), [r], [int(rng.integers(1, 2**31 - 1))]):
-                pass
-    for lo in sorted({0, depth // 3, 14}):
-        if lo < depth - 1:  # key-equal, value 0, ahead of the real match
-            while not plant(int(rng.integers(8, cap)), [lo, depth - 1], [0, 7 + lo]):
-                pass
-    queries += [np.zeros(8, np.uint32)] * 4 + list(rng.integers(0, 2**32, (8, 8), dtype=np.uint32))
-    want += [0] * 12
-    return keys, values, np.stack(queries), np.asarray(want, np.int32)
 
 
 def _reference(keys, values, q, depth):
@@ -145,12 +111,12 @@ class TestProbe:
 
     @pytest.mark.parametrize("depth", [1, 15, 16, 17, 54, 64, INSERT_MAX_PROBE])
     def test_edge_tables(self, depth):
-        """Hand-made tables around the CUDA kernel's step edges (a first
-        step of 16 chain rows, then steps of 64): hits at chain rows 0, 15,
-        16, 17 and depth - 1, from random slots and from slot C - 1 (the
-        chain wraps), a key-equal row of value 0 ahead of the real match,
-        all-zero queries through empty rows, misses."""
-        keys, values, q, want = _edge_case(depth, np.random.default_rng(depth))
+        """chip_smoke's hand-made tables around the CUDA kernel's step
+        edges (a first step of 16 chain rows, then steps of 64): hits at
+        chain rows 0, 15, 16, 17 and depth - 1, from random slots and from
+        slot C - 1 (the chain wraps), a key-equal row of value 0 ahead of
+        the real match, all-zero queries through empty rows, misses."""
+        keys, values, q, want = chip_smoke.k3_edge_case(depth, np.random.default_rng(depth))
         assert len(q) <= 64
         assert np.array_equal(_reference(keys, values, q, depth), want)
         assert np.array_equal(probe_cuda.probe(keys, values, q, depth, device="cpu"), want)

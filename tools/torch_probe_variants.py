@@ -4,14 +4,12 @@
     python3 tools/torch_probe_variants.py
 
 Builds the PyTorch port's ``csrc/probe.cu`` once per variant, in parallel:
-``NTPU_PROBE_LANES`` 8, 16 or 32 per query;
+``NTPU_PROBE_LANES`` 8, 16 or 32 per query, and
 ``NTPU_PROBE_VALUES_WITH_KEYS`` 0 (a row's value is loaded only when its
-key equals the query) or 1 (every row's value is loaded with its key);
-``NTPU_PROBE_PIPELINE`` 0 (a group per query) or 1 (persistent groups,
-each keeping its next query's index and first step in flight while it
-matches the current one). Each variant's kernel is timed alone
-(``chip_smoke.kernel_ms``) on two workloads, in the variants' order and
-then in reverse, and its answers must equal the plain version's:
+key equals the query) or 1 (every row's value is loaded with its key).
+Each variant's kernel is timed alone (``chip_smoke.kernel_ms``) on three
+workloads, in the variants' order and then in reverse, and its answers
+must equal the plain version's:
 
 - main-path shaped: a dict of 2^23 seeded random digests (the size of
   chip_smoke's phase-2 dict), 38,592 queries of which 14,959 are planted
@@ -24,8 +22,7 @@ then in reverse, and its answers must equal the plain version's:
 
 Every variant must also answer chip_smoke's hand-made edge tables as
 planted. Prints ptxas's register counts, one line per measurement and a
-JSON line.
-Needs CUDA; exits 2 without it.
+JSON line. Needs CUDA; exits 2 without it.
 """
 
 from __future__ import annotations
@@ -43,8 +40,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
 
-# (lanes per query, values with keys, pipeline)
-VARIANTS = [(32, 0, 0), (16, 0, 0), (8, 0, 0), (32, 1, 0), (8, 1, 0), (32, 0, 1), (8, 0, 1)]
+VARIANTS = [(32, 0), (16, 0), (8, 0), (32, 1), (8, 1)]  # (lanes per query, values with keys)
 MAIN_QUERIES = 38_592
 MAIN_HITS = 14_959
 SMALL_ENTRIES = 1 << 15
@@ -53,14 +49,13 @@ SMALL_ENTRIES = 1 << 15
 class Variant:
     """One build of probe.cu, launched through its C entry."""
 
-    def __init__(self, lanes: int, with_keys: int, pipeline: int, argtypes):
+    def __init__(self, lanes: int, with_keys: int, argtypes):
         from nydus_snapshotter_tpu_torch.ops import cuda_build
 
-        self.name = f"lanes={lanes},values_with_keys={with_keys},pipeline={pipeline}"
-        self.path = cuda_build.BUILD_DIR / f"probe-variant-{lanes}-{with_keys}-{pipeline}.so"
+        self.name = f"lanes={lanes},values_with_keys={with_keys}"
+        self.path = cuda_build.BUILD_DIR / f"probe-variant-{lanes}-{with_keys}.so"
         self.cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
                     f"-DNTPU_PROBE_LANES={lanes}", f"-DNTPU_PROBE_VALUES_WITH_KEYS={with_keys}",
-                    f"-DNTPU_PROBE_PIPELINE={pipeline}",
                     "-o", str(self.path), str(cuda_build.CSRC_DIR / "probe.cu")]
         self.argtypes = argtypes
         self.fn = None
