@@ -34,61 +34,45 @@
 //   bound by bytes. A short batch (the main path's 38 592 queries) is
 //   bound by its dependent trips: the query, the first step, then the
 //   value or the next step.
-// Variants, measured against each other by tools/torch_probe_variants.py
-// on an H100 (PERF.md): 16 or 8 lanes per query (NTPU_PROBE_LANES; 40 and
-// 44 registers) are within 3% of the warp on the main path and at
-// registry scale, so the warp stays, with the fewest registers and one
-// load a lane in the first step; loading every row's value with its key
-// (NTPU_PROBE_VALUES_WITH_KEYS) saves a hit one trip but moves 0.28 GB
-// more at registry scale and is ~9% slower there. Persistent groups that
-// kept the next query's first step in flight took 57 registers, halved
-// the resident warps and lost on both workloads; that variant was removed.
+// Alternatives measured on an H100 and rejected (PERF.md): 16 or 8 lanes
+// per query (40 and 44 registers) were within 3% of the warp on both
+// workloads; loading every row's value with its key saved a hit one trip
+// but moved 0.28 GB more at registry scale and was ~9% slower there;
+// persistent groups that kept the next query's first step in flight took
+// 57 registers, halved the resident warps and lost on both workloads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef NTPU_PROBE_LANES
-#define NTPU_PROBE_LANES 32
-#endif
-#ifndef NTPU_PROBE_VALUES_WITH_KEYS
-#define NTPU_PROBE_VALUES_WITH_KEYS 0
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = NTPU_PROBE_LANES;  // lanes per query
-constexpr int kRowsPerLoad = kLanes / 2;  // rows one load instruction of a group reads
+constexpr int kRowsPerLoad = 16;          // rows one load instruction of a warp reads
 constexpr int kFirstRows = 16;            // chain rows of the first step
 constexpr int kStepLoads = 4;             // loads a lane in each later step
 constexpr int kStepRows = kStepLoads * kRowsPerLoad;  // chain rows of a later step
-constexpr bool kValuesWithKeys = NTPU_PROBE_VALUES_WITH_KEYS != 0;
-static_assert(kLanes == 8 || kLanes == 16 || kLanes == 32, "a query is 8, 16 or 32 lanes");
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
-struct Group {
+struct Query {
   const uint4* keys;  // the key table as 16-byte half-rows
   const int32_t* vals;
   int64_t row0;       // the query's first chain row
   int depth;
   uint4 half;         // this lane's half of the query digest
-  int sub;            // this lane's row within one load of the group
+  int sub;            // this lane's row within one load of the warp
   int side;           // which half of the row this lane reads
-  unsigned mask;      // the group's lanes
 };
 
 // Chain rows [r0, r0 + kLoads * kRowsPerLoad) -> the value of the first
 // (in chain order) whose key equals the query and whose value is not 0,
 // else 0. Every key load is issued before the first compare.
 template <int kLoads>
-__device__ __forceinline__ int32_t step(const Group& g, int r0) {
+__device__ __forceinline__ int32_t step(const Query& g, int r0) {
   uint4 k[kLoads];
-  int32_t v[kLoads];
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
     const int r = r0 + j * kRowsPerLoad + g.sub;
-    const int64_t row = g.row0 + r;
-    k[j] = r < g.depth ? __ldg(g.keys + row * 2 + g.side) : make_uint4(0, 0, 0, 0);
-    if (kValuesWithKeys) v[j] = r < g.depth && g.side == 0 ? __ldg(g.vals + row) : 0;
+    k[j] = r < g.depth ? __ldg(g.keys + (g.row0 + r) * 2 + g.side) : make_uint4(0, 0, 0, 0);
   }
   bool eq[kLoads];
   unsigned any = 0;
@@ -97,21 +81,20 @@ __device__ __forceinline__ int32_t step(const Group& g, int r0) {
     const int r = r0 + j * kRowsPerLoad + g.sub;
     const bool e = r < g.depth && k[j].x == g.half.x && k[j].y == g.half.y &&
                    k[j].z == g.half.z && k[j].w == g.half.w;
-    eq[j] = __shfl_xor_sync(g.mask, e, 1) && e;  // both halves of the row
-    any |= __ballot_sync(g.mask, eq[j]);
+    eq[j] = __shfl_xor_sync(kAll, e, 1) && e;  // both halves of the row
+    any |= __ballot_sync(kAll, eq[j]);
   }
-  if (!(any & g.mask)) return 0;  // no key-equal row: the common case for a miss
-  if (!kValuesWithKeys) {
+  if (!any) return 0;  // no key-equal row: the common case for a miss
+  int32_t v[kLoads];
 #pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int64_t row = g.row0 + r0 + j * kRowsPerLoad + g.sub;
-      v[j] = eq[j] && g.side == 0 ? __ldg(g.vals + row) : 0;
-    }
+  for (int j = 0; j < kLoads; ++j) {
+    const int64_t row = g.row0 + r0 + j * kRowsPerLoad + g.sub;
+    v[j] = eq[j] && g.side == 0 ? __ldg(g.vals + row) : 0;
   }
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
-    const unsigned hit = __ballot_sync(g.mask, eq[j] && g.side == 0 && v[j] != 0) & g.mask;
-    if (hit) return __shfl_sync(g.mask, v[j], __ffs(hit) - 1);
+    const unsigned hit = __ballot_sync(kAll, eq[j] && g.side == 0 && v[j] != 0);
+    if (hit) return __shfl_sync(kAll, v[j], __ffs(hit) - 1);
   }
   return 0;  // every key-equal row held value 0
 }
@@ -120,23 +103,21 @@ __global__ void __launch_bounds__(kThreads)
 probe_kernel(const uint4* __restrict__ keys, const int32_t* __restrict__ vals,
              const uint4* __restrict__ q, const int32_t* __restrict__ wstart,
              const int32_t* __restrict__ off, int32_t* __restrict__ out, int64_t nq, int depth) {
-  const int64_t qi = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
-  if (qi >= nq) return;  // whole groups leave together
+  const int64_t qi = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  if (qi >= nq) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
-  const int base = lane & ~(kLanes - 1);
-  Group g;
+  Query g;
   g.keys = keys;
   g.vals = vals;
   g.row0 = static_cast<int64_t>(__ldg(wstart + qi)) + __ldg(off + qi);
   g.depth = depth;
   g.side = lane & 1;
   g.half = __ldg(q + qi * 2 + g.side);
-  g.sub = (lane - base) >> 1;
-  g.mask = kLanes == 32 ? 0xFFFFFFFFu : ((1u << kLanes) - 1) << base;
+  g.sub = lane >> 1;
   int32_t res = step<kFirstRows / kRowsPerLoad>(g, 0);
   for (int r0 = kFirstRows; res == 0 && r0 < depth; r0 += kStepRows)
     res = step<kStepLoads>(g, r0);
-  if (lane == base) out[qi] = res;
+  if (lane == 0) out[qi] = res;
 }
 
 }  // namespace
@@ -146,7 +127,7 @@ probe_kernel(const uint4* __restrict__ keys, const int32_t* __restrict__ vals,
 extern "C" int ntpu_probe(const void* keys, const void* vals, const void* q,
                           const void* wstart, const void* off, void* out, int64_t nq,
                           int depth, void* stream) {
-  const int64_t blocks = (nq * kLanes + kThreads - 1) / kThreads;
+  const int64_t blocks = (nq * 32 + kThreads - 1) / kThreads;
   probe_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(keys), static_cast<const int32_t*>(vals),
       static_cast<const uint4*>(q), static_cast<const int32_t*>(wstart),
