@@ -47,7 +47,24 @@ Phases (any failure exits non-zero; nothing is caught):
    once, every planted query answer its insertion index, every answer
    equal the plain version on the card and a 65,536-query sample the host
    probe. That call is the warm-up of ``lookup_u32``'s wall time, the
-   median of 5 more calls.
+   median of 5 more calls;
+7. windowed engine — ``ChunkDigestEngine(backend="jax")``'s
+   ``process_many`` over phase 2's layer: every cut and digest equal to
+   phase 2's fused results, K1 launched once per non-empty file and K2 once
+   per int32-addressable piece; wall time the median of 5 runs after that
+   checked run (the warm-up), split into ``boundaries_many`` and ``digest_all``, and the
+   device's busy share from one torch.profiler trace; K1 alone on one
+   512 KiB window and K2 alone on one 32 MiB digest batch (the windowed
+   lanes' own shapes); then 3 runs at the engine's default 1 MiB average
+   chunks, every digest against hashlib, the cuts of >= 64 MiB of files
+   against the numpy chunker, and K2 alone on that launch;
+8. pack lanes — ``pack_layer`` over phase 4's tar with ``backend="jax"``,
+   the file-like ``Pack`` from a ``BytesIO``, and ``backend="fused"`` with
+   the candidate capacity forced to overflow (the per-file windowed
+   fallback): blob, bootstrap and blob id equal to phase 4's numpy and
+   fused outputs; each wall time the median of 3 after a checked run, in
+   which the device digester's ``submit`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -585,6 +602,214 @@ def registry_phase(dev, int_ops_per_s: float, sm_hz: float) -> dict:
     }
 
 
+def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> dict:
+    """Phase 7: the windowed ChunkDigestEngine over phase 2's layer."""
+    import torch
+
+    from nydus_snapshotter_tpu_torch.ops import cdc, chunker, gear_cuda, sha256_cuda
+
+    n_bytes = sum(f.size for f in files)
+    nonempty = sum(1 for f in files if f.size)
+    eng = chunker.ChunkDigestEngine(chunk_size=CHUNK_SIZE, backend="jax", device=dev)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    got = eng.process_many(files)
+    first_s = time.perf_counter() - t0
+    launches = {key: k.launches for key, k in kernels.items()}
+    for metas, cuts, digs in zip(got, fused_res.cuts, fused_res.digests):
+        if [m.offset + m.size for m in metas] != [int(c) for c in cuts]:
+            raise AssertionError("windowed cuts differ from the fused engine's")
+        if [m.digest for m in metas] != digs:
+            raise AssertionError("windowed digests differ from the fused engine's")
+    if n_bytes > chunker.MAX_PIECE_BYTES:
+        raise AssertionError("the layer no longer fits one K2 piece; adjust the K2 launch check")
+    if launches != {"gear": nonempty, "sha": 1, "probe": 0}:
+        raise AssertionError(f"windowed process_many launched {launches}; want K1 x {nonempty}, K2 x 1")
+    n_chunks = sum(len(m) for m in got)
+    log(f"[7] windowed process_many: {n_chunks} chunks, every cut and digest == phase 2's fused "
+        f"results; launches {launches} ({nonempty} non-empty files); checked run {first_s:.3f} s")
+
+    walls, splits = [], []
+    for _ in range(REPS):
+        before = dict(eng.stats)
+        t0 = time.perf_counter()
+        eng.process_many(files)
+        walls.append(time.perf_counter() - t0)
+        splits.append({k: eng.stats[k] - before[k] for k in eng.stats})
+    wall = float(np.median(walls))
+    split = {k: float(np.median([x[k] for x in splits])) for k in splits[0]}
+    busy_ms, by_name = device_busy(lambda: eng.process_many(files))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[7] windowed process_many: median {wall:.3f} s over {REPS} runs after the checked one -> "
+        f"{n_bytes / 2**30 / wall:.3f} GiB/s (runs: " + ", ".join(f"{x:.3f}" for x in walls)
+        + f" s); boundaries_many {split['boundaries_s']:.3f} s, digest_all {split['digest_s']:.3f} s; "
+        f"device busy {busy_ms:.3f} ms = {100 * busy_ms / (wall * 1e3):.1f}% of the median, idle "
+        f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%; top: "
+        + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms in top))
+    windows = [min(eng.window, max(chunker.MIN_WINDOW, chunker._pow2_ceil(f.size)))
+               for f in files if f.size]
+    padded = sum(w * -(-f.size // w) for w, f in zip(windows, (f for f in files if f.size)))
+
+    # The windowed lanes' own kernel shapes: one 512 KiB window row, and
+    # one 32 MiB digest batch (the pack lane's DIGEST_BATCH_BYTES).
+    p = eng.params
+    w = chunker.MIN_WINDOW
+    big = next(f for f in files if f.size >= w)
+    row = torch.from_numpy(np.concatenate([np.zeros(chunker.TAIL, np.uint8), big[:w]])).to(dev)[None]
+    o = torch.empty((2, 1, w // 32), dtype=torch.int32, device=dev)
+    win_ms = kernel_ms(c_launch(gear_cuda.KERNEL, row, o[0], o[1], 1, w, p.mask_small,
+                                p.mask_large), 200, sm_hz)
+    win_bound = bound_ms(row.numel() + 2 * w / 8, w * K1_OPS_PER_POS, int_ops_per_s)
+    sizes, parts, total = [], [], 0
+    for metas, f in zip(got, files):
+        for m in metas:
+            if total >= 32 << 20:
+                break
+            parts.append(f[m.offset:m.offset + m.size])
+            sizes.append(m.size)
+            total += m.size
+    sizes = np.asarray(sizes, np.int32)
+    joined = np.zeros(-(-total // 16) * 16, np.uint8)
+    joined[:total] = np.concatenate(parts)
+    b_buf = torch.from_numpy(joined).to(dev)
+    b_offs = np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int32)
+    b_offs_d, b_sizes_d = torch.from_numpy(np.stack([b_offs, sizes])).to(dev)
+    b_out = torch.empty((len(sizes), 8), dtype=torch.int32, device=dev)
+    batch_ms = kernel_ms(c_launch(sha256_cuda.KERNEL, b_buf, b_offs_d, b_sizes_d,
+                                  sha256_cuda.longest_first(b_sizes_d), b_out, len(sizes)),
+                         20, sm_hz)
+    batch_bound = k2_bound(sizes, int_ops_per_s, sm_hz, rc)
+    log(f"[7] K1 alone on one {w}-byte window: {win_ms:.4f} ms (bound {win_bound[0]:.5f} ms by "
+        f"{win_bound[1]}); the layer's {nonempty} windows hold {padded} positions for {n_bytes} "
+        f"bytes ({padded / n_bytes:.2f}x); K2 alone on one {total}-byte digest batch "
+        f"({len(sizes)} chunks, longest {int(sha_blocks(sizes).max())} blocks): {batch_ms:.4f} ms "
+        f"(bound {batch_bound[0]:.4f} ms: throughput {batch_bound[2]:.4f}, serial "
+        f"{batch_bound[4]:.4f})")
+    del b_buf, row
+
+    # The engine's default 1 MiB average chunks.
+    eng_1m = chunker.ChunkDigestEngine(backend="jax", device=dev)
+    walls_1m, res_1m = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = eng_1m.process_many(files)
+        walls_1m.append(time.perf_counter() - t0)
+        if res_1m is None:
+            res_1m = out
+        elif [[m.digest for m in x] for x in out] != [[m.digest for m in x] for x in res_1m]:
+            raise AssertionError("1 MiB-chunk runs differ")
+    checked = 0
+    for f, metas in zip(files, res_1m):
+        for m in metas:
+            if hashlib.sha256(f[m.offset:m.offset + m.size]).digest() != m.digest:
+                raise AssertionError("1 MiB-chunk digest differs from hashlib")
+        if checked < CUT_CHECK_BYTES and f.size:
+            cuts = cdc.chunk_data_np(f, eng_1m.params)
+            if not np.array_equal(cuts, [m.offset + m.size for m in metas]):
+                raise AssertionError("1 MiB-chunk cuts differ from the numpy chunker")
+            checked += f.size
+    sizes_1m = np.asarray([m.size for metas in res_1m for m in metas], np.int32)
+    offs_1m = np.concatenate([[0], np.cumsum(sizes_1m[:-1])]).astype(np.int32)
+    whole = np.zeros(-(-n_bytes // 16) * 16, np.uint8)
+    whole[:n_bytes] = np.concatenate(files)
+    w_buf = torch.from_numpy(whole).to(dev)
+    del whole
+    o_d, s_d = torch.from_numpy(np.stack([offs_1m, sizes_1m])).to(dev)
+    out_1m = torch.empty((len(sizes_1m), 8), dtype=torch.int32, device=dev)
+    k2_1m_ms = kernel_ms(c_launch(sha256_cuda.KERNEL, w_buf, o_d, s_d,
+                                  sha256_cuda.longest_first(s_d), out_1m, len(sizes_1m)), 2, sm_hz)
+    bound_1m = k2_bound(sizes_1m, int_ops_per_s, sm_hz, rc)
+    longest_1m = int(sha_blocks(sizes_1m).max())
+    del w_buf
+    log(f"[7] 1 MiB average chunks: {len(sizes_1m)} chunks, runs "
+        + ", ".join(f"{x:.3f}" for x in walls_1m) + f" s (median {np.median(walls_1m):.3f} s = "
+        f"{n_bytes / 2**30 / np.median(walls_1m):.3f} GiB/s); every digest == hashlib, cuts == "
+        f"numpy chunker over {checked} bytes; longest chunk {longest_1m} blocks; K2 alone on all "
+        f"{len(sizes_1m)} chunks in one launch {k2_1m_ms:.3f} ms (bound {bound_1m[0]:.3f} ms: "
+        f"throughput {bound_1m[2]:.4f}, serial {bound_1m[4]:.3f}) = "
+        f"{k2_1m_ms * 1e-3 * sm_hz / longest_1m:.0f} cycles per block of the longest chunk")
+    return {
+        "launches": launches, "wall_s": wall, "runs_s": walls, "split_s": split,
+        "gib_per_s": n_bytes / 2**30 / wall, "busy_ms": busy_ms,
+        "window_kernel_ms": win_ms, "window_bound_ms": win_bound[0], "window_bound_by": win_bound[1],
+        "padded_positions": padded,
+        "batch_kernel_ms": batch_ms, "batch_bound_ms": batch_bound[0], "batch_bytes": total,
+        "chunks_1m": len(sizes_1m), "runs_1m_s": walls_1m, "longest_1m_blocks": longest_1m,
+        "k2_1m_kernel_ms": k2_1m_ms, "k2_1m_bound_ms": bound_1m[0],
+    }
+
+
+def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
+    """Phase 8: the pack ``jax`` lane, the file-like Pack and the fused
+    lane's overflow fallback against phase 4's outputs."""
+    import torch
+
+    from nydus_snapshotter_tpu_torch.converter import Pack, PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.ops import chunker, fused_convert
+
+    opt = dict(chunk_size=CHUNK_SIZE, compressor="none")
+
+    def bytes_jax():
+        return pack_layer(tar, PackOption(backend="jax", **opt), device=dev)
+
+    def stream_jax():
+        out = io.BytesIO()
+        res = Pack(out, io.BytesIO(tar), PackOption(backend="jax", **opt), device=dev)
+        return out.getvalue(), res
+
+    def fused_overflow():
+        real = fused_convert._wcap_for
+        fused_convert._wcap_for = lambda n, bits, floor=1024: 2
+        try:
+            return pack_layer(tar, PackOption(backend="fused", **opt), device=dev)
+        finally:
+            fused_convert._wcap_for = real
+
+    real_submit = chunker.DeviceDigester.submit
+    submits = []
+
+    def no_sync_submit(self, items):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_submit(self, items)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            submits.append(len(items))
+
+    out = {}
+    for name, fn in (("jax", bytes_jax), ("jax_filelike", stream_jax),
+                     ("fused_overflow", fused_overflow)):
+        for k in kernels.values():
+            k.launches = 0
+        chunker.DeviceDigester.submit = no_sync_submit
+        try:
+            t0 = time.perf_counter()
+            blob, res = fn()
+            first = time.perf_counter() - t0
+        finally:
+            chunker.DeviceDigester.submit = real_submit
+        launches = {key: k.launches for key, k in kernels.items()}
+        if not (blob == blob_n == blob_f and res.bootstrap == res_n.bootstrap
+                and res.blob_id == res_n.blob_id):
+            raise AssertionError(f"pack {name} differs from the numpy and fused backends")
+        if launches["gear"] < 2 or launches["sha"] != len(submits) or not submits:
+            raise AssertionError(f"pack {name}: launches {launches}, {len(submits)} digest batches")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        log(f"[8] pack {name}: == numpy and fused byte for byte; launches {launches} "
+            f"({len(submits)} digest batches, each submitted under sync debug mode 'error'); "
+            f"checked run {first:.2f} s, median {np.median(walls):.3f} s (runs "
+            + ", ".join(f"{x:.3f}" for x in walls) + " s)")
+        out[name] = {"launches": launches, "batches": len(submits), "wall_s": float(np.median(walls)),
+                     "runs_s": walls}
+        submits.clear()
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -757,7 +982,8 @@ def main() -> int:
     ]
     small = [x for x in dev_buckets if x[0].cap_blocks <= K2_PLAIN_MAX_CAP] or dev_buckets
     kb, koffs, ksizes = max(small, key=lambda x: x[0].count)
-    k2_args = (buffer_dev, koffs, ksizes)
+    k2_args = (buffer_dev, koffs, ksizes)  # the plain version's: extents on the card
+    k2_call_args = (buffer_dev, torch.from_numpy(kb.offsets), torch.from_numpy(kb.sizes))
     # Edge chunks mixed into that bucket: the padding boundaries, a long
     # full-block run and the longest chunk, at every offset mod 4 (and
     # mixed word offsets mod 16).
@@ -769,8 +995,8 @@ def main() -> int:
             e_offs.append(base + 4 * ((i + a) % 4) + a)
             e_sizes.append(int(size))
     e_offs, e_sizes = np.asarray(e_offs, np.int32), np.asarray(e_sizes, np.int32)
-    mix_offs = torch.cat([koffs, torch.from_numpy(e_offs).to(dev)])
-    mix_sizes = torch.cat([ksizes, torch.from_numpy(e_sizes).to(dev)])
+    mix_offs = torch.from_numpy(np.concatenate([kb.offsets, e_offs]))
+    mix_sizes = torch.from_numpy(np.concatenate([kb.sizes, e_sizes]))
     k2_mix = sha256_cuda.sha256_chunks(buffer_dev, mix_offs, mix_sizes)  # one launch
     nk = len(kb.offsets)
     short = e_sizes < 4096
@@ -797,8 +1023,9 @@ def main() -> int:
             raise AssertionError(f"K2 digest of a {s}-byte chunk at offset {o} differs from hashlib")
 
     extents = eng.chunk_extents(table, cuts)
+    all_offs_h, all_sizes_h = torch.from_numpy(extents)
     all_offs, all_sizes_dev = torch.from_numpy(extents).to(dev)
-    allq = sha256_cuda.sha256_chunks(buffer_dev, all_offs, all_sizes_dev)  # pass 2's launch
+    allq = sha256_cuda.sha256_chunks(buffer_dev, all_offs_h, all_sizes_h)  # pass 2's launch
     tk, tv = cdict.device_tables()  # the tables the main path probed
     wstart, off = probe_cuda.window_starts(allq, keys.shape[0])
     k3_args = (tk, tv, allq, wstart, off, depth)
@@ -866,6 +1093,7 @@ def main() -> int:
 
     top_row = int(all_sizes_dev.argmax())  # the longest chunk alone: one thread's chain
     longest_args = (all_offs[top_row:top_row + 1], all_sizes_dev[top_row:top_row + 1])
+    longest_host = (all_offs_h[top_row:top_row + 1], all_sizes_h[top_row:top_row + 1])
     l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     k1_ms = kernel_ms(k1_c(rows_k1), 100, sm_hz)
     k1_main_ms = kernel_ms(k1_c(rows_full), 20, sm_hz)
@@ -882,10 +1110,10 @@ def main() -> int:
     k1_call_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps(*k1_args))
     k1_plain_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps_plain(*k1_args))
     k1_main_call_ms = cuda_ms(lambda: gear_cuda.gear_bitmaps(rows_full, p.mask_small, p.mask_large, W))
-    k2_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(*k2_args))
+    k2_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(*k2_call_args))
     k2_plain_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks_plain(*k2_args))
-    k2_main_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, all_offs, all_sizes_dev))
-    k2_longest_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, *longest_args))
+    k2_main_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, all_offs_h, all_sizes_h))
+    k2_longest_call_ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buffer_dev, *longest_host))
     k3_call_ms = cuda_ms(lambda: probe_cuda.probe_padded(*k3_args))
     k3_plain_ms = cuda_ms(lambda: probe_cuda.probe_padded_plain(*k3_args))
 
@@ -951,6 +1179,12 @@ def main() -> int:
     # -- 6. registry -------------------------------------------------------
     registry = registry_phase(dev, int_ops_per_s, sm_hz)
 
+    # -- 7. windowed engine --------------------------------------------------
+    windowed = windowed_phase(dev, files, res, kernels, int_ops_per_s, sm_hz, rc)
+
+    # -- 8. pack lanes ---------------------------------------------------------
+    lanes = pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels)
+
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, **extra):
         return {
@@ -966,7 +1200,10 @@ def main() -> int:
     line = {"kernels": [
         row("gear", "gear_bitmaps", pkg + "gear_bitmaps.cu",
             "nydus_snapshotter_tpu/ops/gear_pallas.py:115", k1_err, k1_ms, k1_call_ms, k1_plain_ms,
-            k1_bound, k1_main_ms, k1_main_call_ms, k1_main_bound, f"{rows_k1.shape[0]}x{W} positions"),
+            k1_bound, k1_main_ms, k1_main_call_ms, k1_main_bound, f"{rows_k1.shape[0]}x{W} positions",
+            windowed_launches=windowed["launches"]["gear"],
+            pack_jax_launches=lanes["jax"]["launches"]["gear"],
+            window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
             k2_bd, k2_main_ms, k2_main_call_ms, k2_main_bd,
@@ -974,7 +1211,12 @@ def main() -> int:
             bound_terms_ms={"throughput": k2_bd[2], "serial": k2_bd[4]},
             main_path_bound_terms_ms={"throughput": k2_main_bd[2], "serial": k2_main_bd[4]},
             longest_chunk_kernel_ms=k2_longest_ms, longest_chunk_call_ms=k2_longest_call_ms,
-            longest_chunk_blocks=longest, round_cycles=rc, round_depth=K2_ROUND_DEPTH),
+            longest_chunk_blocks=longest, round_cycles=rc, round_depth=K2_ROUND_DEPTH,
+            windowed_launches=windowed["launches"]["sha"],
+            pack_jax_launches=lanes["jax"]["launches"]["sha"],
+            batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
+            chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
+            chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
         row("probe", "probe_padded", pkg + "probe.cu",
             "nydus_snapshotter_tpu/ops/probe_pallas.py:151", k3_err, k3_ms, k3_call_ms, k3_plain_ms,
             k3_bd, k3_ms, k3_call_ms, k3_bd, f"{len(q_all)} queries, depth {depth}",

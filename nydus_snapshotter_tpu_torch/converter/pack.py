@@ -1,22 +1,31 @@
-"""pack_layer: one OCI layer tar -> nydus blob stream.
+"""Pack: one OCI layer tar -> nydus blob stream.
 
 Reference semantics (convert_unix.go:325-539): uncompressed layer tar in,
 tar-like nydus blob out (``image.blob`` data | ``image.boot`` layer
 bootstrap | ``rafs.blob.toc``, framed per models/nydus_tar.py); chunk-dict
 hits are referenced, not stored. The output is byte-identical to the
-reference package's ``pack_layer`` for the options supported here:
+reference package's ``Pack``/``pack_layer`` for the options supported here:
 
 - ``backend="fused"``: the layer's files go through the device full path
-  (ops/fused_convert) — cuts and SHA-256 on the card — in as few batches
-  as int32 chunk addressing allows. An input the device path cannot take
-  (candidate capacity overflow, a file beyond int32 addressing) raises
-  :class:`ConvertError`; it is never finished on the host instead.
-- ``backend="numpy"``: the host oracle — numpy CDC and ``hashlib``.
+  (ops/fused_convert), cuts and SHA-256 on the card, in as few batches as
+  int32 chunk addressing allows. An input that path cannot take
+  (candidate capacity overflow, a file beyond int32 addressing) falls to
+  the per-file windowed lane below, still on the card, as the reference
+  falls through to its per-file paths (converter/stream.py:1051-1075).
+- ``backend="jax"``: the reference's windowed device lane. Each file is
+  cut by ``ChunkDigestEngine.boundaries`` (kernel K1 per file) and its
+  chunks are digested on the card in 32 MiB batches (kernel K2), one batch
+  in flight while the host cuts the next files.
+- ``backend="numpy"``: the host oracle, numpy CDC and ``hashlib``.
 - ``compressor="none"``, ``chunking="cdc"``, ``digester="sha256"``, RAFS v5
   or v6. Every other option value raises :class:`ConvertError`.
 
-Dedup, blob assembly and bootstrap emission follow the reference's serial
-lane: chunks in tar order, first occurrence stored, later ones referenced.
+A file-like ``src_tar`` streams: each member is read in 4 MiB segments
+through :class:`IncrementalChunker`, whose carry is bounded by the largest
+chunk. Sparse members take the same chunker. Blob bytes go to ``dest`` as
+chunks are stored; only metadata accumulates. Dedup, blob assembly and
+bootstrap emission follow the reference's serial lane: chunks in tar
+order, first occurrence stored, later ones referenced.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import io
 import stat
 import tarfile
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import BinaryIO, Optional
 
 import numpy as np
 import torch
@@ -42,7 +51,11 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     CipherRecord,
     Inode,
 )
-from nydus_snapshotter_tpu_torch.ops import cdc, fused_convert
+from nydus_snapshotter_tpu_torch.ops import fused_convert
+from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester, HostDigester
+
+SEGMENT_BYTES = 4 << 20  # tar read granularity
+DIGEST_BATCH_BYTES = 32 << 20  # chunk bytes per digest batch
 
 
 @dataclass
@@ -70,10 +83,26 @@ class _Meta:
     chunks: list[_ChunkRef] = field(default_factory=list)
 
 
+class _CountingWriter:
+    """Tracks the write position so ``dest`` needn't be seekable."""
+
+    def __init__(self, f: BinaryIO):
+        self.f = f
+        self.pos = 0
+
+    def write(self, b) -> int:
+        self.f.write(b)
+        self.pos += len(b)
+        return len(b)
+
+    def tell(self) -> int:
+        return self.pos
+
+
 def _check_options(opt: PackOption) -> None:
     opt.validate()
     refused = {
-        "backend": opt.backend not in ("fused", "numpy"),
+        "backend": opt.backend not in ("fused", "jax", "numpy"),
         "compressor": opt.compressor != "none",
         "chunking": opt.chunking != "cdc",
         "digester": opt.digester != "sha256",
@@ -86,44 +115,155 @@ def _check_options(opt: PackOption) -> None:
     }
     bad = [f"{k}={getattr(opt, k)!r}" for k, v in refused.items() if v]
     if bad:
-        raise ConvertError(f"pack_layer does not support {', '.join(bad)}")
+        raise ConvertError(f"Pack does not support {', '.join(bad)}")
 
 
-def _host_chunks(stream: np.ndarray, params: cdc.CDCParams) -> tuple[np.ndarray, list[bytes]]:
-    """The host oracle for one file: numpy CDC cuts + hashlib digests."""
-    cuts = cdc.chunk_data_np(stream, params)
-    digests = []
-    prev = 0
-    for cut in cuts:
-        digests.append(hashlib.sha256(stream[prev:int(cut)]).digest())
-        prev = int(cut)
-    return cuts, digests
+class IncrementalChunker:
+    """Per-file CDC with bounded carry.
+
+    A FastCDC cut ending the chunk that starts at ``s`` depends only on
+    bytes ``[s, s + max_size)``, so any cut whose chunk start has a full
+    ``max_size`` of lookahead in the buffer is final; the rest is carried.
+    Produces exactly the cuts a whole-stream run produces. Boundaries go
+    through the engine (``jax``/``fused``: the windowed device lane;
+    ``numpy``: the host); callers packing many files share one engine.
+    """
+
+    def __init__(self, opt: PackOption, engine: ChunkDigestEngine | None = None, device=None):
+        self._engine = engine or ChunkDigestEngine(
+            chunk_size=opt.chunk_size, mode=opt.chunking, backend=opt.backend, device=device
+        )
+        params = self._engine.params
+        self.lookahead = params.max_size if params else opt.chunk_size
+        self._buf = bytearray()
+
+    def feed(self, seg: bytes) -> list[bytes]:
+        self._buf += seg
+        if len(self._buf) < 2 * self.lookahead:
+            return []
+        return self._drain(final=False)
+
+    def finish(self) -> list[bytes]:
+        out = self._drain(final=True)
+        self._buf = bytearray()
+        return out
+
+    def _drain(self, final: bool) -> list[bytes]:
+        buf = self._buf
+        if not buf:
+            return []
+        out = []
+        s = 0
+        for c in self._engine.boundaries(np.frombuffer(buf, dtype=np.uint8)):
+            c = int(c)
+            if not final and s + self.lookahead > len(buf):
+                break
+            out.append(bytes(buf[s:c]))
+            s = c
+        self._buf = bytearray(buf[s:]) if not final else bytearray()
+        return out
+
+    def chunk_whole(self, view: memoryview) -> list[memoryview]:
+        """Chunks of a complete in-memory file, as zero-copy views."""
+        if len(view) == 0:
+            return []
+        out = []
+        s = 0
+        for c in self._engine.boundaries(np.frombuffer(view, dtype=np.uint8)):
+            out.append(view[s : int(c)])
+            s = int(c)
+        return out
 
 
-def pack_layer(
-    src_tar: bytes,
+def Pack(
+    dest: BinaryIO,
+    src_tar: "BinaryIO | bytes",
     opt: PackOption,
     chunk_dict=None,
     device: "str | torch.device | None" = None,
-) -> tuple[bytes, PackResult]:
-    """Pack one layer tar -> (framed layer blob bytes, PackResult).
+) -> PackResult:
+    """Stream one OCI layer tar into a nydus blob written to ``dest``.
 
-    ``chunk_dict`` is a loaded dict object (models/bootstrap.ChunkDict or
-    anything with its get/blob_id_for/bootstrap interface). ``device`` is
-    where the fused backend runs (CUDA unless ``"cpu"`` is asked for).
+    ``src_tar`` is the whole tar in memory (bytes) or a file-like object,
+    read once, front to back. ``chunk_dict`` is a loaded dict object
+    (models/bootstrap.ChunkDict or anything with its
+    get/blob_id_for/bootstrap interface). ``device`` is where the device
+    backends run (CUDA unless ``"cpu"`` is asked for).
     """
     _check_options(opt)
-    params = cdc.CDCParams(opt.chunk_size)
-    engine = (
-        fused_convert.FusedDeviceEngine(opt.chunk_size, device=device)
-        if opt.backend == "fused"
-        else None
-    )
-    raw = memoryview(src_tar)
+    shared = IncrementalChunker(opt, device=device)
+    engine = shared._engine
+    # The fused backend's fallback lane digests on the card too: no path
+    # finishes on the host under a device backend's name.
+    digester = DeviceDigester(engine.device) if opt.backend != "numpy" else HostDigester()
+    raw: Optional[memoryview] = None
+    if isinstance(src_tar, (bytes, bytearray)):
+        raw = memoryview(src_tar)
+        src_tar = io.BytesIO(src_tar)
+    out = _CountingWriter(dest)
+    blob_hash = hashlib.sha256()
 
     metas: dict[str, _Meta] = {}
     opaque_dirs: list[str] = []
-    plan: list[tuple[_Meta, int, int]] = []  # (meta, data offset, size)
+    plan: list[tuple[_Meta, int, int]] = []  # in-memory files: (meta, data offset, size)
+
+    # Dedup state (chunk order = tar order; deterministic).
+    own_chunks: dict[bytes, int] = {}
+    uncomp_offsets: list[int] = []
+    extents: list[tuple[int, int, int]] = []  # (coff, csize, flags) per unique chunk
+    uoff = 0
+    dict_hits: dict[bytes, ChunkRecord] = {}
+    dict_blobs_used: list[str] = []
+
+    # One digest batch in flight: (handle, [(meta, data)]).
+    pending: list[tuple[_Meta, memoryview]] = []
+    pending_bytes = 0
+    in_flight = None
+
+    def _process(batch: list[tuple[_Meta, memoryview]], digests: list[bytes]) -> None:
+        nonlocal uoff
+        for (meta, data), digest in zip(batch, digests):
+            ref = _ChunkRef(digest=digest, size=len(data))
+            if chunk_dict is not None and digest not in dict_hits and digest not in own_chunks:
+                hit = chunk_dict.get(digest)
+                if hit is not None:
+                    dict_hits[digest] = hit
+                    bid = chunk_dict.blob_id_for(hit)
+                    if bid not in dict_blobs_used:
+                        dict_blobs_used.append(bid)
+            if digest in dict_hits:
+                ref.dict_hit = dict_hits[digest]
+            else:
+                idx = own_chunks.get(digest)
+                if idx is None:
+                    idx = len(uncomp_offsets)
+                    own_chunks[digest] = idx
+                    uncomp_offsets.append(uoff)
+                    # compressor "none": the stored frame is the chunk itself
+                    extents.append((out.tell(), len(data), constants.COMPRESSOR_NONE))
+                    out.write(data)
+                    blob_hash.update(data)
+                    uoff += len(data)
+                ref.uniq_idx = idx
+            meta.chunks.append(ref)
+
+    def _dispatch() -> None:
+        nonlocal pending, pending_bytes, in_flight
+        if in_flight is not None:
+            handle, batch = in_flight
+            in_flight = None
+            _process(batch, digester.collect(handle))
+        if pending:
+            items = [(np.frombuffer(d, dtype=np.uint8), 0, len(d)) for _m, d in pending]
+            in_flight = (digester.submit(items), pending)
+            pending, pending_bytes = [], 0
+
+    def _add_chunk(meta: _Meta, data) -> None:
+        nonlocal pending_bytes
+        pending.append((meta, data))
+        pending_bytes += len(data)
+        if pending_bytes >= DIGEST_BATCH_BYTES:
+            _dispatch()
 
     def walk_member(tf: tarfile.TarFile, info: tarfile.TarInfo) -> None:
         path = fstree.norm_path(info.name)
@@ -143,13 +283,28 @@ def pack_layer(
         metas[path] = meta
         if not (entry.is_regular and info.size > 0):
             return
-        if info.sparse:
-            raise ConvertError(f"sparse tar member {path!r} is not supported")
         meta.size = info.size
-        plan.append((meta, info.offset_data, info.size))
+        if raw is not None and not info.sparse:
+            # zero-copy: the member's bytes are a slice of the caller's buffer
+            plan.append((meta, info.offset_data, info.size))
+            return
+        # streaming input, or a sparse member (its data is stored compacted)
+        f = tf.extractfile(info)
+        if f is None:
+            raise ConvertError(f"tar member {path!r} has no data stream")
+        chunker = IncrementalChunker(opt, engine=engine)
+        while True:
+            seg = f.read(SEGMENT_BYTES)
+            if not seg:
+                break
+            for chunk in chunker.feed(seg):
+                _add_chunk(meta, chunk)
+        for chunk in chunker.finish():
+            _add_chunk(meta, chunk)
 
     try:
-        tf = tarfile.open(fileobj=io.BytesIO(src_tar), mode="r:")
+        # random access for in-memory layers, one pass for a stream
+        tf = tarfile.open(fileobj=src_tar, mode="r:" if raw is not None else "r|")
     except tarfile.TarError as e:
         raise ConvertError(f"bad layer tar: {e}") from e
     with tf:
@@ -159,65 +314,36 @@ def pack_layer(
         except tarfile.TarError as e:
             raise ConvertError(f"bad layer tar: {e}") from e
 
-    # Chunk + digest every planned file: device batches, or the host oracle.
-    arr_all = np.frombuffer(src_tar, dtype=np.uint8)
-    streams = [arr_all[off : off + size] for _m, off, size in plan]
-    if engine is not None:
+    if plan and opt.backend == "fused":
+        # The whole layer through the device full path, in batches below
+        # int32 chunk addressing; on FusedOverflow the per-file lane below.
+        arr_all = np.frombuffer(raw, dtype=np.uint8)
+        streams = [arr_all[off : off + size] for _m, off, size in plan]
+        feng = fused_convert.FusedDeviceEngine(opt.chunk_size, device=engine.device)
         per_file = []
         try:
-            for batch in engine.split_batches([s.size for s in streams]):
-                fres = engine.process_many([streams[i] for i in batch])
+            for batch in feng.split_batches([s.size for s in streams]):
+                fres = feng.process_many([streams[i] for i in batch])
                 per_file.extend(zip(fres.cuts, fres.digests))
-        except fused_convert.FusedOverflow as e:
-            raise ConvertError(f"fused backend cannot take this layer: {e}") from e
-    else:
-        per_file = [_host_chunks(s, params) for s in streams]
+        except fused_convert.FusedOverflow:
+            per_file = None
+        if per_file is not None:
+            for (meta, off, _size), (cuts, digests) in zip(plan, per_file):
+                prev = 0
+                batch = []
+                for cut in cuts:
+                    batch.append((meta, raw[off + prev : off + int(cut)]))
+                    prev = int(cut)
+                _process(batch, digests)
+            plan = []
+    for meta, off, size in plan:
+        for chunk in shared.chunk_whole(raw[off : off + size]):
+            _add_chunk(meta, chunk)
+    _dispatch()  # collects the batch in flight, submits the rest
+    _dispatch()  # collects the rest
 
-    # Dedup (chunk order = tar order; deterministic) and blob assembly.
-    own_chunks: dict[bytes, int] = {}
-    uncomp_offsets: list[int] = []
-    extents: list[tuple[int, int, int]] = []  # (coff, csize, flags) per unique chunk
-    blob_parts: list[memoryview] = []
-    blob_hash = hashlib.sha256()
-    uoff = 0
-    coff = 0
-    dict_hits: dict[bytes, ChunkRecord] = {}
-    dict_blobs_used: list[str] = []
-    for (meta, off, _size), (cuts, digests) in zip(plan, per_file):
-        prev = 0
-        for cut, digest in zip(cuts, digests):
-            data = raw[off + prev : off + int(cut)]
-            prev = int(cut)
-            ref = _ChunkRef(digest=digest, size=len(data))
-            if chunk_dict is not None and digest not in dict_hits and digest not in own_chunks:
-                hit = chunk_dict.get(digest)
-                if hit is not None:
-                    dict_hits[digest] = hit
-                    bid = chunk_dict.blob_id_for(hit)
-                    if bid not in dict_blobs_used:
-                        dict_blobs_used.append(bid)
-            if digest in dict_hits:
-                ref.dict_hit = dict_hits[digest]
-            else:
-                idx = own_chunks.get(digest)
-                if idx is None:
-                    idx = len(uncomp_offsets)
-                    own_chunks[digest] = idx
-                    uncomp_offsets.append(uoff)
-                    # compressor "none": the stored frame is the chunk itself
-                    extents.append((coff, len(data), constants.COMPRESSOR_NONE))
-                    blob_parts.append(data)
-                    blob_hash.update(data)
-                    coff += len(data)
-                    uoff += len(data)
-                ref.uniq_idx = idx
-            meta.chunks.append(ref)
-
-    out = io.BytesIO()
-    blob_size = coff
+    blob_size = out.tell()
     blob_id = blob_hash.hexdigest() if blob_size else ""
-    for part in blob_parts:
-        out.write(part)
     if blob_size:
         out.write(nydus_tar.make_header(toc.ENTRY_BLOB_DATA, blob_size))
 
@@ -349,9 +475,21 @@ def pack_layer(
     out.write(toc_bytes)
     out.write(nydus_tar.make_header(toc.ENTRY_BLOB_TOC, len(toc_bytes)))
 
-    return out.getvalue(), PackResult(
+    return PackResult(
         blob_id=blob_id,
         blob_size=blob_size,
         bootstrap=boot_bytes,
         referenced_blob_ids=[b.blob_id for b in blob_table],
     )
+
+
+def pack_layer(
+    src_tar: "BinaryIO | bytes",
+    opt: PackOption,
+    chunk_dict=None,
+    device: "str | torch.device | None" = None,
+) -> tuple[bytes, PackResult]:
+    """Pack to bytes -> (framed layer blob, PackResult)."""
+    dest = io.BytesIO()
+    res = Pack(dest, src_tar, opt, chunk_dict=chunk_dict, device=device)
+    return dest.getvalue(), res

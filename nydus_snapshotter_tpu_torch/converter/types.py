@@ -1,8 +1,8 @@
 """Converter option surface — semantic parity with reference types.go:58-90.
 
 A copy of the reference package's ``PackOption`` and ``ConvertError``;
-converter/pack.py states which options this package's ``pack_layer``
-supports and refuses the rest."""
+converter/pack.py states which options this package's ``Pack`` supports
+and refuses the rest."""
 
 from __future__ import annotations
 
@@ -38,10 +38,11 @@ class PackOption:
     chunk_size: int = constants.CHUNK_SIZE_DEFAULT
     batch_size: int = 0
     encrypt: bool = False
-    # Engine selection (replaces BuilderPath): fused = the device full path
-    # (ops/fused_convert, the default here); numpy = the host differential
-    # path (numpy CDC + hashlib). The reference's hybrid/jax values name
-    # its own arms and are refused by this package's pack_layer.
+    # Engine selection, with the reference's value names: fused = the device full path (ops/fused_convert, the default
+    # here); jax = the windowed device lane (ops/chunker.ChunkDigestEngine,
+    # on CUDA in this package); numpy = the host differential path (numpy
+    # CDC + hashlib). hybrid needs the native chunk engine, not ported yet,
+    # and is refused by this package's Pack.
     backend: str = "fused"
     chunking: str = "cdc"  # "cdc" | "fixed"
     # "" = engine default for the backend (the only value pack_layer takes

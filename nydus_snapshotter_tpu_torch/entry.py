@@ -40,7 +40,8 @@ def example_args(
     msg_len: int = 1500,
 ):
     """Seeded inputs for ``forward``: windows u8[n_win, win+31], the masks,
-    and n_msgs messages of msg_len bytes laid end to end in one buffer."""
+    and n_msgs messages of msg_len bytes laid end to end in one buffer
+    (their extents on the host, where ``sha256_chunks`` takes them)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     windows = rng.integers(0, 256, (n_win, win + gear.GEAR_WINDOW - 1), dtype=np.uint8)
@@ -52,8 +53,8 @@ def example_args(
         MASK_S,
         MASK_L,
         torch.from_numpy(buf).to(dev),
-        torch.from_numpy(offs).to(dev),
-        torch.from_numpy(sizes).to(dev),
+        torch.from_numpy(offs),
+        torch.from_numpy(sizes),
     )
 
 

@@ -139,6 +139,16 @@ def _first_candidate_in(cand: np.ndarray, lo: int, hi: int) -> int | None:
     return None
 
 
+def cuts_to_extents(cuts: np.ndarray) -> list[tuple[int, int]]:
+    """[(offset, size), ...] from cut offsets."""
+    out = []
+    prev = 0
+    for cut in cuts:
+        out.append((prev, int(cut) - prev))
+        prev = int(cut)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Whole-stream helpers
 # ---------------------------------------------------------------------------
@@ -173,6 +183,15 @@ def chunk_data_np(data: bytes | np.ndarray, params: CDCParams) -> np.ndarray:
     cand_s = np.concatenate(parts_s)
     cand_l = np.concatenate(parts_l)
     return resolve_cuts(cand_s, cand_l, arr.size, params)
+
+
+def chunk_fixed(total_len: int, chunk_size: int) -> np.ndarray:
+    """Fixed-size chunking (the nydus default ``--chunk-size`` behavior)."""
+    if chunk_size <= 0:
+        raise CDCError("chunk size must be positive")
+    cuts = list(range(chunk_size, total_len, chunk_size))
+    cuts.append(total_len)
+    return np.asarray(cuts if total_len else [], dtype=np.int64)
 
 
 # ---------------------------------------------------------------------------

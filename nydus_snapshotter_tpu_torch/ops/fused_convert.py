@@ -312,7 +312,7 @@ class FusedDeviceEngine:
         The dict owns its padded device tables (staged once, dropped when
         its tables change), so repeated batches never re-upload them.
         """
-        offs, sizes = torch.from_numpy(extents).to(buffer_dev.device)  # one upload
+        offs, sizes = torch.from_numpy(extents)
         states = sha256_cuda.sha256_chunks(buffer_dev, offs, sizes)
         probe = None
         if chunk_dict is not None:

@@ -1,7 +1,8 @@
 """Chunk SHA-256 read straight from the layer buffer: kernel K2 and wrapper.
 
 ``sha256_chunks(buffer, offs, sizes)`` digests chunk m = buffer[offs[m] :
-offs[m] + sizes[m]] and returns its state words. It is the function the
+offs[m] + sizes[m]] and returns its state words; the extents stay on the
+host, where the caller made them. It is the function the
 reference computes as ``sha256_batch_pallas(_gather_pack_sha(buffer, offs,
 sizes, cap), (sizes + 8) // 64 + 1)``; the plain version below is exactly
 that composition in torch. A CPU tensor takes the plain version; a CUDA
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from nydus_snapshotter_tpu_torch.ops import cuda_build, sha256
@@ -97,9 +99,12 @@ def longest_first(sizes: torch.Tensor) -> torch.Tensor:
 
 
 def _check_extents(buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor) -> None:
-    lo_off, lo_size, hi_end = torch.stack(
-        [offs.min().long(), sizes.min().long(), (offs.long() + sizes.long()).max()]
-    ).tolist()
+    """Raise unless every chunk lies inside the buffer. The extents are
+    host tensors, so this reads no device memory and never waits on the
+    card."""
+    o = offs.numpy().astype(np.int64)
+    s = sizes.numpy().astype(np.int64)
+    lo_off, lo_size, hi_end = int(o.min()), int(s.min()), int((o + s).max())
     if lo_off < 0 or lo_size < 0 or hi_end > buffer.numel():
         raise ValueError(
             f"chunk extents leave the buffer (min off {lo_off}, min size "
@@ -110,13 +115,19 @@ def _check_extents(buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor
 def sha256_chunks(
     buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor
 ) -> torch.Tensor:
-    """buffer u8[N], offs/sizes int32[M] -> int32[M, 8] SHA-256 states
-    (big-endian words as u32 patterns)."""
+    """buffer u8[N] on any device, offs/sizes int32[M] on the host ->
+    int32[M, 8] SHA-256 states on the buffer's device (big-endian words as
+    u32 patterns).
+
+    The extents are checked on the host and, for a CUDA buffer, uploaded
+    in one non-blocking copy from pinned memory; the row order is sorted on
+    the card. The call queues its work and returns without waiting on the
+    card."""
     if buffer.dtype != torch.uint8 or buffer.dim() != 1:
         raise ValueError(f"buffer must be u8[N], got {buffer.dtype}{list(buffer.shape)}")
     for name, t in (("offs", offs), ("sizes", sizes)):
-        if t.dtype != torch.int32 or t.dim() != 1 or t.device != buffer.device:
-            raise ValueError(f"{name} must be int32[M] on {buffer.device}")
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device.type != "cpu":
+            raise ValueError(f"{name} must be int32[M] on the host")
     if offs.shape != sizes.shape:
         raise ValueError("offs and sizes differ in length")
     m = offs.shape[0]
@@ -126,18 +137,20 @@ def sha256_chunks(
         return sha256_chunks_plain(buffer, offs, sizes)
     if buffer.device.type != "cuda":
         raise ValueError(f"unsupported device {buffer.device}")
-    if not (buffer.is_contiguous() and offs.is_contiguous() and sizes.is_contiguous()):
-        raise ValueError("buffer, offs and sizes must be contiguous")
+    if not buffer.is_contiguous():
+        raise ValueError("buffer must be contiguous")
     # Full blocks are read as aligned 16-byte pieces: the base and length
     # must keep every such piece inside the allocation.
     if buffer.data_ptr() % 16 or buffer.numel() % 16:
         raise ValueError("buffer must be 16-byte aligned with a length divisible by 16")
     out = torch.empty((m, 8), dtype=torch.int32, device=buffer.device)
     if m:
+        rows = torch.stack([offs, sizes]).pin_memory()
         with torch.cuda.device(buffer.device):
-            perm = longest_first(sizes)
+            ext = rows.to(buffer.device, non_blocking=True)
+            perm = longest_first(ext[1])
             KERNEL.launch(
-                buffer.data_ptr(), offs.data_ptr(), sizes.data_ptr(), perm.data_ptr(),
+                buffer.data_ptr(), ext[0].data_ptr(), ext[1].data_ptr(), perm.data_ptr(),
                 out.data_ptr(), m, torch.cuda.current_stream().cuda_stream,
             )
     return out

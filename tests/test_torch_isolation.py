@@ -15,6 +15,7 @@ import torch
 
 from nydus_snapshotter_tpu_torch import entry
 from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
 from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
 from nydus_snapshotter_tpu_torch.parallel import sharded_dict
 
@@ -26,6 +27,7 @@ _CHILD = textwrap.dedent(
     import numpy as np
     from nydus_snapshotter_tpu_torch import entry
     from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
     from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
     from nydus_snapshotter_tpu_torch.parallel import sharded_dict
 
@@ -37,6 +39,9 @@ _CHILD = textwrap.dedent(
     with tarfile.open(fileobj=buf, mode="w") as tf:
         ti = tarfile.TarInfo("f"); ti.size = 3; tf.addfile(ti, io.BytesIO(b"abc"))
     pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000), device="cpu")
+    pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, backend="jax"), device="cpu")
+    metas = ChunkDigestEngine(chunk_size=0x1000, device="cpu").process_many([data, b"abc"])
+    assert [m.digest for m in metas[1]] == [hashlib.sha256(b"abc").digest()]
     fwd, args = entry.entry(device="cpu")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
@@ -64,8 +69,10 @@ def test_main_path_imports_neither_jax_nor_reference():
         lambda: sharded_dict.from_tables(np.zeros((64, 8), np.uint32), np.zeros(64, np.int32), 1),
         lambda: entry.entry(),
         lambda: pack_layer(b"", PackOption(backend="fused")),
+        lambda: ChunkDigestEngine(),
+        lambda: pack_layer(b"", PackOption(backend="jax")),
     ],
-    ids=["engine", "dict", "from_tables", "entry", "pack_layer"],
+    ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():
