@@ -33,6 +33,8 @@ Phases (any failure exits non-zero; nothing is caught):
    on the table's last row, misses);
 4. pack — ``pack_layer`` over a ~256 MiB node:21-shaped tar, fused backend
    against the numpy (host) backend: blob, bootstrap and blob id identical;
+   each wall time the median of 3 runs after that checked one, every run
+   printed with its host CPU seconds and minor page faults;
 5. timings — each kernel alone (``kernel_ms``: many launches of its C entry
    with pointers prepared in advance, between two CUDA events; K3's after
    an L2 flush before each launch, as the main path meets it) and through
@@ -55,14 +57,21 @@ Phases (any failure exits non-zero; nothing is caught):
    checked run (the warm-up), split into ``boundaries_many`` and ``digest_all``, and the
    device's busy share from one torch.profiler trace; K1 alone on one
    512 KiB window and K2 alone on one 32 MiB digest batch (the windowed
-   lanes' own shapes); then 3 runs at the engine's default 1 MiB average
+   lanes' own shapes), K1's output against its plain version and K2's
+   against hashlib; the engine's own staged rows and bitmaps of one
+   multi-row stream (the layer's largest files joined) at 1, 2 and 4 MiB
+   windows against the plain version, exactly, and its cuts against the
+   numpy chunker; then 3 runs at the engine's default 1 MiB average
    chunks, every digest against hashlib, the cuts of >= 64 MiB of files
-   against the numpy chunker, and K2 alone on that launch;
+   against the numpy chunker, and K2 alone on that launch (its output
+   against hashlib);
 8. pack lanes — ``pack_layer`` over phase 4's tar with ``backend="jax"``,
    the file-like ``Pack`` from a ``BytesIO``, and ``backend="fused"`` with
    the candidate capacity forced to overflow (the per-file windowed
    fallback): blob, bootstrap and blob id equal to phase 4's numpy and
-   fused outputs; each wall time the median of 3 after a checked run, in
+   fused outputs; K1 launched once per non-empty file on the bytes lane
+   (at least that on the other two); each wall time the median of 3 after
+   a checked run (host CPU seconds and page faults beside each run), in
    which the device digester's ``submit`` runs under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
 
@@ -302,12 +311,32 @@ def kernel_ms(launch, n: int, sm_hz: float, flush=None, reps: int = 3) -> float:
     return float(np.median(times))
 
 
+def host_timed(fn) -> tuple[float, float, int]:
+    """One call of ``fn``: wall seconds, host CPU seconds of the process
+    (every thread) and its minor page faults."""
+    import resource
+
+    r0, c0, t0 = resource.getrusage(resource.RUSAGE_SELF), time.process_time(), time.perf_counter()
+    fn()
+    wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+    return wall, cpu, resource.getrusage(resource.RUSAGE_SELF).ru_minflt - r0.ru_minflt
+
+
 def max_abs_err(got, want) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     if got.numel() == 0:
         return 0
     return int((got.long() - want.long()).abs().max())
+
+
+def digest_words(digests: list[bytes]):
+    """Raw SHA-256 digests -> int32[M, 8] as K2 returns them (big-endian
+    words as u32 patterns)."""
+    import torch
+
+    words = np.frombuffer(b"".join(digests), dtype=">u4").astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32).reshape(-1, 8))
 
 
 def sha_blocks(sizes: np.ndarray) -> np.ndarray:
@@ -661,6 +690,38 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
     win_ms = kernel_ms(c_launch(gear_cuda.KERNEL, row, o[0], o[1], 1, w, p.mask_small,
                                 p.mask_large), 200, sm_hz)
     win_bound = bound_ms(row.numel() + 2 * w / 8, w * K1_OPS_PER_POS, int_ops_per_s)
+    k1_err = max(max_abs_err(a, b) for a, b in
+                 zip(o, gear_cuda.gear_bitmaps_plain(row, p.mask_small, p.mask_large, w)))
+    # One multi-row stream at each larger window, staged and read back by the
+    # engine itself: its bitmaps against the plain version on the same rows,
+    # its cuts against the numpy chunker. The stream joins the layer's
+    # largest files, past three 4 MiB rows.
+    largest, size = [], 0
+    for f in sorted(files, key=lambda f: -f.size):
+        largest.append(f)
+        size += f.size
+        if size > 3 * chunker.DEFAULT_WINDOW:
+            break
+    stream = np.concatenate(largest)
+    stream_rows = []
+    stream_windows = (chunker.DEFAULT_WINDOW >> 2, chunker.DEFAULT_WINDOW >> 1, chunker.DEFAULT_WINDOW)
+    for ww in stream_windows:
+        e = chunker.ChunkDigestEngine(chunk_size=CHUNK_SIZE, backend="jax", window=ww, device=dev)
+        h = e._dispatch_windows(stream)
+        slot, w_got, n = h
+        if slot.done is not None:
+            slot.done.synchronize()
+        if w_got != ww or n != -(-stream.size // ww) or n < 2:
+            raise AssertionError(f"window {ww}: staged {n} rows of {w_got}")
+        want = gear_cuda.gear_bitmaps_plain(slot.rows[:n].to(dev), p.mask_small, p.mask_large, ww)
+        k1_err = max([k1_err] + [max_abs_err(slot.bits[i, :n], want[i].cpu()) for i in range(2)])
+        if not np.array_equal(cdc.resolve_cuts(*e._collect_windows(h, stream), stream.size, p),
+                              cdc.chunk_data_np(stream, p)):
+            raise AssertionError(f"window {ww}: cuts differ from the numpy chunker")
+        stream_rows.append(n)
+    if k1_err:
+        raise AssertionError(f"K1 on the windowed lane's rows differs from its plain version "
+                             f"(max err {k1_err})")
     sizes, parts, total = [], [], 0
     for metas, f in zip(got, files):
         for m in metas:
@@ -680,12 +741,16 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
                                   sha256_cuda.longest_first(b_sizes_d), b_out, len(sizes)),
                          20, sm_hz)
     batch_bound = k2_bound(sizes, int_ops_per_s, sm_hz, rc)
+    k2_err = max_abs_err(b_out.cpu(), digest_words([hashlib.sha256(x).digest() for x in parts]))
     log(f"[7] K1 alone on one {w}-byte window: {win_ms:.4f} ms (bound {win_bound[0]:.5f} ms by "
-        f"{win_bound[1]}); the layer's {nonempty} windows hold {padded} positions for {n_bytes} "
+        f"{win_bound[1]}); its output, and the engine's bitmaps of one {stream.size}-byte stream "
+        f"in {stream_rows} rows of {[x >> 10 for x in stream_windows]} KiB, == the plain "
+        f"version, their cuts == the numpy "
+        f"chunker; the layer's {nonempty} windows hold {padded} positions for {n_bytes} "
         f"bytes ({padded / n_bytes:.2f}x); K2 alone on one {total}-byte digest batch "
         f"({len(sizes)} chunks, longest {int(sha_blocks(sizes).max())} blocks): {batch_ms:.4f} ms "
         f"(bound {batch_bound[0]:.4f} ms: throughput {batch_bound[2]:.4f}, serial "
-        f"{batch_bound[4]:.4f})")
+        f"{batch_bound[4]:.4f}), every digest == hashlib")
     del b_buf, row
 
     # The engine's default 1 MiB average chunks.
@@ -720,13 +785,18 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
     k2_1m_ms = kernel_ms(c_launch(sha256_cuda.KERNEL, w_buf, o_d, s_d,
                                   sha256_cuda.longest_first(s_d), out_1m, len(sizes_1m)), 2, sm_hz)
     bound_1m = k2_bound(sizes_1m, int_ops_per_s, sm_hz, rc)
+    k2_err = max(k2_err, max_abs_err(out_1m.cpu(), digest_words(
+        [m.digest for metas in res_1m for m in metas])))
+    if k2_err:
+        raise AssertionError(f"K2 on the windowed lane's batches differs from hashlib "
+                             f"(max err {k2_err})")
     longest_1m = int(sha_blocks(sizes_1m).max())
     del w_buf
     log(f"[7] 1 MiB average chunks: {len(sizes_1m)} chunks, runs "
         + ", ".join(f"{x:.3f}" for x in walls_1m) + f" s (median {np.median(walls_1m):.3f} s = "
         f"{n_bytes / 2**30 / np.median(walls_1m):.3f} GiB/s); every digest == hashlib, cuts == "
         f"numpy chunker over {checked} bytes; longest chunk {longest_1m} blocks; K2 alone on all "
-        f"{len(sizes_1m)} chunks in one launch {k2_1m_ms:.3f} ms (bound {bound_1m[0]:.3f} ms: "
+        f"{len(sizes_1m)} chunks in one launch (== hashlib) {k2_1m_ms:.3f} ms (bound {bound_1m[0]:.3f} ms: "
         f"throughput {bound_1m[2]:.4f}, serial {bound_1m[4]:.3f}) = "
         f"{k2_1m_ms * 1e-3 * sm_hz / longest_1m:.0f} cycles per block of the longest chunk")
     return {
@@ -737,6 +807,7 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
         "batch_kernel_ms": batch_ms, "batch_bound_ms": batch_bound[0], "batch_bytes": total,
         "chunks_1m": len(sizes_1m), "runs_1m_s": walls_1m, "longest_1m_blocks": longest_1m,
         "k2_1m_kernel_ms": k2_1m_ms, "k2_1m_bound_ms": bound_1m[0],
+        "k1_err": k1_err, "k2_err": k2_err,
     }
 
 
@@ -749,6 +820,8 @@ def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
     from nydus_snapshotter_tpu_torch.ops import chunker, fused_convert
 
     opt = dict(chunk_size=CHUNK_SIZE, compressor="none")
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        n_files = sum(1 for m in tf if m.isreg() and m.size)
 
     def bytes_jax():
         return pack_layer(tar, PackOption(backend="jax", **opt), device=dev)
@@ -793,17 +866,20 @@ def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
         if not (blob == blob_n == blob_f and res.bootstrap == res_n.bootstrap
                 and res.blob_id == res_n.blob_id):
             raise AssertionError(f"pack {name} differs from the numpy and fused backends")
-        if launches["gear"] < 2 or launches["sha"] != len(submits) or not submits:
-            raise AssertionError(f"pack {name}: launches {launches}, {len(submits)} digest batches")
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            walls.append(time.perf_counter() - t0)
+        # K1 once per non-empty file on the bytes lane; the file-like lane
+        # cuts a large file in several drains, the fused lane adds its own
+        # pass before it overflows.
+        k1_ok = launches["gear"] == n_files if name == "jax" else launches["gear"] >= n_files
+        if not k1_ok or launches["sha"] != len(submits) or not submits:
+            raise AssertionError(f"pack {name}: launches {launches} for {n_files} non-empty "
+                                 f"files, {len(submits)} digest batches")
+        runs = [host_timed(fn) for _ in range(3)]
+        walls = [r[0] for r in runs]
         log(f"[8] pack {name}: == numpy and fused byte for byte; launches {launches} "
-            f"({len(submits)} digest batches, each submitted under sync debug mode 'error'); "
-            f"checked run {first:.2f} s, median {np.median(walls):.3f} s (runs "
-            + ", ".join(f"{x:.3f}" for x in walls) + " s)")
+            f"({n_files} non-empty files, {len(submits)} digest batches, each submitted under "
+            f"sync debug mode 'error'); checked run {first:.2f} s, median {np.median(walls):.3f} s "
+            "(runs, wall / host CPU s / minor page faults: "
+            + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in runs) + ")")
         out[name] = {"launches": launches, "batches": len(submits), "wall_s": float(np.median(walls)),
                      "runs_s": walls}
         submits.clear()
@@ -1075,9 +1151,23 @@ def main() -> int:
     t_numpy = time.perf_counter() - t0
     if not (blob_f == blob_n and res_f.bootstrap == res_n.bootstrap and res_f.blob_id == res_n.blob_id):
         raise AssertionError("fused and numpy pack_layer outputs differ")
+    # Wall times: the median of 3 runs after the checked one.
+    pack_runs = {}
+    for backend, want in (("fused", blob_f), ("numpy", blob_n)):
+        pack_runs[backend] = []
+        for _ in range(3):
+            got = []
+            pack_runs[backend].append(host_timed(lambda: got.append(
+                pack_layer(tar, PackOption(backend=backend, **opt), device=dev)[0])))
+            if got[0] != want:
+                raise AssertionError(f"pack_layer({backend}) differs from its checked run")
     log(f"[4] pack: {len(tar)} byte tar (built in {t_gen:.1f} s) -> {len(blob_f)} byte layer "
-        f"blob, blob id {res_f.blob_id[:16]}..; fused == numpy byte for byte; fused "
-        f"{t_fused:.2f} s, numpy {t_numpy:.2f} s")
+        f"blob, blob id {res_f.blob_id[:16]}..; fused == numpy byte for byte; checked runs fused "
+        f"{t_fused:.3f} s, numpy {t_numpy:.3f} s; median of 3 after them (runs, wall / host CPU "
+        "s / minor page faults): " + "; ".join(
+            f"{b} {np.median([r[0] for r in rs]):.3f} s ("
+            + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in rs) + ")"
+            for b, rs in pack_runs.items()))
 
     # -- 5. timings --------------------------------------------------------
     sm_hz = max_sm_mhz * 1e6
@@ -1184,6 +1274,8 @@ def main() -> int:
 
     # -- 8. pack lanes ---------------------------------------------------------
     lanes = pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels)
+    k1_err = max(k1_err, windowed["k1_err"])
+    k2_err = max(k2_err, windowed["k2_err"])
 
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, **extra):

@@ -6,11 +6,12 @@ bootstrap | ``rafs.blob.toc``, framed per models/nydus_tar.py); chunk-dict
 hits are referenced, not stored. The output is byte-identical to the
 reference package's ``Pack``/``pack_layer`` for the options supported here:
 
-- ``backend="fused"``: the layer's files go through the device full path
+- ``backend="fused"``: the layer's in-memory files go through
+  ``ChunkDigestEngine(backend="fused").process_many``: the device full path
   (ops/fused_convert), cuts and SHA-256 on the card, in as few batches as
   int32 chunk addressing allows. An input that path cannot take
   (candidate capacity overflow, a file beyond int32 addressing) falls to
-  the per-file windowed lane below, still on the card, as the reference
+  the engine's per-file windowed lane, still on the card, as the reference
   falls through to its per-file paths (converter/stream.py:1051-1075).
 - ``backend="jax"``: the reference's windowed device lane. Each file is
   cut by ``ChunkDigestEngine.boundaries`` (kernel K1 per file) and its
@@ -51,8 +52,7 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     CipherRecord,
     Inode,
 )
-from nydus_snapshotter_tpu_torch.ops import fused_convert
-from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester, HostDigester
+from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, HostDigester
 
 SEGMENT_BYTES = 4 << 20  # tar read granularity
 DIGEST_BATCH_BYTES = 32 << 20  # chunk bytes per digest batch
@@ -193,9 +193,9 @@ def Pack(
     _check_options(opt)
     shared = IncrementalChunker(opt, device=device)
     engine = shared._engine
-    # The fused backend's fallback lane digests on the card too: no path
-    # finishes on the host under a device backend's name.
-    digester = DeviceDigester(engine.device) if opt.backend != "numpy" else HostDigester()
+    # The engine's K2 digester for the device backends: no path finishes on
+    # the host under a device backend's name.
+    digester = engine.device_digester or HostDigester()
     raw: Optional[memoryview] = None
     if isinstance(src_tar, (bytes, bytearray)):
         raw = memoryview(src_tar)
@@ -315,27 +315,23 @@ def Pack(
             raise ConvertError(f"bad layer tar: {e}") from e
 
     if plan and opt.backend == "fused":
-        # The whole layer through the device full path, in batches below
-        # int32 chunk addressing; on FusedOverflow the per-file lane below.
+        # The whole layer through the engine's device full path, which falls
+        # to its per-file windowed lane on FusedOverflow.
         arr_all = np.frombuffer(raw, dtype=np.uint8)
-        streams = [arr_all[off : off + size] for _m, off, size in plan]
-        feng = fused_convert.FusedDeviceEngine(opt.chunk_size, device=engine.device)
-        per_file = []
-        try:
-            for batch in feng.split_batches([s.size for s in streams]):
-                fres = feng.process_many([streams[i] for i in batch])
-                per_file.extend(zip(fres.cuts, fres.digests))
-        except fused_convert.FusedOverflow:
-            per_file = None
-        if per_file is not None:
-            for (meta, off, _size), (cuts, digests) in zip(plan, per_file):
-                prev = 0
-                batch = []
-                for cut in cuts:
-                    batch.append((meta, raw[off + prev : off + int(cut)]))
-                    prev = int(cut)
-                _process(batch, digests)
-            plan = []
+        fallbacks = engine.stats["fused_fallbacks"]
+        per_file = engine.process_many([arr_all[off : off + size] for _m, off, size in plan])
+        if engine.stats["fused_fallbacks"] > fallbacks:
+            # The reference's per-file lane queues these chunks behind the
+            # walk's streamed ones (converter/stream.py:1198-1221): store
+            # those first.
+            _dispatch()
+            _dispatch()
+        for (meta, off, _size), chunks in zip(plan, per_file):
+            _process(
+                [(meta, raw[off + c.offset : off + c.offset + c.size]) for c in chunks],
+                [c.digest for c in chunks],
+            )
+        plan = []
     for meta, off, size in plan:
         for chunk in shared.chunk_whole(raw[off : off + size]):
             _add_chunk(meta, chunk)

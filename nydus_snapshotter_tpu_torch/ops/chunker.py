@@ -223,7 +223,9 @@ class ChunkDigestEngine:
     kernels' plain versions. ``stats`` accumulates the wall seconds of the
     windowed ``process_many``'s two halves: ``boundaries_many`` (upload,
     K1, bitmap download, cut resolution) and ``digest_all`` (staging,
-    upload, K2, digest download).
+    upload, K2, digest download), and counts in ``fused_fallbacks`` the
+    ``process_many`` calls that the fused backend handed to the windowed
+    path.
     """
 
     def __init__(
@@ -271,8 +273,12 @@ class ChunkDigestEngine:
         self._stream = torch.cuda.Stream(self.device) if self._pin else None
         self._rings: dict[int, list[_Slot | None]] = {}
         self._turn: dict[int, int] = {}
-        self._digester = DeviceDigester(self.device) if self.digest_backend == "jax" else None
-        self.stats = {"boundaries_s": 0.0, "digest_s": 0.0}
+        # K2 in batches, on the engine's device; callers that batch their own
+        # chunks (converter/pack.py) share it
+        self.device_digester = (
+            DeviceDigester(self.device) if self.digest_backend == "jax" else None
+        )
+        self.stats = {"boundaries_s": 0.0, "digest_s": 0.0, "fused_fallbacks": 0}
 
     # -- boundaries ---------------------------------------------------------
 
@@ -379,8 +385,8 @@ class ChunkDigestEngine:
         if not items:
             return []
         # every piece queued before the first is collected
-        handles = [self._digester.submit(piece) for piece in _pieces(items)]
-        return [d for h in handles for d in self._digester.collect(h)]
+        handles = [self.device_digester.submit(piece) for piece in _pieces(items)]
+        return [d for h in handles for d in self.device_digester.collect(h)]
 
     def digests(self, data, cuts: np.ndarray) -> list[bytes]:
         arr = _as_array(data)
@@ -427,6 +433,7 @@ class ChunkDigestEngine:
             out = self._process_many_device_fused(arrs)
             if out is not None:
                 return out
+            self.stats["fused_fallbacks"] += 1
         t0 = perf_counter()
         per_file_extents = [cdc.cuts_to_extents(c) for c in self.boundaries_many(arrs)]
         t1 = perf_counter()

@@ -186,13 +186,16 @@ class TestFusedBatches:
         assert len(calls) > 2 and sum(calls) == 7
         assert blob == jblob and res.bootstrap == jres.bootstrap and res.blob_id == jres.blob_id
 
-    def test_candidate_overflow_raises(self, monkeypatch):
-        """A candidate-capacity overflow no longer raises: the fused backend
-        falls to the per-file windowed lane, still on the device, and packs
-        the bytes the reference's fallback packs (as
+    @pytest.mark.parametrize("make_tar", [_overflow_tar, _sparse_tar], ids=["plain", "sparse"])
+    def test_candidate_overflow_falls_back(self, monkeypatch, make_tar):
+        """On a candidate-capacity overflow the fused backend falls to the
+        per-file windowed lane, still on the device, and packs the bytes the
+        reference's fallback packs (as
         tests/test_fused_convert.py::test_pack_stream_overflow_falls_back_identically
-        pins for the reference)."""
-        tar = _overflow_tar()
+        pins for the reference), in its order: a sparse member's chunks,
+        streamed during the tar walk, are stored before the in-memory
+        files' chunks."""
+        tar = make_tar()
         monkeypatch.setattr(jfc, "_wcap_for", lambda n, bits, floor=1024: 2)
         monkeypatch.setattr(fused_convert, "_wcap_for", lambda n, bits, floor=1024: 2)
         opt = dict(chunk_size=0x1000, compressor="none", backend="fused")
@@ -200,9 +203,9 @@ class TestFusedBatches:
         jblob, jres = j_pack_layer(tar, JPackOption(**opt))
         assert blob == jblob and res.bootstrap == jres.bootstrap and res.blob_id == jres.blob_id
 
-    def test_file_beyond_int32_addressing_raises(self, monkeypatch):
-        """A file too large for any fused batch no longer raises: it takes
-        the per-file windowed lane, byte-identical to the reference."""
+    def test_file_beyond_int32_addressing_falls_back(self, monkeypatch):
+        """A file too large for any fused batch takes the per-file windowed
+        lane, byte-identical to the reference."""
         tar = _overflow_tar()
         monkeypatch.setattr(fused_convert, "MAX_BATCH_PAD", fused_convert.WINDOW)
         opt = dict(chunk_size=0x1000, compressor="none")
