@@ -6,9 +6,11 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 0. device — the card's name and power limit as nvidia-smi reports them;
-1. build  — nvcc compiles the three kernels of csrc/ and the round-latency
-   probe in parallel; the probe measures the cycles of one SHA-256 round's
-   dependent chain (SHF -> LOP3 -> IADD3) on this card for K2's bound;
+1. build  — nvcc compiles the four kernels of csrc/ (K1 gear_bitmaps.cu,
+   K2 sha256.cu, K3 probe.cu, K4 blake3.cu) and the round-latency probe in
+   parallel, one nvcc per source; the probe measures the cycles of one
+   SHA-256 round's dependent chain (SHF -> LOP3 -> IADD3) on this card for
+   K2's and K4's bounds;
 2. main path — ``FusedDeviceEngine.process_many`` over a 1 GiB
    node:21-shaped layer (log-normal file sizes, 40/40/20 text/binary/random)
    at 64 KiB average chunks, probing a 2^23-entry chunk dict that holds the
@@ -73,7 +75,28 @@ Phases (any failure exits non-zero; nothing is caught):
    (at least that on the other two); each wall time the median of 3 after
    a checked run (host CPU seconds and page faults beside each run), in
    which the device digester's ``submit`` runs under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+9. blake3 — kernel K4 (csrc/blake3.cu: a leaf launch, one thread per
+   1024-byte leaf, and a tree launch, one block per chunk) against its
+   plain PyTorch version on the card, exactly, on every chunk of phase 2's
+   layer, on phase 7's 1 MiB-average chunks and on edge rows of sizes
+   {0, 1, 63, 64, 65, 1023, 1024, 1025, 2047, 2048, 2049, 3072, 3073,
+   16384, 16385, max} at offsets 0..3 mod 4; the edge rows, one chunk of
+   at least 1 MiB and 64 layer chunks also against the pure-Python BLAKE3
+   (utils/blake3.py), and the empty chunk against af1349b9f5f9a1a6...;
+   ``FusedDeviceEngine(digester="blake3").process_many`` over phase 2's
+   layer with a BLAKE3-keyed dict of a third of its files (counters zeroed
+   just before: K1 once, K3 once, K2 never, each K4 launch once; cuts equal
+   phase 2's, digests the plain version's, probe answers the host probe's;
+   wall time the median of 5 after the checked run, pass split, busy share
+   from one profiler trace); ``ChunkDigestEngine(backend="jax",
+   digester="blake3")`` at 1 MiB chunks (K4 once per piece, digests equal
+   the plain version's); ``pack_layer(backend="fused", digester="blake3")``
+   over phase 4's tar (blob and blob id equal phase 4's SHA-256 fused blob,
+   the bootstrap's digests the plain version's over the blob's chunks;
+   median of 3) and the ``jax`` lane's BLAKE3 (host arm) on a ~4 MiB tar
+   equal to the fused lane's; K4 alone, through its wrapper and as the
+   plain version, beside its bound, on the main path and at 1 MiB chunks.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -143,6 +166,19 @@ K2_ROUND_DEPTH = 3
 ROUND_PROBE_STEPS = 1 << 16
 # K3, per chain row examined: 8 word compares and the group ballot test.
 K3_OPS_PER_ROW = 8 * 2
+# K4, per 64-byte compression: 7 rounds x 8 G mixes x 12 (a += b + m twice:
+# 1 IADD3 each; c += d twice: 1 add each; four xors, 1 LOP3 each; four
+# rotates, 1 SHF each) and the 8 output xors. Message words are
+# little-endian: no byte swap. A chunk of n leaves takes every leaf's
+# blocks (at least one) and n - 1 parent compressions.
+K4_OPS_PER_COMPRESSION = 7 * 8 * 12 + 8
+# K4's serial term: a leaf's blocks chain through its CV, then the tree's
+# log2(n) levels. Within a compression every instruction of a G mix depends
+# on the one before (a, d, c, b in turn: 12 instructions), the diagonal
+# mixes on the column mixes, so a round is 24 dependent instructions and a
+# compression 7 x 24 + 1 (the output xor), each at the cycles per dependent
+# instruction that phase 1's round-latency probe measures.
+K4_CHAIN_DEPTH = 7 * 2 * 12 + 1
 
 
 def log(msg: str) -> None:
@@ -800,6 +836,7 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
         f"throughput {bound_1m[2]:.4f}, serial {bound_1m[4]:.3f}) = "
         f"{k2_1m_ms * 1e-3 * sm_hz / longest_1m:.0f} cycles per block of the longest chunk")
     return {
+        "offs_1m": offs_1m, "sizes_1m": sizes_1m,
         "launches": launches, "wall_s": wall, "runs_s": walls, "split_s": split,
         "gib_per_s": n_bytes / 2**30 / wall, "busy_ms": busy_ms,
         "window_kernel_ms": win_ms, "window_bound_ms": win_bound[0], "window_bound_by": win_bound[1],
@@ -886,6 +923,307 @@ def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
     return out
 
 
+def b3_compressions(sizes: np.ndarray) -> tuple[float, int]:
+    """BLAKE3 compressions the chunks of these sizes need (every leaf's
+    blocks, at least one, and one parent per merge) -> (total, the longest
+    dependent chain: a leaf's 16 blocks then log2 of the leaves, over all
+    chunks)."""
+    s = sizes.astype(np.int64)
+    leaves = np.maximum((s + 1023) // 1024, 1)
+    full, tail = s // 1024, s % 1024
+    blocks = full * 16 + (tail + 63) // 64 + (s == 0)  # the empty chunk's one block
+    total = float(blocks.sum() + (leaves - 1).sum())
+    depth = int(np.ceil(np.log2(leaves.max()))) if len(s) else 0
+    chain = int(np.minimum((s.max() + 63) // 64, 16)) + depth if len(s) else 0
+    return total, max(chain, 1)
+
+
+def k4_bound(sizes: np.ndarray, int_ops_per_s: float, sm_hz: float, round_cycles: float):
+    """K4's bound over chunks of these sizes -> (ms, by, throughput-term ms,
+    what bounds it, serial-term ms, compressions). Throughput: each chunk
+    byte read once, offset + size in, 32 B of digest out, against every
+    compression's operations; serial: the longest chain of dependent
+    compressions (K4_CHAIN_DEPTH instructions each, at the cycles per
+    dependent instruction measured by the round-latency probe)."""
+    total, chain = b3_compressions(sizes)
+    through, by = bound_ms(float(sizes.astype(np.int64).sum()) + len(sizes) * (8 + 32),
+                           total * K4_OPS_PER_COMPRESSION, int_ops_per_s)
+    serial = chain * K4_CHAIN_DEPTH * (round_cycles / K2_ROUND_DEPTH) / sm_hz * 1e3
+    if serial > through:
+        return serial, "operations", through, by, serial, total
+    return through, by, through, by, serial, total
+
+
+def k4_c(buffer, offs_d, sizes_d, m: int):
+    """Launches of K4's two C entries over prepared pointers (leaf ends,
+    scratch and output allocated here, once) -> (both, leaves, parents)."""
+    import torch
+
+    from nydus_snapshotter_tpu_torch.ops import blake3_cuda
+
+    leaves = torch.clamp((sizes_d.long() + 1023) // 1024, min=1)
+    leaf_end = torch.cumsum(leaves, 0)
+    total, most = int(leaf_end[-1]), int(leaves.max())
+    cvs = torch.empty((total, 8), dtype=torch.int32, device=buffer.device)
+    cv_b = torch.empty((total if most > blake3_cuda.SHARED_CVS else 1, 8), dtype=torch.int32,
+                       device=buffer.device)
+    out = torch.empty((m, 8), dtype=torch.int32, device=buffer.device)
+    a = c_launch(blake3_cuda.LEAVES, buffer, offs_d, sizes_d, leaf_end, m, total, cvs, out)
+    b = c_launch(blake3_cuda.PARENTS, sizes_d, leaf_end, m, cvs, cv_b, out)
+
+    def both():
+        a()
+        b()
+
+    both.tensors = (a.tensors, b.tensors)
+    return both, a, b, out
+
+
+def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f, res_f,
+                 kernels, int_ops_per_s, sm_hz, rc) -> dict:
+    """Phase 9: BLAKE3 (kernel K4) on every device path of the port."""
+    import torch
+
+    from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.ops import blake3, blake3_cuda, chunker, fused_convert
+    from nydus_snapshotter_tpu_torch.parallel import sharded_dict
+    from nydus_snapshotter_tpu_torch.tensors import to_u32
+    from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
+
+    t_phase = time.perf_counter()
+    n_bytes = sum(f.size for f in files)
+    params = fused_convert.FusedDeviceEngine(chunk_size=CHUNK_SIZE, device=dev).params
+
+    def plain_timed(buf, offs, sizes):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = blake3.blake3_chunks_plain(buf, offs, sizes)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def host_b3(raw: np.ndarray, offs, sizes) -> list[bytes]:
+        return [pyb3.blake3(raw[o:o + s].tobytes()) for o, s in zip(offs.tolist(), sizes.tolist())]
+
+    def le_words(digests: list[bytes]):
+        return torch.from_numpy(np.frombuffer(b"".join(digests), dtype="<u4").astype(np.uint32)
+                                .view(np.int32).reshape(-1, 8).copy())
+
+    # -- K4 against its plain version: every chunk of phase 2's layer ------
+    offs_h, sizes_h = torch.from_numpy(extents)
+    main_k4 = blake3_cuda.blake3_chunks(buffer_dev, offs_h, sizes_h)
+    main_plain, main_plain_ms = plain_timed(buffer_dev, offs_h, sizes_h)
+    k4_err = max_abs_err(main_k4, main_plain)
+    raw_main = buffer_dev.cpu().numpy()
+    rng = np.random.default_rng(SEED + 9)
+    pick = np.sort(rng.choice(extents.shape[1], 64, replace=False))
+    k4_err = max(k4_err, max_abs_err(main_k4[pick].cpu(), le_words(
+        host_b3(raw_main, extents[0, pick], extents[1, pick]))))
+    # Edge rows at offsets 0..3 mod 4 (and mixed mod 16), in the same buffer.
+    edge_sizes = [0, 1, 63, 64, 65, 1023, 1024, 1025, 2047, 2048, 2049, 3072, 3073, 16384,
+                  16385, params.max_size]
+    e_offs, e_sizes = [], []
+    for i, size in enumerate(edge_sizes):
+        for a in range(4):
+            base = int(rng.integers(0, (n_bytes - params.max_size - 16) // 16)) * 16
+            e_offs.append(base + 4 * ((i + a) % 4) + a)
+            e_sizes.append(size)
+    e_offs, e_sizes = np.asarray(e_offs, np.int32), np.asarray(e_sizes, np.int32)
+    edge_k4 = blake3_cuda.blake3_chunks(buffer_dev, torch.from_numpy(e_offs), torch.from_numpy(e_sizes))
+    edge_plain = blake3.blake3_chunks_plain(buffer_dev, torch.from_numpy(e_offs),
+                                            torch.from_numpy(e_sizes))
+    edge_host = host_b3(raw_main, e_offs, e_sizes)
+    k4_err = max(k4_err, max_abs_err(edge_k4, edge_plain),
+                 max_abs_err(edge_k4.cpu(), le_words(edge_host)))
+    empty = blake3.digest_to_bytes(to_u32(edge_k4[0]))
+    if not empty.hex().startswith("af1349b9f5f9a1a6") or empty != pyb3.blake3(b""):
+        raise AssertionError(f"K4 digest of the empty chunk is {empty.hex()}")
+    del raw_main
+
+    # -- K4 against its plain version: phase 7's 1 MiB-chunk extents -------
+    offs_1m, sizes_1m = windowed["offs_1m"], windowed["sizes_1m"]
+    whole = np.zeros(-(-n_bytes // 16) * 16, np.uint8)
+    whole[:n_bytes] = np.concatenate(files)
+    w_buf = torch.from_numpy(whole).to(dev)
+    o1m, s1m = torch.from_numpy(offs_1m), torch.from_numpy(sizes_1m)
+    k4_1m = blake3_cuda.blake3_chunks(w_buf, o1m, s1m)
+    plain_1m, plain_1m_ms = plain_timed(w_buf, o1m, s1m)
+    k4_err = max(k4_err, max_abs_err(k4_1m, plain_1m))
+    big = int(np.flatnonzero(sizes_1m >= 1 << 20)[np.argmin(sizes_1m[sizes_1m >= 1 << 20])])
+    k4_err = max(k4_err, max_abs_err(k4_1m[big:big + 1].cpu(), le_words(
+        host_b3(whole, offs_1m[big:big + 1], sizes_1m[big:big + 1]))))
+    del whole
+    if k4_err:
+        raise AssertionError(f"K4 differs from its plain version or the pure-Python BLAKE3 "
+                             f"(max err {k4_err})")
+    log(f"[9] K4 == plain version on all {extents.shape[1]} chunks of phase 2 (plain "
+        f"{main_plain_ms:.1f} ms, one run), all {len(sizes_1m)} 1 MiB-average chunks of phase 7 "
+        f"(plain {plain_1m_ms:.1f} ms) and {len(e_sizes)} edge rows (sizes {edge_sizes} at "
+        f"offsets 0..3 mod 4); == the pure-Python BLAKE3 on 64 layer chunks, the edge rows and "
+        f"one {int(sizes_1m[big])}-byte chunk; empty chunk {empty.hex()[:16]}..")
+
+    # -- fused process_many with a BLAKE3-keyed dict --------------------------
+    flat_plain = to_u32(main_plain)
+    starts = np.cumsum([0] + [len(c) for c in res_sha.cuts])
+    dict_src = np.concatenate([flat_plain[starts[i]:starts[i + 1]]
+                               for i in range(0, len(files), 3) if starts[i + 1] > starts[i]])
+    _, first_idx = np.unique(
+        np.ascontiguousarray(dict_src).view(np.dtype((np.void, 32)))[:, 0], return_index=True
+    )
+    dict_src = dict_src[np.sort(first_idx)]
+    digests = np.concatenate([rng.integers(0, 2**32, (DICT_ENTRIES - len(dict_src), 8),
+                                           dtype=np.uint32), dict_src])
+    t0 = time.perf_counter()
+    cdict = sharded_dict.ShardedChunkDict(digests, device=dev)
+    keys, values, depth, _epoch = cdict.fused_probe_tables()
+    build_s = time.perf_counter() - t0
+    eng = fused_convert.FusedDeviceEngine(chunk_size=CHUNK_SIZE, digester="blake3", device=dev)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = eng.process_many(files, chunk_dict=cdict)
+    first_s = time.perf_counter() - t0
+    launches = {key: k.launches for key, k in kernels.items()}
+    want = {"gear": 1, "sha": 0, "probe": 1, "b3_leaves": 1, "b3_parents": 1}
+    if launches != want:
+        raise AssertionError(f"fused BLAKE3 process_many launched {launches}; want {want}")
+    for cuts, cuts_sha in zip(res.cuts, res_sha.cuts):
+        if not np.array_equal(cuts, cuts_sha):
+            raise AssertionError("fused BLAKE3 cuts differ from phase 2's")
+    flat = [d for digs in res.digests for d in digs]
+    q_host = np.frombuffer(b"".join(flat), dtype="<u4").astype(np.uint32).reshape(-1, 8)
+    if not np.array_equal(q_host, flat_plain):
+        raise AssertionError("fused BLAKE3 digests differ from the plain version")
+    want_probe, _ = host_probe(keys, values, q_host, depth)
+    if not np.array_equal(res.probe, want_probe):
+        raise AssertionError("fused BLAKE3 probe answers differ from the host probe")
+    n_hits = int((res.probe > 0).sum())
+    if n_hits < len(dict_src):
+        raise AssertionError(f"{n_hits} hits < {len(dict_src)} planted digests")
+    walls, splits = [], []
+    for _ in range(REPS):
+        before = dict(eng.stats)
+        t0 = time.perf_counter()
+        eng.process_many(files, chunk_dict=cdict)
+        walls.append(time.perf_counter() - t0)
+        splits.append({k: eng.stats[k] - before[k] for k in ("pass1_s", "host_s", "pass2_s")})
+    wall = float(np.median(walls))
+    split = {k: float(np.median([x[k] for x in splits])) for k in splits[0]}
+    busy_ms, by_name = device_busy(lambda: eng.process_many(files, chunk_dict=cdict))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[9] fused process_many(digester='blake3'): {len(flat)} chunks, cuts == phase 2's, "
+        f"digests == the plain version, {len(q_host)} probe answers == host probe ({n_hits} hits; "
+        f"dict of {len(digests)} entries, {len(dict_src)} BLAKE3 digests from a third of the "
+        f"files, max chain {depth}, built in {build_s:.1f} s); launches {launches}; checked run "
+        f"{first_s:.3f} s; median {wall:.3f} s over {REPS} runs -> {n_bytes / 2**30 / wall:.3f} "
+        f"GiB/s (runs: " + ", ".join(f"{x:.3f}" for x in walls) + f" s); pass1 "
+        f"{split['pass1_s']:.3f} s, host {split['host_s']:.3f} s, pass2 {split['pass2_s']:.3f} s; "
+        f"device busy {busy_ms:.3f} ms = {100 * busy_ms / (wall * 1e3):.1f}%, idle "
+        f"{100 - 100 * busy_ms / (wall * 1e3):.1f}%; top: "
+        + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms in top))
+    del cdict
+
+    # -- the windowed engine at 1 MiB chunks --------------------------------
+    weng = chunker.ChunkDigestEngine(backend="jax", digester="blake3", device=dev)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    metas = weng.process_many(files)
+    win_s = time.perf_counter() - t0
+    win_launches = {key: k.launches for key, k in kernels.items()}
+    nonempty = sum(1 for f in files if f.size)
+    want = {"gear": nonempty, "sha": 0, "probe": 0, "b3_leaves": 1, "b3_parents": 1}
+    if win_launches != want:
+        raise AssertionError(f"windowed BLAKE3 process_many launched {win_launches}; want {want}")
+    if [m.size for ms in metas for m in ms] != sizes_1m.tolist():
+        raise AssertionError("windowed BLAKE3 cuts differ from phase 7's")
+    if le_words([m.digest for ms in metas for m in ms]).tolist() != plain_1m.cpu().tolist():
+        raise AssertionError("windowed BLAKE3 digests differ from the plain version")
+    log(f"[9] windowed ChunkDigestEngine(backend='jax', digester='blake3') at 1 MiB chunks: "
+        f"{len(sizes_1m)} chunks, cuts == phase 7's, digests == the plain version; launches "
+        f"{win_launches}; one run {win_s:.3f} s")
+
+    # -- pack, fused and jax lanes -------------------------------------------
+    opt = dict(chunk_size=CHUNK_SIZE, compressor="none", digester="blake3")
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    blob_b, res_b = pack_layer(tar, PackOption(backend="fused", **opt), device=dev)
+    pack_first = time.perf_counter() - t0
+    pack_launches = {key: k.launches for key, k in kernels.items()}
+    want = {"gear": 1, "sha": 0, "probe": 0, "b3_leaves": 1, "b3_parents": 1}
+    if pack_launches != want:  # one fused batch: the tar is far below int32 addressing
+        raise AssertionError(f"fused BLAKE3 pack launched {pack_launches}; want {want}")
+    if blob_b[:res_b.blob_size] != blob_f[:res_f.blob_size] or res_b.blob_id != res_f.blob_id:
+        raise AssertionError("the BLAKE3 pack's blob differs from phase 4's SHA-256 blob")
+    chunks = Bootstrap.from_bytes(res_b.bootstrap).chunks
+    data = np.zeros(-(-res_b.blob_size // 16) * 16, np.uint8)
+    data[:res_b.blob_size] = np.frombuffer(blob_b, np.uint8, count=res_b.blob_size)
+    c_offs = np.asarray([c.compressed_offset for c in chunks], np.int32)
+    c_sizes = np.asarray([c.compressed_size for c in chunks], np.int32)
+    boot_plain = blake3.blake3_chunks_plain(torch.from_numpy(data).to(dev), torch.from_numpy(c_offs),
+                                            torch.from_numpy(c_sizes))
+    if le_words([c.digest for c in chunks]).tolist() != boot_plain.cpu().tolist():
+        raise AssertionError("the BLAKE3 pack's bootstrap digests differ from the plain version")
+    del data
+    pack_runs = []
+    for _ in range(3):
+        got = []
+        pack_runs.append(host_timed(lambda: got.append(
+            pack_layer(tar, PackOption(backend="fused", **opt), device=dev)[0])))
+        if got[0] != blob_b:
+            raise AssertionError("the fused BLAKE3 pack differs from its checked run")
+    pack_wall = float(np.median([r[0] for r in pack_runs]))
+    small_tar = layer_tar(FileGen(SEED + 5).pool(4))
+    t0 = time.perf_counter()
+    blob_j, res_j = pack_layer(small_tar, PackOption(backend="jax", **opt), device=dev)
+    jax_s = time.perf_counter() - t0
+    blob_s, res_s = pack_layer(small_tar, PackOption(backend="fused", **opt), device=dev)
+    if blob_j != blob_s or res_j.bootstrap != res_s.bootstrap or res_j.blob_id != res_s.blob_id:
+        raise AssertionError("the jax lane's BLAKE3 pack differs from the fused lane's")
+    log(f"[9] pack fused, digester='blake3': blob and blob id == phase 4's SHA-256 fused blob, "
+        f"{len(chunks)} bootstrap digests == the plain version; launches {pack_launches}; checked "
+        f"run {pack_first:.3f} s, median {pack_wall:.3f} s (runs, wall / host CPU s / minor page "
+        "faults: " + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in pack_runs) + f"); jax "
+        f"lane (host BLAKE3 arm) on a {len(small_tar)}-byte tar == the fused lane, {jax_s:.2f} s")
+
+    # -- timings -------------------------------------------------------------
+    offs_d, sizes_d = torch.from_numpy(extents).to(dev)
+    both, leaves_only, parents_only, k4_out = k4_c(buffer_dev, offs_d, sizes_d, extents.shape[1])
+    k_ms = kernel_ms(both, 20, sm_hz)
+    k_leaves_ms = kernel_ms(leaves_only, 20, sm_hz)
+    k_parents_ms = kernel_ms(parents_only, 20, sm_hz)
+    if max_abs_err(k4_out, main_plain):
+        raise AssertionError("K4 launched by kernel_ms differs from the plain version")
+    call_ms = cuda_ms(lambda: blake3_cuda.blake3_chunks(buffer_dev, offs_h, sizes_h))
+    o1_d, s1_d = torch.from_numpy(np.stack([offs_1m, sizes_1m])).to(dev)
+    both_1m, _a, _b, out_1m = k4_c(w_buf, o1_d, s1_d, len(sizes_1m))
+    k_1m_ms = kernel_ms(both_1m, 20, sm_hz)
+    if max_abs_err(out_1m, plain_1m):
+        raise AssertionError("K4 at 1 MiB chunks (kernel_ms) differs from the plain version")
+    call_1m_ms = cuda_ms(lambda: blake3_cuda.blake3_chunks(w_buf, o1m, s1m))
+    del w_buf
+    bd = k4_bound(extents[1], int_ops_per_s, sm_hz, rc)
+    bd_1m = k4_bound(sizes_1m, int_ops_per_s, sm_hz, rc)
+    log(f"[9] K4 blake3_chunks over all {extents.shape[1]} chunks of one process_many "
+        f"({int(bd[5])} compressions): kernel {k_ms:.4f} ms (leaf launch {k_leaves_ms:.4f}, tree "
+        f"launch {k_parents_ms:.4f}), call {call_ms:.4f} ms (plain {main_plain_ms:.1f} ms, bound "
+        f"{bd[0]:.4f} ms: throughput term {bd[2]:.4f} ms by {bd[3]}, serial term {bd[4]:.4f} ms; "
+        f"{k_ms / bd[0]:.2f}x); at 1 MiB chunks ({len(sizes_1m)} chunks, {int(bd_1m[5])} "
+        f"compressions): kernel {k_1m_ms:.4f} ms, call {call_1m_ms:.4f} ms (plain "
+        f"{plain_1m_ms:.1f} ms, bound {bd_1m[0]:.4f} ms: throughput {bd_1m[2]:.4f}, serial "
+        f"{bd_1m[4]:.4f}); phase {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "launches": launches, "max_abs_err": k4_err, "kernel_ms": k_ms, "call_ms": call_ms,
+        "leaves_kernel_ms": k_leaves_ms, "parents_kernel_ms": k_parents_ms,
+        "plain_ms": main_plain_ms, "bound": bd, "kernel_1m_ms": k_1m_ms, "call_1m_ms": call_1m_ms,
+        "plain_1m_ms": plain_1m_ms, "bound_1m": bd_1m, "windowed_launches": win_launches,
+        "pack_fused_launches": pack_launches, "wall_s": wall, "gib_per_s": n_bytes / 2**30 / wall,
+        "busy_ms": busy_ms, "pack_wall_s": pack_wall, "pack_jax_small_s": jax_s,
+    }
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -898,7 +1236,7 @@ def main() -> int:
     try:
         from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
         from nydus_snapshotter_tpu_torch.ops import (
-            cdc, cuda_build, fused_convert, gear_cuda, probe_cuda, sha256, sha256_cuda,
+            blake3_cuda, cdc, cuda_build, fused_convert, gear_cuda, probe_cuda, sha256, sha256_cuda,
         )
         from nydus_snapshotter_tpu_torch.parallel import sharded_dict
         from nydus_snapshotter_tpu_torch.tensors import from_u32, to_u32
@@ -908,6 +1246,8 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device(DEVICE, 0)
     kernels = {"gear": gear_cuda.KERNEL, "sha": sha256_cuda.KERNEL, "probe": probe_cuda.KERNEL}
+    # K4's two launches; phases 2-8 drive the SHA-256 paths with the three above
+    all_kernels = {**kernels, "b3_leaves": blake3_cuda.LEAVES, "b3_parents": blake3_cuda.PARENTS}
 
     # -- 0. device ---------------------------------------------------------
     smi = nvidia_smi("name,power.limit")
@@ -924,10 +1264,10 @@ def main() -> int:
     t0 = time.perf_counter()
     probe = cuda_build.Kernel("round_latency.cu", "ntpu_round_latency",
                               [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
-    cuda_build.build_all(list(kernels.values()) + [probe])
-    log(f"[1] build: 3 kernels and the round-latency probe in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
-    for key, k in kernels.items():
+    cuda_build.build_all(list(all_kernels.values()) + [probe])
+    log(f"[1] build: 4 kernels (K4 has two entry points) and the round-latency probe in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc in parallel, one per source)")
+    for key, k in list(kernels.items()) + [("b3", blake3_cuda.LEAVES)]:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas {k.source}: {line.strip()}")
@@ -1277,11 +1617,16 @@ def main() -> int:
     k1_err = max(k1_err, windowed["k1_err"])
     k2_err = max(k2_err, windowed["k2_err"])
 
+    # -- 9. BLAKE3 -------------------------------------------------------------
+    b3 = blake3_phase(dev, files, res, buffer_dev, extents, windowed, tar, blob_f, res_f,
+                      all_kernels, int_ops_per_s, sm_hz, rc)
+
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
-            main_bound, work, **extra):
+            main_bound, work, n_launches=None, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err, "ms": kern, "plain_ms": plain,
+            "launches": launches[key] if n_launches is None else n_launches,
+            "max_abs_err": err, "ms": kern, "plain_ms": plain,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "status": "ported: built, equal to plain, launched on the main path",
             "work": work, "kernel_ms": kern, "call_ms": call, "main_path_kernel_ms": main_kern,
@@ -1313,6 +1658,23 @@ def main() -> int:
             "nydus_snapshotter_tpu/ops/probe_pallas.py:151", k3_err, k3_ms, k3_call_ms, k3_plain_ms,
             k3_bd, k3_ms, k3_call_ms, k3_bd, f"{len(q_all)} queries, depth {depth}",
             kernel_l2_warm_ms=k3_warm_ms, registry=registry),
+        row(None, "blake3_chunks", pkg + "blake3.cu",
+            "nydus_snapshotter_tpu/ops/blake3_jax.py:214", b3["max_abs_err"],
+            b3["kernel_ms"], b3["call_ms"], b3["plain_ms"], b3["bound"], b3["kernel_ms"],
+            b3["call_ms"], b3["bound"], f"{extents.shape[1]} chunks, {int(b3['bound'][5])} "
+            "compressions", n_launches=b3["launches"]["b3_leaves"] + b3["launches"]["b3_parents"],
+            tpu_kernel="nydus_snapshotter_tpu/ops/blake3_jax.py:214 (XLA, not Pallas)",
+            launches_by_entry={k: b3["launches"][k] for k in ("b3_leaves", "b3_parents")},
+            leaves_kernel_ms=b3["leaves_kernel_ms"], parents_kernel_ms=b3["parents_kernel_ms"],
+            bound_terms_ms={"throughput": b3["bound"][2], "serial": b3["bound"][4]},
+            windowed_1m_launches=b3["windowed_launches"]["b3_leaves"]
+            + b3["windowed_launches"]["b3_parents"],
+            pack_fused_launches=b3["pack_fused_launches"]["b3_leaves"]
+            + b3["pack_fused_launches"]["b3_parents"],
+            chunks_1m_kernel_ms=b3["kernel_1m_ms"], chunks_1m_call_ms=b3["call_1m_ms"],
+            chunks_1m_plain_ms=b3["plain_1m_ms"], chunks_1m_bound_ms=b3["bound_1m"][0],
+            chunks_1m_bound_terms_ms={"throughput": b3["bound_1m"][2], "serial": b3["bound_1m"][4]},
+            fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"]),
     ]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

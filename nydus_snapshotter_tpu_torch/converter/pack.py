@@ -8,7 +8,7 @@ reference package's ``Pack``/``pack_layer`` for the options supported here:
 
 - ``backend="fused"``: the layer's in-memory files go through
   ``ChunkDigestEngine(backend="fused").process_many``: the device full path
-  (ops/fused_convert), cuts and SHA-256 on the card, in as few batches as
+  (ops/fused_convert), cuts and digests on the card, in as few batches as
   int32 chunk addressing allows. An input that path cannot take
   (candidate capacity overflow, a file beyond int32 addressing) falls to
   the engine's per-file windowed lane, still on the card, as the reference
@@ -18,8 +18,13 @@ reference package's ``Pack``/``pack_layer`` for the options supported here:
   chunks are digested on the card in 32 MiB batches (kernel K2), one batch
   in flight while the host cuts the next files.
 - ``backend="numpy"``: the host oracle, numpy CDC and ``hashlib``.
-- ``compressor="none"``, ``chunking="cdc"``, ``digester="sha256"``, RAFS v5
-  or v6. Every other option value raises :class:`ConvertError`.
+- ``digester="sha256"`` or ``"blake3"``. BLAKE3 changes only the chunk
+  digests in the bootstrap (the blob and its sha256 id stay the same). The
+  fused lane digests it on the card (kernel K4); the ``jax`` and ``numpy``
+  lanes digest it on the host BLAKE3 arm, as the reference's do
+  (converter/stream.py:790-797: its device batch kernel is SHA-256 only).
+- ``compressor="none"``, ``chunking="cdc"``, RAFS v5 or v6. Every other
+  option value raises :class:`ConvertError`.
 
 A file-like ``src_tar`` streams: each member is read in 4 MiB segments
 through :class:`IncrementalChunker`, whose carry is bounded by the largest
@@ -105,7 +110,6 @@ def _check_options(opt: PackOption) -> None:
         "backend": opt.backend not in ("fused", "jax", "numpy"),
         "compressor": opt.compressor != "none",
         "chunking": opt.chunking != "cdc",
-        "digester": opt.digester != "sha256",
         "digest_backend": opt.digest_backend != "",
         "batch_size": opt.batch_size != 0,
         "encrypt": opt.encrypt,
@@ -131,7 +135,11 @@ class IncrementalChunker:
 
     def __init__(self, opt: PackOption, engine: ChunkDigestEngine | None = None, device=None):
         self._engine = engine or ChunkDigestEngine(
-            chunk_size=opt.chunk_size, mode=opt.chunking, backend=opt.backend, device=device
+            chunk_size=opt.chunk_size,
+            mode=opt.chunking,
+            backend=opt.backend,
+            digester=opt.digester,
+            device=device,
         )
         params = self._engine.params
         self.lookahead = params.max_size if params else opt.chunk_size
@@ -193,9 +201,15 @@ def Pack(
     _check_options(opt)
     shared = IncrementalChunker(opt, device=device)
     engine = shared._engine
-    # The engine's K2 digester for the device backends: no path finishes on
-    # the host under a device backend's name.
-    digester = engine.device_digester or HostDigester()
+    # The engine's device digester (K2, or K4 for BLAKE3) for the device
+    # backends: no path finishes on the host under a device backend's name,
+    # except BLAKE3 on the jax lane, which the reference digests on the host.
+    if engine.device_digester is not None and not (
+        opt.backend == "jax" and opt.digester == "blake3"
+    ):
+        digester = engine.device_digester
+    else:
+        digester = HostDigester(opt.digester)
     raw: Optional[memoryview] = None
     if isinstance(src_tar, (bytes, bytearray)):
         raw = memoryview(src_tar)

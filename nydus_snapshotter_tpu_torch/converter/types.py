@@ -49,8 +49,10 @@ class PackOption:
     # here; the reference also has "host" and "jax").
     digest_backend: str = ""
     # Chunk-digest algorithm (reference `nydus-image --digester`,
-    # RafsSuperFlags 0x4 blake3 / 0x8 sha256). This package digests sha256
-    # only so far. The blob ID stays sha256 (OCI convention).
+    # RafsSuperFlags 0x4 blake3 / 0x8 sha256): it changes the chunk digests
+    # in the bootstrap and nothing else. The fused lane digests either on
+    # the card; the jax and numpy lanes digest blake3 on the host arm, as the
+    # reference does. The blob ID stays sha256 (OCI convention).
     digester: str = "sha256"
 
     def validate(self) -> None:

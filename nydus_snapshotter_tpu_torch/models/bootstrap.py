@@ -131,7 +131,7 @@ class BootstrapError(ValueError):
 
 @dataclass
 class ChunkRecord:
-    digest: bytes  # raw sha256 (32 B) of uncompressed chunk data
+    digest: bytes  # raw 32-byte digest (SHA-256 or BLAKE3) of uncompressed chunk data
     blob_index: int = 0
     flags: int = 0
     uncompressed_offset: int = 0
@@ -141,7 +141,7 @@ class ChunkRecord:
 
     def pack(self) -> bytes:
         if len(self.digest) != 32:
-            raise BootstrapError("chunk digest must be raw 32-byte sha256")
+            raise BootstrapError("chunk digest must be raw 32 bytes")
         return _CHUNK_STRUCT.pack(
             self.digest,
             self.blob_index,

@@ -14,13 +14,18 @@ for ``nydus-image create``'s chunk + digest loop:
    candidates.
 3. **Digest (device).** Chunks are joined into one 16-byte-aligned pinned
    buffer per int32-addressable piece and digested by one launch of kernel
-   K2 (ops/sha256_cuda.py) per piece (:class:`DeviceDigester`).
+   K2 (SHA-256, ops/sha256_cuda.py) or K4 (BLAKE3, ops/blake3_cuda.py) per
+   piece (:class:`DeviceDigester`).
 
 The backend names are the reference's, so an option that works there means
 the same here: ``"jax"`` is the windowed device lane (on CUDA in this
 package), ``"fused"`` the full-path engine (ops/fused_convert.py) with the
 windowed lane behind it, ``"numpy"`` the host oracle. Fixed-size mode skips
-the hash and the cut resolution.
+the hash and the cut resolution. ``digester`` is ``"sha256"`` or
+``"blake3"`` (the reference toolchain's default): with the ``"jax"`` digest
+backend BLAKE3 runs on the card, with the others on the host BLAKE3 arm
+(the pure-Python copy in utils/blake3.py, as the reference digests when its
+native engine is not built).
 """
 
 from __future__ import annotations
@@ -35,14 +40,15 @@ from time import perf_counter
 import numpy as np
 import torch
 
-from nydus_snapshotter_tpu_torch.ops import cdc, fused_convert, gear, gear_cuda, sha256_cuda
+from nydus_snapshotter_tpu_torch.ops import cdc, fused_convert, gear, gear_cuda
 from nydus_snapshotter_tpu_torch.tensors import as_int32, resolve_device
+from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
 
 DEFAULT_WINDOW = 1 << 22  # 4 MiB per device window
 MIN_WINDOW = 1 << 19  # smallest window: a small stream's row is pow2_ceil(size) >= this
 TAIL = gear.GEAR_WINDOW - 1
 DEPTH = 2  # streams in flight in boundaries_many, and staging slots per window size
-# K2 addresses a piece's chunks with int32 offsets: a piece's joined,
+# K2 and K4 address a piece's chunks with int32 offsets: a piece's joined,
 # 16-byte-padded buffer stays at or below this.
 MAX_PIECE_BYTES = (1 << 31) - 16
 
@@ -55,7 +61,7 @@ def _pow2_ceil(n: int) -> int:
 class ChunkMeta:
     offset: int
     size: int
-    digest: bytes  # raw sha256 of the chunk data
+    digest: bytes  # raw 32-byte digest of the chunk data (the engine's digester)
 
 
 def _hash_bitmaps_kernel(x: torch.Tensor, mask_s: int, mask_l: int, n: int):
@@ -112,6 +118,20 @@ def _host_digests(items: list[tuple[np.ndarray, int, int]]) -> list[bytes]:
     return _map_threads(one, items, min_batch=8)
 
 
+def _host_digests_blake3(items: list[tuple[np.ndarray, int, int]]) -> list[bytes]:
+    """Host BLAKE3 over (array, offset, size) extents: the reference's
+    ``_host_digests_blake3`` as it runs without its native engine (the
+    pure-Python spec implementation; native_cdc is not ported). Pure Python
+    holds the interpreter lock, so it runs in this thread."""
+    return [pyb3.blake3(bytes(memoryview(a)[o : o + s])) for a, o, s in items]
+
+
+def host_digests_for(digester: str):
+    """The (array, offset, size)-extents host digest fan-out of an
+    algorithm."""
+    return _host_digests_blake3 if digester == "blake3" else _host_digests
+
+
 def _pieces(items: list[tuple[np.ndarray, int, int]]) -> list[list[tuple[np.ndarray, int, int]]]:
     """Consecutive runs of items whose joined, 16-byte-padded bytes stay
     within int32 chunk addressing (``MAX_PIECE_BYTES``)."""
@@ -130,10 +150,11 @@ def _pieces(items: list[tuple[np.ndarray, int, int]]) -> list[list[tuple[np.ndar
 
 
 class DeviceDigester:
-    """Chunk SHA-256 on the engine's device, one K2 launch per batch.
+    """Chunk digests on the engine's device, one launch of K2 (SHA-256) or
+    K4 (BLAKE3) per batch.
 
     ``submit`` joins the batch's chunks into one 16-byte-aligned pinned
-    buffer, queues its upload, K2 and the digests' download into pinned
+    buffer, queues its upload, the kernel and the digests' download into pinned
     memory behind an event, and returns without waiting on the card;
     ``collect`` waits on that event. One batch in flight while the host
     reads and chunks the next is the double-buffered infeed of the
@@ -141,9 +162,10 @@ class DeviceDigester:
     must fit int32 chunk addressing (``MAX_PIECE_BYTES``).
     """
 
-    def __init__(self, device: "str | torch.device | None" = None):
+    def __init__(self, device: "str | torch.device | None" = None, digester: str = "sha256"):
         self.device = resolve_device(device)
         self._pin = self.device.type == "cuda"
+        self.digester = digester
 
     def submit(self, items: list[tuple[np.ndarray, int, int]]):
         """items: (array, offset, size) extents -> an opaque handle."""
@@ -171,9 +193,11 @@ class DeviceDigester:
         offs = torch.from_numpy(starts.astype(np.int32))
         lens = torch.from_numpy(sizes.astype(np.int32))
         if not self._pin:
-            return sha256_cuda.sha256_chunks(host, offs, lens), None
+            return fused_convert.chunk_digests(self.digester, host, offs, lens), None
         with torch.cuda.device(self.device):
-            states = sha256_cuda.sha256_chunks(host.to(self.device, non_blocking=True), offs, lens)
+            states = fused_convert.chunk_digests(
+                self.digester, host.to(self.device, non_blocking=True), offs, lens
+            )
             out = torch.empty((m, 8), dtype=torch.int32, pin_memory=True)
             out.copy_(states, non_blocking=True)
             done = torch.cuda.Event()
@@ -184,17 +208,19 @@ class DeviceDigester:
         out, done = handle
         if done is not None:
             done.synchronize()
-        # The state words are big-endian words of the digest.
-        raw = out.numpy().view(np.uint32).astype(">u4").tobytes()
+        raw = fused_convert.state_bytes(out.numpy().view(np.uint32), self.digester)
         return [raw[32 * i : 32 * i + 32] for i in range(out.shape[0])]
 
 
 class HostDigester:
-    """Synchronous batch digests on the host (threaded hashlib), with the
-    submit/collect shape of :class:`DeviceDigester`."""
+    """Synchronous batch digests on the host (threaded hashlib, or the host
+    BLAKE3 arm), with the submit/collect shape of :class:`DeviceDigester`."""
+
+    def __init__(self, digester: str = "sha256"):
+        self._digest = host_digests_for(digester)
 
     def submit(self, items: list[tuple[np.ndarray, int, int]]):
-        return _host_digests(items)
+        return self._digest(items)
 
     def collect(self, handle) -> list[bytes]:
         return handle
@@ -217,8 +243,10 @@ class ChunkDigestEngine:
     Parameters mirror the reference's: ``chunk_size`` (power-of-two
     average; pkg/converter/types.go:76-79), ``mode`` ``cdc`` or ``fixed``,
     ``backend`` ``jax`` (the windowed device lane), ``fused`` or ``numpy``,
-    and ``digest_backend`` ``jax`` (K2), ``host`` (threaded hashlib) or
-    ``numpy`` (hashlib), by default the backend's own. ``device`` is where
+    ``digest_backend`` ``jax`` (K2, or K4 for BLAKE3), ``host`` (threaded
+    hashlib) or ``numpy`` (hashlib), by default the backend's own, and
+    ``digester`` ``sha256`` or ``blake3`` (whose ``host`` and ``numpy``
+    digests run on the host BLAKE3 arm). ``device`` is where
     the device arms run: CUDA unless ``"cpu"`` is asked for, which takes the
     kernels' plain versions. ``stats`` accumulates the wall seconds of the
     windowed ``process_many``'s two halves: ``boundaries_many`` (upload,
@@ -252,12 +280,7 @@ class ChunkDigestEngine:
         self.digest_backend = digest_backend or ("jax" if backend == "fused" else backend)
         if self.digest_backend not in ("jax", "numpy", "host"):
             raise ValueError(f"unknown digest backend {self.digest_backend!r}")
-        if digester == "blake3":
-            raise ValueError(
-                "digester='blake3' is not ported yet (ROADMAP.md Queue A item 4: "
-                "BLAKE3 as torch ops comes next)"
-            )
-        if digester != "sha256":
+        if digester not in ("sha256", "blake3"):
             raise ValueError(f"unknown digester {digester!r}")
         self.chunk_size = chunk_size
         self.mode = mode
@@ -273,10 +296,10 @@ class ChunkDigestEngine:
         self._stream = torch.cuda.Stream(self.device) if self._pin else None
         self._rings: dict[int, list[_Slot | None]] = {}
         self._turn: dict[int, int] = {}
-        # K2 in batches, on the engine's device; callers that batch their own
-        # chunks (converter/pack.py) share it
+        # K2 or K4 in batches, on the engine's device; callers that batch
+        # their own chunks (converter/pack.py) share it
         self.device_digester = (
-            DeviceDigester(self.device) if self.digest_backend == "jax" else None
+            DeviceDigester(self.device, digester) if self.digest_backend == "jax" else None
         )
         self.stats = {"boundaries_s": 0.0, "digest_s": 0.0, "fused_fallbacks": 0}
 
@@ -378,6 +401,8 @@ class ChunkDigestEngine:
     # -- digesting ----------------------------------------------------------
 
     def _digest_items(self, items: list[tuple[np.ndarray, int, int]]) -> list[bytes]:
+        if self.digester == "blake3" and self.digest_backend != "jax":
+            return _host_digests_blake3(items)
         if self.digest_backend == "numpy":
             return [hashlib.sha256(memoryview(a)[o : o + s]).digest() for a, o, s in items]
         if self.digest_backend == "host":
@@ -398,7 +423,7 @@ class ChunkDigestEngine:
         per_file_extents: list[list[tuple[int, int]]],
     ) -> list[bytes]:
         """Flat digests for pre-computed per-file extents, in file order:
-        one pass over every file (on the card, one K2 launch per
+        one pass over every file (on the card, one K2 or K4 launch per
         int32-addressable piece)."""
         return self._digest_items(
             [(arr, o, s) for arr, extents in zip(arrs, per_file_extents) for o, s in extents]
@@ -449,7 +474,9 @@ class ChunkDigestEngine:
         """The full-path engine over batches below int32 addressing; None
         on ``FusedOverflow`` (candidate capacity, or one stream beyond int32
         addressing) so ``process_many`` takes the windowed path."""
-        eng = fused_convert.FusedDeviceEngine(chunk_size=self.chunk_size, device=self.device)
+        eng = fused_convert.FusedDeviceEngine(
+            chunk_size=self.chunk_size, digester=self.digester, device=self.device
+        )
         out: list[list[ChunkMeta]] = []
         try:
             for batch in eng.split_batches([a.size for a in arrs]):

@@ -120,10 +120,11 @@ class Kernel:
 
 
 def build_all(kernels: list[Kernel]) -> None:
-    """Compile every kernel's source concurrently (one nvcc each), then load."""
-    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
-        futs = [pool.submit(build, k.source) for k in kernels]
-        for k, fut in zip(kernels, futs):
-            k.build_log = fut.result()[1] or k.build_log
+    """Compile every kernel source concurrently (one nvcc per source, however
+    many entry points it has), then load every entry point."""
+    sources = sorted({k.source for k in kernels})
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        logs = dict(zip(sources, pool.map(lambda s: build(s)[1], sources)))
     for k in kernels:
+        k.build_log = logs[k.source] or k.build_log
         k.load()

@@ -9,11 +9,13 @@ and never come back; only kilobytes of metadata cross between the phases:
   capacity. The host gets the candidate words, not the N/32-byte bitmaps.
 - **Host middle.** FastCDC cut resolution over the sparse candidates per
   file (ops/cdc.resolve_cuts) and the chunk extents in stream order.
-- **Pass 2.** SHA-256 of every chunk, read straight from the device buffer
-  by (offset, size), in one launch (kernel K2,
-  ops/sha256_cuda.py), then the chunk-dict probe over every digest (kernel
-  K3, ops/probe_cuda.py). The host gets 32 B of digest and 4 B of dict
-  answer per chunk.
+- **Pass 2.** The digest of every chunk, read straight from the device
+  buffer by (offset, size), in one pass: SHA-256 (kernel K2,
+  ops/sha256_cuda.py, one launch) or BLAKE3 (kernel K4, ops/blake3_cuda.py,
+  a leaf launch and a tree launch); then the chunk-dict probe over every
+  digest (kernel K3, ops/probe_cuda.py), whose keys are the digester's
+  words (big-endian for SHA-256, little-endian for BLAKE3). The host gets
+  32 B of digest and 4 B of dict answer per chunk.
 
 Replaces the one-process hot loop of the reference's ``nydus-image
 create`` (chunk + digest + dedup inside pkg/converter/tool/builder.go:148-178;
@@ -30,7 +32,9 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from nydus_snapshotter_tpu_torch.ops import cdc, gear, gear_cuda, probe_cuda, sha256, sha256_cuda
+from nydus_snapshotter_tpu_torch.ops import (
+    blake3, blake3_cuda, cdc, gear, gear_cuda, probe_cuda, sha256, sha256_cuda,
+)
 from nydus_snapshotter_tpu_torch.tensors import resolve_device, to_u32
 
 if TYPE_CHECKING:
@@ -47,6 +51,22 @@ class FusedOverflow(RuntimeError):
     batch beyond int32 chunk addressing. Callers refuse the input or split
     the batch (:meth:`FusedDeviceEngine.split_batches`); they never finish
     the work on the host under the device backend's name."""
+
+
+def chunk_digests(
+    digester: str, buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor
+) -> torch.Tensor:
+    """int32[M, 8] state words of every chunk: K2 for SHA-256, K4 for BLAKE3
+    (same argument contract, ops/sha256_cuda.check_chunk_args)."""
+    if digester == "blake3":
+        return blake3_cuda.blake3_chunks(buffer, offs, sizes)
+    return sha256_cuda.sha256_chunks(buffer, offs, sizes)
+
+
+def state_bytes(words: np.ndarray, digester: str) -> bytes:
+    """u32[M, 8] state words -> M raw 32-byte digests, concatenated. SHA-256
+    states are big-endian words of the digest, BLAKE3's little-endian."""
+    return words.astype("<u4" if digester == "blake3" else ">u4").tobytes()
 
 
 def _pow2_ceil(n: int) -> int:
@@ -103,7 +123,8 @@ def _pass1(buffer: torch.Tensor, n: int, mask_s: int, mask_l: int):
 
 @dataclass(frozen=True)
 class Bucket:
-    """One power-of-two block-capacity class of the reference's pass-2 plan.
+    """One power-of-two capacity class (SHA-256 blocks or BLAKE3 leaves) of
+    the reference's pass-2 plan.
 
     offsets/sizes are pow2-padded (padding rows have size 0 and offset 0
     and are discarded on assembly); ``count`` is the live prefix.
@@ -120,15 +141,16 @@ class FusedResult:
     """Per-stream chunk extents/digests + optional dict-probe hits."""
 
     cuts: list[np.ndarray]  # per-stream exclusive cut ends
-    digests: list[list[bytes]]  # per-stream raw 32-B sha256 digests
+    digests: list[list[bytes]]  # per-stream raw 32-B digests (the engine's digester)
     probe: np.ndarray | None  # i32 over all chunks in stream order (0=miss)
 
 
 class FusedDeviceEngine:
     """Full-path device convert for a batch of per-file streams.
 
-    Per-file CDC with the engine's CDCParams and per-chunk SHA-256, run as
-    two device passes with the host middle between them. ``chunk_dict``
+    Per-file CDC with the engine's CDCParams and a per-chunk digest
+    (``digester`` ``sha256`` or ``blake3``), run as two device passes with
+    the host middle between them. ``chunk_dict``
     (a parallel/sharded_dict.ShardedChunkDict on the engine's device) adds
     the dedup probe to pass 2. ``stats`` accumulates batches, bytes and the
     wall seconds of pass 1 (gear + compaction + candidate download), the
@@ -136,12 +158,34 @@ class FusedDeviceEngine:
     + result download).
     """
 
-    def __init__(self, chunk_size: int = 0x100000, device: "str | torch.device | None" = None):
+    def __init__(
+        self,
+        chunk_size: int = 0x100000,
+        device: "str | torch.device | None" = None,
+        digester: str = "sha256",
+    ):
+        if digester not in ("sha256", "blake3"):
+            raise ValueError(f"unknown digester {digester!r}")
         self.device = resolve_device(device)
         self.params = cdc.CDCParams(chunk_size)
+        self.digester = digester
         self.stats = {"batches": 0, "bytes": 0, "pass1_s": 0.0, "host_s": 0.0, "pass2_s": 0.0}
 
     # -- planning ------------------------------------------------------------
+
+    def _blocks_of(self, size: int) -> int:
+        """Capacity units of one chunk in the reference's plan: SHA-256
+        padded blocks, or BLAKE3 leaves."""
+        if self.digester == "blake3":
+            return blake3.n_leaves(size)
+        return sha256.n_padded_blocks(size)
+
+    def max_read_span(self) -> int:
+        """Largest gather span of the reference's pass 2 for this engine's
+        largest chunk, in bytes."""
+        if self.digester == "blake3":
+            return self._blocks_of(self.params.max_size) * blake3.LEAF_BYTES
+        return self._blocks_of(self.params.max_size) * 64
 
     def padded_size(self, total: int) -> int:
         """Bytes of the device buffer that holds ``total`` bytes of streams:
@@ -240,23 +284,22 @@ class FusedDeviceEngine:
     def plan_buckets(
         self, table: list[tuple[int, int]], cuts: list[np.ndarray]
     ) -> tuple[list[Bucket], list[tuple[int, int]]]:
-        """The reference's pass-2 plan: chunks bucketed by pow2
-        padded-block class with EXACT counts.
+        """The reference's pass-2 plan: chunks bucketed by pow2 capacity
+        class (:meth:`_blocks_of`) with EXACT counts.
 
         Returns (buckets, flat chunk order) where the flat order is
         (bucket cap, row) per chunk in stream order. The port's pass 2
         digests every chunk in one launch and does not use the plan; it is
         kept to hold the port's chunk rows against the reference's plan.
         """
-        max_blocks = sha256.n_padded_blocks(self.params.max_size)
+        max_blocks = self._blocks_of(self.params.max_size)
         per_class: dict[int, list[tuple[int, int]]] = {}
         order: list[tuple[int, int]] = []
         for (f_off, _f_len), f_cuts in zip(table, cuts):
             prev = 0
             for cut in f_cuts:
                 size = int(cut) - prev
-                nb = sha256.n_padded_blocks(size)
-                cap = min(_pow2_ceil(nb), max_blocks)
+                cap = min(_pow2_ceil(self._blocks_of(size)), max_blocks)
                 rows = per_class.setdefault(cap, [])
                 order.append((cap, len(rows)))
                 rows.append((f_off + prev, size))
@@ -306,14 +349,15 @@ class FusedDeviceEngine:
         chunk_dict: "ShardedChunkDict | None" = None,
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Pass 2 over the chunk extents int32[2, M] (:meth:`chunk_extents`):
-        digest states int32[M, 8] from ONE K2 launch, and the optional dict
-        probe int32[M] over them.
+        digest states int32[M, 8] from one pass of K2 (SHA-256) or K4
+        (BLAKE3) over every chunk, and the optional dict probe int32[M] over
+        them.
 
         The dict owns its padded device tables (staged once, dropped when
         its tables change), so repeated batches never re-upload them.
         """
         offs, sizes = torch.from_numpy(extents)
-        states = sha256_cuda.sha256_chunks(buffer_dev, offs, sizes)
+        states = chunk_digests(self.digester, buffer_dev, offs, sizes)
         probe = None
         if chunk_dict is not None:
             if chunk_dict.device != self.device:
@@ -350,9 +394,7 @@ class FusedDeviceEngine:
         extents = self.chunk_extents(table, cuts)
         t2 = perf_counter()
         states, probe = self.digest_probe(buffer_dev, extents, chunk_dict)
-        # The state words are big-endian words of the digest, so one
-        # byteswapping view serializes every row.
-        raw = to_u32(states).astype(">u4").tobytes()
+        raw = state_bytes(to_u32(states), self.digester)
         probe_np = probe.cpu().numpy().astype(np.int32) if probe is not None else None
         t3 = perf_counter()
         self.stats["batches"] += 1

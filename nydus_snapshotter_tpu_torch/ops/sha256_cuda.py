@@ -98,18 +98,37 @@ def longest_first(sizes: torch.Tensor) -> torch.Tensor:
     return torch.argsort(sizes, descending=True, stable=True).to(torch.int32)
 
 
-def _check_extents(buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor) -> None:
-    """Raise unless every chunk lies inside the buffer. The extents are
-    host tensors, so this reads no device memory and never waits on the
-    card."""
-    o = offs.numpy().astype(np.int64)
-    s = sizes.numpy().astype(np.int64)
-    lo_off, lo_size, hi_end = int(o.min()), int(s.min()), int((o + s).max())
-    if lo_off < 0 or lo_size < 0 or hi_end > buffer.numel():
-        raise ValueError(
-            f"chunk extents leave the buffer (min off {lo_off}, min size "
-            f"{lo_size}, max end {hi_end}, buffer {buffer.numel()})"
-        )
+def check_chunk_args(buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor) -> None:
+    """The argument contract of the chunk-digest kernels (K2 here, K4 in
+    ops/blake3_cuda.py): ``buffer`` u8[N], ``offs``/``sizes`` int32[M] on
+    the host with every chunk inside the buffer; a CUDA buffer also
+    contiguous, 16-byte aligned and a multiple of 16 bytes long (full
+    blocks are read as aligned 16-byte pieces). The extents are checked on
+    the host copy: no device read, no wait on the card."""
+    if buffer.dtype != torch.uint8 or buffer.dim() != 1:
+        raise ValueError(f"buffer must be u8[N], got {buffer.dtype}{list(buffer.shape)}")
+    for name, t in (("offs", offs), ("sizes", sizes)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device.type != "cpu":
+            raise ValueError(f"{name} must be int32[M] on the host")
+    if offs.shape != sizes.shape:
+        raise ValueError("offs and sizes differ in length")
+    if offs.shape[0]:
+        o = offs.numpy().astype(np.int64)
+        s = sizes.numpy().astype(np.int64)
+        lo_off, lo_size, hi_end = int(o.min()), int(s.min()), int((o + s).max())
+        if lo_off < 0 or lo_size < 0 or hi_end > buffer.numel():
+            raise ValueError(
+                f"chunk extents leave the buffer (min off {lo_off}, min size "
+                f"{lo_size}, max end {hi_end}, buffer {buffer.numel()})"
+            )
+    if buffer.device.type == "cpu":
+        return
+    if buffer.device.type != "cuda":
+        raise ValueError(f"unsupported device {buffer.device}")
+    if not buffer.is_contiguous():
+        raise ValueError("buffer must be contiguous")
+    if buffer.data_ptr() % 16 or buffer.numel() % 16:
+        raise ValueError("buffer must be 16-byte aligned with a length divisible by 16")
 
 
 def sha256_chunks(
@@ -123,26 +142,10 @@ def sha256_chunks(
     in one non-blocking copy from pinned memory; the row order is sorted on
     the card. The call queues its work and returns without waiting on the
     card."""
-    if buffer.dtype != torch.uint8 or buffer.dim() != 1:
-        raise ValueError(f"buffer must be u8[N], got {buffer.dtype}{list(buffer.shape)}")
-    for name, t in (("offs", offs), ("sizes", sizes)):
-        if t.dtype != torch.int32 or t.dim() != 1 or t.device.type != "cpu":
-            raise ValueError(f"{name} must be int32[M] on the host")
-    if offs.shape != sizes.shape:
-        raise ValueError("offs and sizes differ in length")
-    m = offs.shape[0]
-    if m:
-        _check_extents(buffer, offs, sizes)
+    check_chunk_args(buffer, offs, sizes)
     if buffer.device.type == "cpu":
         return sha256_chunks_plain(buffer, offs, sizes)
-    if buffer.device.type != "cuda":
-        raise ValueError(f"unsupported device {buffer.device}")
-    if not buffer.is_contiguous():
-        raise ValueError("buffer must be contiguous")
-    # Full blocks are read as aligned 16-byte pieces: the base and length
-    # must keep every such piece inside the allocation.
-    if buffer.data_ptr() % 16 or buffer.numel() % 16:
-        raise ValueError("buffer must be 16-byte aligned with a length divisible by 16")
+    m = offs.shape[0]
     out = torch.empty((m, 8), dtype=torch.int32, device=buffer.device)
     if m:
         rows = torch.stack([offs, sizes]).pin_memory()

@@ -204,7 +204,7 @@ class TestModesAndArguments:
             ({"window": 100}, "window"),
             ({"digest_backend": "gpu"}, "digest backend"),
             ({"backend": "hybrid"}, "native_cdc.*Queue A item 10"),
-            ({"digester": "blake3"}, "Queue A item 4"),
+            ({"digester": "md5"}, "digester"),
         ],
     )
     def test_invalid_args(self, kw, match):

@@ -15,7 +15,7 @@ import torch
 
 from nydus_snapshotter_tpu_torch import entry
 from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
-from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
+from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester
 from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
 from nydus_snapshotter_tpu_torch.parallel import sharded_dict
 
@@ -42,6 +42,15 @@ _CHILD = textwrap.dedent(
     pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, backend="jax"), device="cpu")
     metas = ChunkDigestEngine(chunk_size=0x1000, device="cpu").process_many([data, b"abc"])
     assert [m.digest for m in metas[1]] == [hashlib.sha256(b"abc").digest()]
+    from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
+    b3 = FusedDeviceEngine(chunk_size=0x1000, digester="blake3", device="cpu").process_many([b"abc"])
+    assert b3.digests[0] == [pyb3.blake3(b"abc")]
+    for backend in ("fused", "jax", "numpy"):
+        pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, backend=backend, digester="blake3"),
+                   device="cpu")
+        metas = ChunkDigestEngine(chunk_size=0x1000, backend=backend, digester="blake3",
+                                  device="cpu").process_many([b"abc"])
+        assert [m.digest for m in metas[0]] == [pyb3.blake3(b"abc")]
     fwd, args = entry.entry(device="cpu")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
@@ -71,8 +80,16 @@ def test_main_path_imports_neither_jax_nor_reference():
         lambda: pack_layer(b"", PackOption(backend="fused")),
         lambda: ChunkDigestEngine(),
         lambda: pack_layer(b"", PackOption(backend="jax")),
+        lambda: FusedDeviceEngine(digester="blake3"),
+        lambda: ChunkDigestEngine(digester="blake3"),
+        lambda: ChunkDigestEngine(backend="fused", digester="blake3"),
+        lambda: DeviceDigester(digester="blake3"),
+        lambda: pack_layer(b"", PackOption(digester="blake3")),
+        lambda: pack_layer(b"", PackOption(backend="jax", digester="blake3")),
     ],
-    ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax"],
+    ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
+         "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
+         "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():

@@ -267,7 +267,7 @@ class TestPackOptions:
             {"backend": "hybrid"},
             {"digest_backend": "jax"},
             {"chunking": "fixed"},
-            {"digester": "blake3"},
+            {"digester": "md5"},
             {"batch_size": 0x10000},
             {"encrypt": True},
             {"aligned_chunk": True},
