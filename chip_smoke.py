@@ -90,13 +90,17 @@ Phases (any failure exits non-zero; nothing is caught):
    phase 2's, digests the plain version's, probe answers the host probe's;
    wall time the median of 5 after the checked run, pass split, busy share
    from one profiler trace); ``ChunkDigestEngine(backend="jax",
-   digester="blake3")`` at 1 MiB chunks (K4 once per piece, digests equal
-   the plain version's); ``pack_layer(backend="fused", digester="blake3")``
-   over phase 4's tar (blob and blob id equal phase 4's SHA-256 fused blob,
-   the bootstrap's digests the plain version's over the blob's chunks;
-   median of 3) and the ``jax`` lane's BLAKE3 (host arm) on a ~4 MiB tar
-   equal to the fused lane's; K4 alone, through its wrapper and as the
-   plain version, beside its bound, on the main path and at 1 MiB chunks.
+   digester="blake3")`` at 1 MiB chunks (K4 once per piece, its batch
+   submitted under sync debug mode "error", digests equal the plain
+   version's; median of 3 after the checked run, with the boundaries and
+   digest split); ``pack_layer(backend="fused", digester="blake3")`` over
+   phase 4's tar (blob and blob id equal phase 4's SHA-256 fused blob, the
+   bootstrap's digests the plain version's over the blob's chunks; median
+   of 3) and ``pack_layer(backend="jax", digester="blake3")`` over the same
+   tar (K4 per digest batch, each submitted under sync debug mode "error";
+   equal to the fused BLAKE3 pack; median of 3); K4 alone, through its
+   wrapper and as the plain version, beside its bound, on the main path
+   and at 1 MiB chunks.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -105,6 +109,7 @@ beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import io
@@ -356,6 +361,32 @@ def host_timed(fn) -> tuple[float, float, int]:
     fn()
     wall, cpu = time.perf_counter() - t0, time.process_time() - c0
     return wall, cpu, resource.getrusage(resource.RUSAGE_SELF).ru_minflt - r0.ru_minflt
+
+
+@contextlib.contextmanager
+def submits_without_sync(submits: list):
+    """Inside: every ``DeviceDigester.submit`` (K2's or K4's batch) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in it
+    raises, and appends its batch's chunk count to ``submits``."""
+    import torch
+
+    from nydus_snapshotter_tpu_torch.ops import chunker
+
+    real = chunker.DeviceDigester.submit
+
+    def submit(self, items):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, items)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            submits.append(len(items))
+
+    chunker.DeviceDigester.submit = submit
+    try:
+        yield submits
+    finally:
+        chunker.DeviceDigester.submit = real
 
 
 def max_abs_err(got, want) -> int:
@@ -791,11 +822,13 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
 
     # The engine's default 1 MiB average chunks.
     eng_1m = chunker.ChunkDigestEngine(backend="jax", device=dev)
-    walls_1m, res_1m = [], None
+    walls_1m, splits_1m, res_1m = [], [], None
     for _ in range(3):
+        before = dict(eng_1m.stats)
         t0 = time.perf_counter()
         out = eng_1m.process_many(files)
         walls_1m.append(time.perf_counter() - t0)
+        splits_1m.append(tuple(eng_1m.stats[k] - before[k] for k in ("boundaries_s", "digest_s")))
         if res_1m is None:
             res_1m = out
         elif [[m.digest for m in x] for x in out] != [[m.digest for m in x] for x in res_1m]:
@@ -828,8 +861,9 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
                              f"(max err {k2_err})")
     longest_1m = int(sha_blocks(sizes_1m).max())
     del w_buf
-    log(f"[7] 1 MiB average chunks: {len(sizes_1m)} chunks, runs "
-        + ", ".join(f"{x:.3f}" for x in walls_1m) + f" s (median {np.median(walls_1m):.3f} s = "
+    log(f"[7] 1 MiB average chunks: {len(sizes_1m)} chunks, runs (wall: boundaries_many + "
+        "digest_all) " + ", ".join(f"{x:.3f}: {b:.3f} + {d:.3f}" for x, (b, d) in
+                                   zip(walls_1m, splits_1m)) + f" s (median {np.median(walls_1m):.3f} s = "
         f"{n_bytes / 2**30 / np.median(walls_1m):.3f} GiB/s); every digest == hashlib, cuts == "
         f"numpy chunker over {checked} bytes; longest chunk {longest_1m} blocks; K2 alone on all "
         f"{len(sizes_1m)} chunks in one launch (== hashlib) {k2_1m_ms:.3f} ms (bound {bound_1m[0]:.3f} ms: "
@@ -842,7 +876,8 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
         "window_kernel_ms": win_ms, "window_bound_ms": win_bound[0], "window_bound_by": win_bound[1],
         "padded_positions": padded,
         "batch_kernel_ms": batch_ms, "batch_bound_ms": batch_bound[0], "batch_bytes": total,
-        "chunks_1m": len(sizes_1m), "runs_1m_s": walls_1m, "longest_1m_blocks": longest_1m,
+        "chunks_1m": len(sizes_1m), "runs_1m_s": walls_1m, "splits_1m_s": splits_1m,
+        "longest_1m_blocks": longest_1m,
         "k2_1m_kernel_ms": k2_1m_ms, "k2_1m_bound_ms": bound_1m[0],
         "k1_err": k1_err, "k2_err": k2_err,
     }
@@ -851,10 +886,8 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
 def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
     """Phase 8: the pack ``jax`` lane, the file-like Pack and the fused
     lane's overflow fallback against phase 4's outputs."""
-    import torch
-
     from nydus_snapshotter_tpu_torch.converter import Pack, PackOption, pack_layer
-    from nydus_snapshotter_tpu_torch.ops import chunker, fused_convert
+    from nydus_snapshotter_tpu_torch.ops import fused_convert
 
     opt = dict(chunk_size=CHUNK_SIZE, compressor="none")
     with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
@@ -876,29 +909,16 @@ def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
         finally:
             fused_convert._wcap_for = real
 
-    real_submit = chunker.DeviceDigester.submit
     submits = []
-
-    def no_sync_submit(self, items):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return real_submit(self, items)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            submits.append(len(items))
-
     out = {}
     for name, fn in (("jax", bytes_jax), ("jax_filelike", stream_jax),
                      ("fused_overflow", fused_overflow)):
         for k in kernels.values():
             k.launches = 0
-        chunker.DeviceDigester.submit = no_sync_submit
-        try:
+        with submits_without_sync(submits):
             t0 = time.perf_counter()
             blob, res = fn()
             first = time.perf_counter() - t0
-        finally:
-            chunker.DeviceDigester.submit = real_submit
         launches = {key: k.launches for key, k in kernels.items()}
         if not (blob == blob_n == blob_f and res.bootstrap == res_n.bootstrap
                 and res.blob_id == res_n.blob_id):
@@ -965,7 +985,7 @@ def k4_c(buffer, offs_d, sizes_d, m: int):
     leaf_end = torch.cumsum(leaves, 0)
     total, most = int(leaf_end[-1]), int(leaves.max())
     cvs = torch.empty((total, 8), dtype=torch.int32, device=buffer.device)
-    cv_b = torch.empty((total if most > blake3_cuda.SHARED_CVS else 1, 8), dtype=torch.int32,
+    cv_b = torch.empty((total if most > blake3_cuda.shared_cvs() else 1, 8), dtype=torch.int32,
                        device=buffer.device)
     out = torch.empty((m, 8), dtype=torch.int32, device=buffer.device)
     a = c_launch(blake3_cuda.LEAVES, buffer, offs_d, sizes_d, leaf_end, m, total, cvs, out)
@@ -1128,21 +1148,38 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
     weng = chunker.ChunkDigestEngine(backend="jax", digester="blake3", device=dev)
     for k in kernels.values():
         k.launches = 0
+    submits = []
     t0 = time.perf_counter()
-    metas = weng.process_many(files)
+    with submits_without_sync(submits):
+        metas = weng.process_many(files)
     win_s = time.perf_counter() - t0
+    win_first = (weng.stats["boundaries_s"], weng.stats["digest_s"])
     win_launches = {key: k.launches for key, k in kernels.items()}
     nonempty = sum(1 for f in files if f.size)
     want = {"gear": nonempty, "sha": 0, "probe": 0, "b3_leaves": 1, "b3_parents": 1}
-    if win_launches != want:
-        raise AssertionError(f"windowed BLAKE3 process_many launched {win_launches}; want {want}")
+    if win_launches != want or submits != [len(sizes_1m)]:
+        raise AssertionError(f"windowed BLAKE3 process_many launched {win_launches} over digest "
+                             f"batches {submits}; want {want} over one batch")
     if [m.size for ms in metas for m in ms] != sizes_1m.tolist():
         raise AssertionError("windowed BLAKE3 cuts differ from phase 7's")
     if le_words([m.digest for ms in metas for m in ms]).tolist() != plain_1m.cpu().tolist():
         raise AssertionError("windowed BLAKE3 digests differ from the plain version")
+    win_walls, win_splits = [], []
+    for _ in range(3):
+        before = dict(weng.stats)
+        t0 = time.perf_counter()
+        weng.process_many(files)
+        win_walls.append(time.perf_counter() - t0)
+        win_splits.append(tuple(weng.stats[k] - before[k] for k in ("boundaries_s", "digest_s")))
+    win_wall = float(np.median(win_walls))
     log(f"[9] windowed ChunkDigestEngine(backend='jax', digester='blake3') at 1 MiB chunks: "
         f"{len(sizes_1m)} chunks, cuts == phase 7's, digests == the plain version; launches "
-        f"{win_launches}; one run {win_s:.3f} s")
+        f"{win_launches}, the digest batch submitted under sync debug mode 'error'; checked run "
+        f"{win_s:.3f}: {win_first[0]:.3f} + {win_first[1]:.3f} s; median {win_wall:.3f} s over 3 runs after it (wall: boundaries_many + "
+        "digest_all) " + ", ".join(f"{x:.3f}: {b:.3f} + {d:.3f}" for x, (b, d) in
+                                   zip(win_walls, win_splits)) + " s (SHA-256, phase 7: "
+        + ", ".join(f"{x:.3f}: {b:.3f} + {d:.3f}" for x, (b, d) in
+                    zip(windowed["runs_1m_s"], windowed["splits_1m_s"])) + " s)")
 
     # -- pack, fused and jax lanes -------------------------------------------
     opt = dict(chunk_size=CHUNK_SIZE, compressor="none", digester="blake3")
@@ -1175,18 +1212,43 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
         if got[0] != blob_b:
             raise AssertionError("the fused BLAKE3 pack differs from its checked run")
     pack_wall = float(np.median([r[0] for r in pack_runs]))
-    small_tar = layer_tar(FileGen(SEED + 5).pool(4))
-    t0 = time.perf_counter()
-    blob_j, res_j = pack_layer(small_tar, PackOption(backend="jax", **opt), device=dev)
-    jax_s = time.perf_counter() - t0
-    blob_s, res_s = pack_layer(small_tar, PackOption(backend="fused", **opt), device=dev)
-    if blob_j != blob_s or res_j.bootstrap != res_s.bootstrap or res_j.blob_id != res_s.blob_id:
-        raise AssertionError("the jax lane's BLAKE3 pack differs from the fused lane's")
     log(f"[9] pack fused, digester='blake3': blob and blob id == phase 4's SHA-256 fused blob, "
         f"{len(chunks)} bootstrap digests == the plain version; launches {pack_launches}; checked "
         f"run {pack_first:.3f} s, median {pack_wall:.3f} s (runs, wall / host CPU s / minor page "
-        "faults: " + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in pack_runs) + f"); jax "
-        f"lane (host BLAKE3 arm) on a {len(small_tar)}-byte tar == the fused lane, {jax_s:.2f} s")
+        "faults: " + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in pack_runs) + ")")
+
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        n_files = sum(1 for m in tf if m.isreg() and m.size)
+    for k in kernels.values():
+        k.launches = 0
+    submits = []
+    t0 = time.perf_counter()
+    with submits_without_sync(submits):
+        blob_j, res_j = pack_layer(tar, PackOption(backend="jax", **opt), device=dev)
+    jax_first = time.perf_counter() - t0
+    jax_launches = {key: k.launches for key, k in kernels.items()}
+    if blob_j != blob_b or res_j.bootstrap != res_b.bootstrap or res_j.blob_id != res_b.blob_id:
+        raise AssertionError("the jax lane's BLAKE3 pack differs from the fused lane's")
+    # K1 once per non-empty file, K4's leaf launch once per digest batch
+    # (its tree launch where the batch holds a chunk of two leaves or more)
+    if (jax_launches["gear"] != n_files or jax_launches["sha"] or jax_launches["probe"]
+            or not submits or jax_launches["b3_leaves"] != len(submits)
+            or not 1 <= jax_launches["b3_parents"] <= len(submits)):
+        raise AssertionError(f"jax BLAKE3 pack launched {jax_launches} for {n_files} non-empty "
+                             f"files, {len(submits)} digest batches")
+    jax_runs = []
+    for _ in range(3):
+        got = []
+        jax_runs.append(host_timed(lambda: got.append(
+            pack_layer(tar, PackOption(backend="jax", **opt), device=dev)[0])))
+        if got[0] != blob_b:
+            raise AssertionError("the jax lane's BLAKE3 pack differs from its checked run")
+    jax_wall = float(np.median([r[0] for r in jax_runs]))
+    log(f"[9] pack jax, digester='blake3': == the fused BLAKE3 pack (blob, bootstrap, blob id); "
+        f"launches {jax_launches} ({n_files} non-empty files, {len(submits)} digest batches, each "
+        f"submitted under sync debug mode 'error'); checked run {jax_first:.3f} s, median "
+        f"{jax_wall:.3f} s (runs, wall / host CPU s / minor page faults: "
+        + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in jax_runs) + ")")
 
     # -- timings -------------------------------------------------------------
     offs_d, sizes_d = torch.from_numpy(extents).to(dev)
@@ -1220,7 +1282,8 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
         "plain_ms": main_plain_ms, "bound": bd, "kernel_1m_ms": k_1m_ms, "call_1m_ms": call_1m_ms,
         "plain_1m_ms": plain_1m_ms, "bound_1m": bd_1m, "windowed_launches": win_launches,
         "pack_fused_launches": pack_launches, "wall_s": wall, "gib_per_s": n_bytes / 2**30 / wall,
-        "busy_ms": busy_ms, "pack_wall_s": pack_wall, "pack_jax_small_s": jax_s,
+        "busy_ms": busy_ms, "pack_wall_s": pack_wall, "windowed_1m_wall_s": win_wall,
+        "pack_jax_launches": jax_launches, "pack_jax_wall_s": jax_wall,
     }
 
 
@@ -1674,7 +1737,10 @@ def main() -> int:
             chunks_1m_kernel_ms=b3["kernel_1m_ms"], chunks_1m_call_ms=b3["call_1m_ms"],
             chunks_1m_plain_ms=b3["plain_1m_ms"], chunks_1m_bound_ms=b3["bound_1m"][0],
             chunks_1m_bound_terms_ms={"throughput": b3["bound_1m"][2], "serial": b3["bound_1m"][4]},
-            fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"]),
+            pack_jax_launches=b3["pack_jax_launches"]["b3_leaves"]
+            + b3["pack_jax_launches"]["b3_parents"],
+            fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
+            pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

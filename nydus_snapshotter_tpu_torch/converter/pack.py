@@ -20,9 +20,11 @@ reference package's ``Pack``/``pack_layer`` for the options supported here:
 - ``backend="numpy"``: the host oracle, numpy CDC and ``hashlib``.
 - ``digester="sha256"`` or ``"blake3"``. BLAKE3 changes only the chunk
   digests in the bootstrap (the blob and its sha256 id stay the same). The
-  fused lane digests it on the card (kernel K4); the ``jax`` and ``numpy``
-  lanes digest it on the host BLAKE3 arm, as the reference's do
-  (converter/stream.py:790-797: its device batch kernel is SHA-256 only).
+  ``fused`` and ``jax`` lanes digest it on the card with kernel K4 where
+  SHA-256 takes K2; the ``numpy`` lane digests it on the host BLAKE3 arm.
+  (The reference's ``jax`` lane digests BLAKE3 on its host arm,
+  converter/stream.py:790-797, because its device batch kernel is SHA-256
+  only; the bytes are the same.)
 - ``compressor="none"``, ``chunking="cdc"``, RAFS v5 or v6. Every other
   option value raises :class:`ConvertError`.
 
@@ -202,11 +204,8 @@ def Pack(
     shared = IncrementalChunker(opt, device=device)
     engine = shared._engine
     # The engine's device digester (K2, or K4 for BLAKE3) for the device
-    # backends: no path finishes on the host under a device backend's name,
-    # except BLAKE3 on the jax lane, which the reference digests on the host.
-    if engine.device_digester is not None and not (
-        opt.backend == "jax" and opt.digester == "blake3"
-    ):
+    # backends: no path finishes on the host under a device backend's name.
+    if engine.device_digester is not None:
         digester = engine.device_digester
     else:
         digester = HostDigester(opt.digester)

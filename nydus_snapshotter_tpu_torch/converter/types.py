@@ -50,9 +50,9 @@ class PackOption:
     digest_backend: str = ""
     # Chunk-digest algorithm (reference `nydus-image --digester`,
     # RafsSuperFlags 0x4 blake3 / 0x8 sha256): it changes the chunk digests
-    # in the bootstrap and nothing else. The fused lane digests either on
-    # the card; the jax and numpy lanes digest blake3 on the host arm, as the
-    # reference does. The blob ID stays sha256 (OCI convention).
+    # in the bootstrap and nothing else. The fused and jax lanes digest
+    # either on the card; the numpy lane digests blake3 on the host arm.
+    # The blob ID stays sha256 (OCI convention).
     digester: str = "sha256"
 
     def validate(self) -> None:

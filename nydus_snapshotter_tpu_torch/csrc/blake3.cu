@@ -285,9 +285,13 @@ extern "C" int ntpu_blake3_leaves(const void* buf, const void* offs, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The widest tree level a parent block keeps in shared memory. The caller
+// sizes cv_b by it, so the threshold lives here alone.
+extern "C" int ntpu_blake3_shared_cvs() { return kSharedCvs; }
+
 // sizes, leaf_end, out: as above; cv_a: the leaf kernel's cvs; cv_b: a second
 // u32[total, 8] scratch, read and written only for chunks of more than
-// 512 leaves (may be a 1-row dummy when there are none).
+// ntpu_blake3_shared_cvs() leaves (may be a 1-row dummy when there are none).
 extern "C" int ntpu_blake3_parents(const void* sizes, const void* leaf_end, int64_t m,
                                    void* cv_a, void* cv_b, void* out, void* stream) {
   blake3_parents<<<static_cast<unsigned>(m), kParentThreads, 0,

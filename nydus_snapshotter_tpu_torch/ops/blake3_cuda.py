@@ -17,6 +17,7 @@ Each counts its own launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,8 +35,15 @@ PARENTS = cuda_build.Kernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 4,
 )
 KERNELS = (LEAVES, PARENTS)
-# Tree levels wider than this run in device memory (csrc/blake3.cu kSharedCvs).
-SHARED_CVS = 512
+# Not a kernel: csrc/blake3.cu's kSharedCvs, read from the built library.
+_SHARED_CVS = cuda_build.Kernel("blake3.cu", "ntpu_blake3_shared_cvs", [])
+
+
+@functools.cache
+def shared_cvs() -> int:
+    """The widest tree level K4 keeps in shared memory: a chunk of more
+    leaves needs the second device scratch ``cv_b`` of PARENTS."""
+    return int(_SHARED_CVS.load()())
 
 
 def leaf_counts(sizes: np.ndarray) -> np.ndarray:
@@ -77,7 +85,7 @@ def blake3_chunks(
                 m, total, cvs.data_ptr(), out.data_ptr(), stream,
             )
             if most > 1:
-                cv_b = torch.empty((total if most > SHARED_CVS else 1, 8), dtype=torch.int32,
+                cv_b = torch.empty((total if most > shared_cvs() else 1, 8), dtype=torch.int32,
                                    device=buffer.device)
                 PARENTS.launch(
                     ext[1].data_ptr(), leaf_end.data_ptr(), m, cvs.data_ptr(), cv_b.data_ptr(),

@@ -472,12 +472,25 @@ class TestPack:
             assert c.digest == pyb3.blake3(data)
 
     def test_streaming_pack_matches_reference(self, small_tar):
-        """A file-like tar streams through IncrementalChunker with the
-        BLAKE3 host arm and packs the reference's bytes."""
+        """A file-like tar streams through IncrementalChunker, its BLAKE3
+        digests on K4's wrapper, and packs the reference's bytes."""
         out = io.BytesIO()
         res = Pack(out, io.BytesIO(small_tar), PackOption(backend="jax", **B3_OPT), device="cpu")
         jblob, jres = j_pack_layer(small_tar, JPackOption(backend="numpy", **B3_OPT))
         assert out.getvalue() == jblob and res.bootstrap == jres.bootstrap
+
+    def test_jax_lane_digests_with_k4(self, monkeypatch, small_tar, counted):
+        """The jax lane digests BLAKE3 through K4's wrapper, one call for
+        its one digest batch, and never on the host BLAKE3 arm."""
+
+        def host_arm(items):
+            raise AssertionError("the jax lane digested on the host BLAKE3 arm")
+
+        monkeypatch.setattr(chunker, "_host_digests_blake3", host_arm)
+        blob, res = pack_layer(small_tar, PackOption(backend="jax", **B3_OPT), device="cpu")
+        jblob, jres = j_pack_layer(small_tar, JPackOption(backend="numpy", **B3_OPT))
+        assert blob == jblob and res.bootstrap == jres.bootstrap
+        assert counted["blake3"] == 1 and counted["sha"] == 0
 
     def test_candidate_overflow_falls_back(self, monkeypatch, small_tar):
         monkeypatch.setattr(fused_convert, "_wcap_for", lambda n, bits, floor=1024: 2)
