@@ -55,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught):
 7. windowed engine — ``ChunkDigestEngine(backend="jax")``'s
    ``process_many`` over phase 2's layer: every cut and digest equal to
    phase 2's fused results, K1 launched once per non-empty file and K2 once
-   per int32-addressable piece; wall time the median of 5 runs after that
+   per int32-addressable piece; wall time the median of 3 runs after that
    checked run (the warm-up), split into ``boundaries_many`` and ``digest_all``, and the
    device's busy share from one torch.profiler trace; K1 alone on one
    512 KiB window and K2 alone on one 32 MiB digest batch (the windowed
@@ -100,7 +100,31 @@ Phases (any failure exits non-zero; nothing is caught):
    tar (K4 per digest batch, each submitted under sync debug mode "error";
    equal to the fused BLAKE3 pack; median of 3); K4 alone, through its
    wrapper and as the plain version, beside its bound, on the main path
-   and at 1 MiB chunks.
+   and at 1 MiB chunks;
+10. compressed packs — the path and version of the bound liblz4 and
+   libzstd (``LZ4_versionNumber``, ``ZSTD_versionNumber``); each codec whose
+   system library is bound runs (at least one must), the others are
+   printed as not run. Per codec, at SHA-256 and 64 KiB chunks, over phase
+   4's tar: ``pack_layer(backend="numpy")`` once (the oracle), then
+   ``fused`` and ``jax``, each equal to it (blob, bootstrap, blob id) with
+   the launches of its uncompressed twin (fused: K1 1, K2 1; jax: phase
+   8's, K1 once per non-empty file, K2 once per 32 MiB batch, each batch
+   submitted under sync debug mode "error"), wall time the median of 3
+   after the checked run, each run printed with its host CPU seconds and
+   its ``stats`` split (scan, chunk_digest, dedup, assemble, bootstrap);
+   every chunk record's frame, located by its compressed offset and size
+   and decompressed with the port's codec, equals the tar's bytes at the
+   chunk's file offset; the compression ratio. Then one fused pack with
+   every new option at once (zstd, or lz4_block without libzstd;
+   ``digester="blake3"``, ``batch_size=0x10000``, ``prefetch_patterns``
+   naming a directory and two files, ``chunk_dict_path="bootstrap=<file>"``
+   holding the bootstrap of a numpy pack of every third file): K1 1, K4's
+   two launches once each, equal to its numpy twin (which, like the dict
+   pack, digests with K4 through ``digest_backend="jax"``: the numpy lane's
+   pure-Python BLAKE3 would take ~11 minutes over this tar); dict hits,
+   own and dict batch records and the prefetch table present; every
+   frame, of the pack's blob and of the dict's, decompresses to the tar's
+   bytes, and every BLAKE3 digest equals the plain version's on the card.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -132,6 +156,7 @@ CUT_CHECK_BYTES = 64 << 20
 K1_SLICE = 64 << 20
 K2_PLAIN_MAX_CAP = 128  # the plain SHA-256 loops in Python per 64-byte block
 REPS = 5
+WINDOWED_REPS = 3  # phase 7's windowed process_many: ~15 s a run
 DEVICE = "cuda"
 
 # K3's registry-scale workload: tools/registry_scale.py's deployment.
@@ -727,7 +752,7 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
         f"results; launches {launches} ({nonempty} non-empty files); checked run {first_s:.3f} s")
 
     walls, splits = [], []
-    for _ in range(REPS):
+    for _ in range(WINDOWED_REPS):
         before = dict(eng.stats)
         t0 = time.perf_counter()
         eng.process_many(files)
@@ -737,7 +762,8 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
     split = {k: float(np.median([x[k] for x in splits])) for k in splits[0]}
     busy_ms, by_name = device_busy(lambda: eng.process_many(files))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    log(f"[7] windowed process_many: median {wall:.3f} s over {REPS} runs after the checked one -> "
+    log(f"[7] windowed process_many: median {wall:.3f} s over {WINDOWED_REPS} runs after the "
+        f"checked one -> "
         f"{n_bytes / 2**30 / wall:.3f} GiB/s (runs: " + ", ".join(f"{x:.3f}" for x in walls)
         + f" s); boundaries_many {split['boundaries_s']:.3f} s, digest_all {split['digest_s']:.3f} s; "
         f"device busy {busy_ms:.3f} ms = {100 * busy_ms / (wall * 1e3):.1f}% of the median, idle "
@@ -1287,6 +1313,224 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
     }
 
 
+def compressed_phase(dev, tar, lanes, kernels) -> dict:
+    """Phase 10: compressed packs (lz4_block, zstd) and the rest of
+    ``PackOption`` on the card's pack lanes, over phase 4's tar."""
+    import tempfile
+
+    import torch
+
+    from nydus_snapshotter_tpu_torch import constants
+    from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.models import fstree
+    from nydus_snapshotter_tpu_torch.models.bootstrap import CHUNK_FLAG_BATCH, Bootstrap
+    from nydus_snapshotter_tpu_torch.ops import blake3
+    from nydus_snapshotter_tpu_torch.utils import lz4, zstd
+
+    t_phase = time.perf_counter()
+    libs = {"lz4_block": lz4.library(), "zstd": zstd.library()}
+    log("[10] codec libraries: " + "; ".join(
+        f"{c} {lib[0]} {lib[1]}" if lib else f"{c}: no system library bound" for c, lib in libs.items()))
+    codecs = [c for c, lib in libs.items() if lib]
+    for c in libs:
+        if c not in codecs:
+            log(f"[10] {c}: not run (its system library is not bound on this machine)")
+    if not codecs:
+        raise AssertionError("neither liblz4 nor libzstd is bound: no codec to run")
+
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        regs = [m for m in tf if m.isreg()]
+    members = {fstree.norm_path(m.name): (m.offset_data, m.size) for m in regs}
+    n_files = sum(1 for m in regs if m.size)
+    file_bytes = sum(m.size for m in regs)
+
+    def decompress(flag: int, frame: bytes, usize: int) -> bytes:
+        kind = flag & constants.COMPRESSOR_MASK
+        if kind == constants.COMPRESSOR_LZ4_BLOCK:
+            return lz4.decompress_block(frame, usize)
+        if kind == constants.COMPRESSOR_ZSTD:
+            return zstd.decompress_block(frame)
+        raise AssertionError(f"chunk flag {flag:#x}: not a compressed frame")
+
+    def check_frames(res, sections: dict[str, bytes]) -> tuple[int, int, list]:
+        """Every chunk record's frame, located by compressed_offset and
+        compressed_size in its blob's data section and decompressed with the
+        port's codec, equals the tar's bytes at that chunk's file offset.
+        -> (records, distinct frames, the records' tar extents)."""
+        boot = Bootstrap.from_bytes(res.bootstrap)
+        batch_of = {(b.blob_index, b.compressed_offset): b for b in boot.batches}
+        frames: dict[tuple[int, int], bytes] = {}
+        extents = []
+        for ino in boot.inodes:
+            if not ino.chunk_count:
+                continue
+            off_data, size = members[ino.path]
+            pos = 0
+            for c in boot.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]:
+                key = (c.blob_index, c.compressed_offset)
+                batch = batch_of[key] if c.flags & CHUNK_FLAG_BATCH else None
+                data = frames.get(key)
+                if data is None:
+                    section = sections[boot.blobs[c.blob_index].blob_id]
+                    frame = section[c.compressed_offset:c.compressed_offset + c.compressed_size]
+                    usize = batch.uncompressed_size if batch else c.uncompressed_size
+                    data = frames[key] = decompress(c.flags, frame, usize)
+                    if len(data) != usize:
+                        raise AssertionError(f"frame at {key} holds {len(data)} bytes, not {usize}")
+                if batch:
+                    lo = c.uncompressed_offset - batch.uncompressed_base
+                    data = data[lo:lo + c.uncompressed_size]
+                if data != tar[off_data + pos:off_data + pos + c.uncompressed_size]:
+                    raise AssertionError(f"{ino.path}: the chunk at file offset {pos} does not "
+                                         "decompress to the tar's bytes")
+                extents.append((off_data + pos, c.uncompressed_size))
+                pos += c.uncompressed_size
+            if pos != size:
+                raise AssertionError(f"{ino.path}: chunks cover {pos} of {size} bytes")
+        return len(extents), len(frames), extents
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        submits = []
+        with submits_without_sync(submits):
+            t0 = time.perf_counter()
+            out = fn()
+            first = time.perf_counter() - t0
+        return out, first, {key: k.launches for key, k in kernels.items()}, len(submits)
+
+    def fmt_stats(st: dict) -> str:
+        return " + ".join(f"{k} {st[k]:.3f}" for k in ("scan", "chunk_digest", "dedup", "assemble",
+                                                         "bootstrap"))
+
+    def same(a, b) -> bool:
+        return a[0] == b[0] and a[1].bootstrap == b[1].bootstrap and a[1].blob_id == b[1].blob_id
+
+    out: dict = {"codecs": {}, "libraries": {c: list(lib) if lib else None for c, lib in libs.items()}}
+    for codec in codecs:
+        opt = dict(chunk_size=CHUNK_SIZE, compressor=codec)
+        st_n = {}
+        t0 = time.perf_counter()
+        ref = pack_layer(tar, PackOption(backend="numpy", **opt), stats=st_n)
+        numpy_s = time.perf_counter() - t0
+        n_rec, n_frames, _ext = check_frames(ref[1], {ref[1].blob_id: ref[0][:ref[1].blob_size]})
+        ratio = ref[1].blob_size / file_bytes
+        log(f"[10] {codec} numpy (the oracle): {len(ref[0])} byte layer blob, data section "
+            f"{ref[1].blob_size} bytes = {ratio:.4f} of the {file_bytes} file bytes; all {n_rec} "
+            f"chunk records' frames ({n_frames} distinct) decompress to the tar's bytes; "
+            f"{numpy_s:.3f} s ({fmt_stats(st_n)})")
+        res_c = {"numpy_s": numpy_s, "numpy_stats": st_n, "ratio": ratio, "records": n_rec,
+                 "frames": n_frames, "data_bytes": ref[1].blob_size}
+        for lane in ("fused", "jax"):
+            got, first, launches, batches = counted(
+                lambda: pack_layer(tar, PackOption(backend=lane, **opt), device=dev))
+            if not same(got, ref):
+                raise AssertionError(f"{codec} pack {lane} differs from the numpy lane")
+            # the uncompressed twins' counts: fused one K1 and one K2 launch
+            # (the tar is one batch); jax those of phase 8's jax pack
+            want = ({"gear": 1, "sha": 1} if lane == "fused" else
+                    {k: lanes["jax"]["launches"][k] for k in ("gear", "sha")})
+            want.update(probe=0, b3_leaves=0, b3_parents=0)
+            if (launches != want or (lane == "jax" and (launches["gear"] != n_files
+                                                         or launches["sha"] != batches))):
+                raise AssertionError(f"{codec} pack {lane} launched {launches}; want {want} "
+                                     f"({n_files} non-empty files, {batches} digest batches)")
+            runs, stats = [], []
+            for _ in range(3):
+                st, blobs = {}, []
+                runs.append(host_timed(lambda: blobs.append(
+                    pack_layer(tar, PackOption(backend=lane, **opt), device=dev, stats=st)[0])))
+                stats.append(st)
+                if blobs[0] != ref[0]:
+                    raise AssertionError(f"{codec} pack {lane} differs from its checked run")
+            wall = float(np.median([r[0] for r in runs]))
+            batch_note = (f" ({batches} digest batches, each submitted under sync debug mode "
+                          "'error')" if lane == "jax" else "")
+            log(f"[10] {codec} pack {lane}: == numpy byte for byte; launches {launches}{batch_note}; "
+                f"checked run {first:.3f} s, median {wall:.3f} s (runs, wall / host CPU s / minor page "
+                "faults [stats s]: " + ", ".join(
+                    f"{w:.3f} / {c:.3f} / {f} [{fmt_stats(s)}]" for (w, c, f), s in zip(runs, stats))
+                + ")")
+            res_c[lane] = {"launches": launches, "batches": batches, "first_s": first, "wall_s": wall,
+                           "runs": [list(r) for r in runs], "stats": stats}
+        out["codecs"][codec] = res_c
+
+    # -- every new option at once: one fused pack against its numpy twin -----
+    codec = "zstd" if "zstd" in codecs else codecs[0]
+    third = io.BytesIO()
+    with tarfile.open(fileobj=third, mode="w", format=tarfile.GNU_FORMAT) as tf:
+        for m in regs[::3]:
+            tf.addfile(m, io.BytesIO(tar[m.offset_data:m.offset_data + m.size]))
+    # The numpy lane's BLAKE3 host arm is pure Python (~0.4 MB/s): the dict
+    # pack and the twin below cut on the host and digest with K4
+    # (digest_backend="jax"); the pack's digests are held against the plain
+    # BLAKE3 version separately.
+    common = dict(chunk_size=CHUNK_SIZE, compressor=codec, digester="blake3", batch_size=0x10000)
+    t0 = time.perf_counter()
+    dblob, dres = pack_layer(third.getvalue(), PackOption(backend="numpy", digest_backend="jax",
+                                                          **common), device=dev)
+    dict_s = time.perf_counter() - t0
+    prefetch = ["layer0/d5", "/layer0/d7/f7.bin", "layer0/d1/f1.bin/"]
+    want_prefetch = sorted(p for p in members if p.startswith("/layer0/d5/")) + [
+        "/layer0/d7/f7.bin", "/layer0/d1/f1.bin"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dict.boot"
+        path.write_bytes(dres.bootstrap)
+        opt_all = dict(common, prefetch_patterns="\n".join(prefetch),
+                       chunk_dict_path=f"bootstrap={path}")
+        st_a = {}
+        fused, first, launches, _b = counted(
+            lambda: pack_layer(tar, PackOption(backend="fused", **opt_all), device=dev, stats=st_a))
+        want = {"gear": 1, "sha": 0, "probe": 0, "b3_leaves": 1, "b3_parents": 1}
+        if launches != want:
+            raise AssertionError(f"the all-options fused pack launched {launches}; want {want}")
+        st_t = {}
+        t0 = time.perf_counter()
+        twin = pack_layer(tar, PackOption(backend="numpy", digest_backend="jax", **opt_all), device=dev,
+                          stats=st_t)
+        twin_s = time.perf_counter() - t0
+    if not same(fused, twin):
+        raise AssertionError("the all-options fused pack differs from its numpy twin")
+    res = fused[1]
+    boot = Bootstrap.from_bytes(res.bootstrap)
+    hits = sum(1 for c in boot.chunks if c.blob_index == 1)
+    own_batches = sum(1 for b in boot.batches if b.blob_index == 0)
+    dict_batches = sum(1 for b in boot.batches if b.blob_index == 1)
+    if res.referenced_blob_ids != [res.blob_id, dres.blob_id] or not hits:
+        raise AssertionError(f"the all-options pack shows no dict hits ({res.referenced_blob_ids})")
+    if not own_batches or not dict_batches:
+        raise AssertionError(f"batch records: {own_batches} own, {dict_batches} from the dict")
+    if boot.prefetch != want_prefetch:
+        raise AssertionError(f"prefetch table {boot.prefetch[:4]}..; want {want_prefetch[:4]}..")
+    n_rec, n_frames, extents = check_frames(res, {res.blob_id: fused[0][:res.blob_size],
+                                                  dres.blob_id: dblob[:dres.blob_size]})
+    ext = np.asarray(extents, np.int64).T
+    buf = np.zeros(-(-len(tar) // 16) * 16, np.uint8)
+    buf[:len(tar)] = np.frombuffer(tar, np.uint8)
+    plain = blake3.blake3_chunks_plain(torch.from_numpy(buf).to(dev),
+                                       torch.from_numpy(ext[0].astype(np.int32)),
+                                       torch.from_numpy(ext[1].astype(np.int32)))
+    digests = np.frombuffer(b"".join(c.digest for ino in boot.inodes if ino.chunk_count
+                                     for c in boot.chunks[ino.chunk_index:ino.chunk_index
+                                                          + ino.chunk_count]), "<u4")
+    if not np.array_equal(digests.astype(np.uint32).view(np.int32).reshape(-1, 8),
+                          plain.cpu().numpy()):
+        raise AssertionError("the all-options pack's BLAKE3 digests differ from the plain version")
+    del buf
+    log(f"[10] all options, {codec} + blake3 + batch_size 0x10000 + prefetch_patterns {prefetch} + "
+        f"chunk_dict_path (the bootstrap of a numpy pack of every third file, {dict_s:.3f} s): "
+        f"fused == its numpy twin (digest_backend='jax') byte for byte; launches {launches}; "
+        f"{hits} dict hits, {own_batches} own and {dict_batches} dict batch records, "
+        f"{len(boot.prefetch)} prefetch entries; all {n_rec} records' frames ({n_frames} distinct, "
+        f"own and dict blob) decompress to the tar's bytes and their BLAKE3 digests == the plain "
+        f"version; fused {first:.3f} s ({fmt_stats(st_a)}), twin {twin_s:.3f} s "
+        f"({fmt_stats(st_t)}); phase {time.perf_counter() - t_phase:.1f} s")
+    out["all_options"] = {"codec": codec, "launches": launches, "fused_s": first, "fused_stats": st_a,
+                          "twin_s": twin_s, "dict_hits": hits, "own_batches": own_batches,
+                          "dict_batches": dict_batches, "prefetch": len(boot.prefetch)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1554,23 +1798,29 @@ def main() -> int:
     t_numpy = time.perf_counter() - t0
     if not (blob_f == blob_n and res_f.bootstrap == res_n.bootstrap and res_f.blob_id == res_n.blob_id):
         raise AssertionError("fused and numpy pack_layer outputs differ")
-    # Wall times: the median of 3 runs after the checked one.
-    pack_runs = {}
+    # Wall times: the median of 3 runs after the checked one, with the
+    # fused runs' stage split (phase 10 sets its compressed packs beside it).
+    pack_runs, fused_stats = {}, []
     for backend, want in (("fused", blob_f), ("numpy", blob_n)):
         pack_runs[backend] = []
         for _ in range(3):
-            got = []
+            got, st = [], {}
             pack_runs[backend].append(host_timed(lambda: got.append(
-                pack_layer(tar, PackOption(backend=backend, **opt), device=dev)[0])))
+                pack_layer(tar, PackOption(backend=backend, **opt), device=dev, stats=st)[0])))
             if got[0] != want:
                 raise AssertionError(f"pack_layer({backend}) differs from its checked run")
+            if backend == "fused":
+                fused_stats.append(st)
     log(f"[4] pack: {len(tar)} byte tar (built in {t_gen:.1f} s) -> {len(blob_f)} byte layer "
         f"blob, blob id {res_f.blob_id[:16]}..; fused == numpy byte for byte; checked runs fused "
         f"{t_fused:.3f} s, numpy {t_numpy:.3f} s; median of 3 after them (runs, wall / host CPU "
         "s / minor page faults): " + "; ".join(
             f"{b} {np.median([r[0] for r in rs]):.3f} s ("
             + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in rs) + ")"
-            for b, rs in pack_runs.items()))
+            for b, rs in pack_runs.items())
+        + "; fused runs' stats s: " + ", ".join(
+            " + ".join(f"{k} {st[k]:.3f}" for k in ("scan", "chunk_digest", "dedup", "assemble",
+                                                      "bootstrap")) for st in fused_stats))
 
     # -- 5. timings --------------------------------------------------------
     sm_hz = max_sm_mhz * 1e6
@@ -1684,6 +1934,9 @@ def main() -> int:
     b3 = blake3_phase(dev, files, res, buffer_dev, extents, windowed, tar, blob_f, res_f,
                       all_kernels, int_ops_per_s, sm_hz, rc)
 
+    # -- 10. compressed packs --------------------------------------------------
+    comp = compressed_phase(dev, tar, lanes, all_kernels)
+
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, n_launches=None, **extra):
         return {
@@ -1696,6 +1949,10 @@ def main() -> int:
             "main_path_call_ms": main_call, "main_path_bound_ms": main_bound[0], **extra,
         }
 
+    def comp_launches(key):  # phase 10: per codec and lane
+        return {c: {lane: r[lane]["launches"][key] for lane in ("fused", "jax")}
+                for c, r in comp["codecs"].items()}
+
     pkg = "nydus_snapshotter_tpu_torch/csrc/"
     line = {"kernels": [
         row("gear", "gear_bitmaps", pkg + "gear_bitmaps.cu",
@@ -1703,6 +1960,7 @@ def main() -> int:
             k1_bound, k1_main_ms, k1_main_call_ms, k1_main_bound, f"{rows_k1.shape[0]}x{W} positions",
             windowed_launches=windowed["launches"]["gear"],
             pack_jax_launches=lanes["jax"]["launches"]["gear"],
+            pack_compressed_launches=comp_launches("gear"),
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -1714,6 +1972,7 @@ def main() -> int:
             longest_chunk_blocks=longest, round_cycles=rc, round_depth=K2_ROUND_DEPTH,
             windowed_launches=windowed["launches"]["sha"],
             pack_jax_launches=lanes["jax"]["launches"]["sha"],
+            pack_compressed_launches=comp_launches("sha"),
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -1739,6 +1998,8 @@ def main() -> int:
             chunks_1m_bound_terms_ms={"throughput": b3["bound_1m"][2], "serial": b3["bound_1m"][4]},
             pack_jax_launches=b3["pack_jax_launches"]["b3_leaves"]
             + b3["pack_jax_launches"]["b3_parents"],
+            pack_all_options_launches=comp["all_options"]["launches"]["b3_leaves"]
+            + comp["all_options"]["launches"]["b3_parents"],
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

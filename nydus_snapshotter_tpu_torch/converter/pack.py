@@ -4,7 +4,7 @@ Reference semantics (convert_unix.go:325-539): uncompressed layer tar in,
 tar-like nydus blob out (``image.blob`` data | ``image.boot`` layer
 bootstrap | ``rafs.blob.toc``, framed per models/nydus_tar.py); chunk-dict
 hits are referenced, not stored. The output is byte-identical to the
-reference package's ``Pack``/``pack_layer`` for the options supported here:
+reference package's ``Pack``/``pack_layer`` for the same options:
 
 - ``backend="fused"``: the layer's in-memory files go through
   ``ChunkDigestEngine(backend="fused").process_many``: the device full path
@@ -13,20 +13,38 @@ reference package's ``Pack``/``pack_layer`` for the options supported here:
   (candidate capacity overflow, a file beyond int32 addressing) falls to
   the engine's per-file windowed lane, still on the card, as the reference
   falls through to its per-file paths (converter/stream.py:1051-1075).
+  The fused path is CDC only: ``chunking="fixed"`` takes the per-file path.
 - ``backend="jax"``: the reference's windowed device lane. Each file is
   cut by ``ChunkDigestEngine.boundaries`` (kernel K1 per file) and its
   chunks are digested on the card in 32 MiB batches (kernel K2), one batch
   in flight while the host cuts the next files.
 - ``backend="numpy"``: the host oracle, numpy CDC and ``hashlib``.
+- ``digest_backend``: ``"jax"`` digests every lane's batches on the card;
+  ``"host"`` digests the ``numpy`` and ``fused`` lanes' batches on the host
+  (the ``jax`` lane digests on the card whatever it says, as the
+  reference's does, converter/stream.py:790-797).
 - ``digester="sha256"`` or ``"blake3"``. BLAKE3 changes only the chunk
   digests in the bootstrap (the blob and its sha256 id stay the same). The
-  ``fused`` and ``jax`` lanes digest it on the card with kernel K4 where
-  SHA-256 takes K2; the ``numpy`` lane digests it on the host BLAKE3 arm.
-  (The reference's ``jax`` lane digests BLAKE3 on its host arm,
-  converter/stream.py:790-797, because its device batch kernel is SHA-256
-  only; the bytes are the same.)
-- ``compressor="none"``, ``chunking="cdc"``, RAFS v5 or v6. Every other
-  option value raises :class:`ConvertError`.
+  device digests take K4 where SHA-256 takes K2; host digests run on the
+  host BLAKE3 arm. (The reference's device digester is SHA-256 only and
+  digests BLAKE3 on its host arm; the bytes are the same.)
+- ``compressor`` ``"lz4_block"`` (the default, ``lz4_acceleration``),
+  ``"zstd"`` (level 3) or ``"none"``; ``batch_size`` packs chunks below it
+  into jointly compressed batches (``CHUNK_FLAG_BATCH``, batch records in
+  the bootstrap); ``aligned_chunk`` aligns each stored frame to 4096 bytes
+  on RAFS v5. Compression runs on the host, serially, in the dedup lane,
+  as in the reference's device lanes; zstd goes through the system libzstd
+  whenever it is bound (utils/zstd.py), never a bundled build.
+- ``prefetch_patterns`` fill the bootstrap's prefetch table;
+  ``chunk_dict_path`` (``bootstrap=<file>`` or a bare path, this package's
+  bootstrap layout) loads a chunk dict when none is passed.
+- RAFS v5 or v6.
+
+Refused with :class:`ConvertError`: ``backend="hybrid"`` (the native chunk
+engine is not ported), ``encrypt=True`` (the blob cipher is not ported)
+and chunk-dict services (``service://``, ``service+ha://``). A real nydus
+v5/v6 bootstrap as ``chunk_dict_path`` raises ``BootstrapError``
+(models/bootstrap.ChunkDict.from_path).
 
 A file-like ``src_tar`` streams: each member is read in 4 MiB segments
 through :class:`IncrementalChunker`, whose carry is bounded by the largest
@@ -43,6 +61,7 @@ import io
 import stat
 import tarfile
 from dataclasses import dataclass, field
+from time import perf_counter
 from typing import BinaryIO, Optional
 
 import numpy as np
@@ -50,16 +69,21 @@ import torch
 
 from nydus_snapshotter_tpu_torch import constants
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, PackOption
-from nydus_snapshotter_tpu_torch.models import fstree, nydus_tar, toc
+from nydus_snapshotter_tpu_torch.models import fstree, layout, nydus_tar, toc
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
+    CHUNK_FLAG_BATCH,
     BatchRecord,
     BlobRecord,
     Bootstrap,
+    ChunkDict,
     ChunkRecord,
     CipherRecord,
     Inode,
+    parse_chunk_dict_arg,
 )
-from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, HostDigester
+from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester, HostDigester
+from nydus_snapshotter_tpu_torch.utils import lz4
+from nydus_snapshotter_tpu_torch.utils import zstd as zstd_native
 
 SEGMENT_BYTES = 4 << 20  # tar read granularity
 DIGEST_BATCH_BYTES = 32 << 20  # chunk bytes per digest batch
@@ -106,22 +130,122 @@ class _CountingWriter:
         return self.pos
 
 
+def _make_compressor(compressor: str, lz4_accel: int = 1):
+    """One reusable codec per Pack: ``data -> (frame, chunk flag)``. The
+    reference's ``converter/convert._make_compressor`` without its adaptive
+    codec. zstd goes through the system libzstd when it is bound and
+    through the ``zstandard`` of utils/zstdcompat only when it is not."""
+    if compressor == "zstd":
+        if zstd_native.available():
+            return lambda data: (
+                zstd_native.compress_block(data, constants.ZSTD_LEVEL),
+                constants.COMPRESSOR_ZSTD,
+            )
+        from nydus_snapshotter_tpu_torch.utils.zstdcompat import zstandard
+
+        ctx = zstandard.ZstdCompressor(level=constants.ZSTD_LEVEL)
+        return lambda data: (ctx.compress(data), constants.COMPRESSOR_ZSTD)
+    if compressor == "lz4_block":
+        return lambda data: (lz4.compress_block(data, lz4_accel), constants.COMPRESSOR_LZ4_BLOCK)
+    return lambda data: (data, constants.COMPRESSOR_NONE)
+
+
+class _SectionWriter:
+    """Streams the image.blob data section: alignment, batch packing,
+    compression, hashing, extent accounting (the reference's
+    converter/stream.py:270-340, without encryption)."""
+
+    def __init__(self, out: _CountingWriter, opt: PackOption, compress):
+        self.out = out
+        self.compress = compress
+        self.align = 4096 if (opt.aligned_chunk and opt.fs_version == layout.RAFS_V5) else 1
+        self.batch_size = opt.batch_size
+        self.hasher = hashlib.sha256()
+        self.coff = 0  # current offset within the data section
+        self.extents: list[Optional[tuple[int, int, int]]] = []  # per unique chunk
+        self.batches: list[tuple[int, int, int]] = []  # (coff, uncomp_base, usize)
+        self._pending: list[tuple[int, bytes, int]] = []  # (uniq_idx, data, uoff)
+        self._pending_bytes = 0
+
+    def _write_raw(self, b) -> None:
+        self.hasher.update(b)
+        self.out.write(b)
+        self.coff += len(b)
+
+    def _emit(self, comp) -> int:
+        pad = (-self.coff) % self.align
+        if pad:
+            self._write_raw(b"\x00" * pad)
+        start = self.coff
+        self._write_raw(comp)
+        return start
+
+    def _flush_batch(self) -> None:
+        if not self._pending:
+            return
+        comp, cflag = self.compress(b"".join(d for _, d, _ in self._pending))
+        start = self._emit(comp)
+        for idx, _d, _u in self._pending:
+            self.extents[idx] = (start, len(comp), cflag | CHUNK_FLAG_BATCH)
+        self.batches.append((start, self._pending[0][2], self._pending_bytes))
+        self._pending = []
+        self._pending_bytes = 0
+
+    def add(self, uniq_idx: int, data, uoff: int) -> None:
+        """Store unique chunk ``uniq_idx`` (uncompressed offset ``uoff``);
+        unique chunks arrive in index order."""
+        assert uniq_idx == len(self.extents)
+        self.extents.append(None)
+        if self.batch_size and len(data) < self.batch_size:
+            if self._pending_bytes + len(data) > self.batch_size:
+                self._flush_batch()
+            self._pending.append((uniq_idx, data, uoff))
+            self._pending_bytes += len(data)
+        else:
+            self._flush_batch()
+            comp, cflag = self.compress(data)
+            self.extents[uniq_idx] = (self._emit(comp), len(comp), cflag)
+
+    def finish(self) -> None:
+        self._flush_batch()
+
+
+def match_prefetch_paths(inodes, patterns: str) -> list[str]:
+    """Resolve prefetch patterns to regular-file inode paths, hint order.
+
+    Reference semantics (--prefetch-files, one path per line,
+    daemon_adaptor.go:179-185): each line names a file or a directory
+    prefix; directories expand to every regular file beneath them. Unknown
+    patterns are skipped (hints, not requirements).
+    """
+    wanted: list[str] = []
+    seen: set[str] = set()
+    lines = [ln.strip() for ln in patterns.splitlines() if ln.strip()]
+    reg_paths = [i.path for i in inodes if stat.S_ISREG(i.mode)]
+    for line in lines:
+        norm = "/" + line.strip("/") if line != "/" else "/"
+        prefix = norm if norm == "/" else norm + "/"
+        for path in reg_paths:
+            if (path == norm or path.startswith(prefix)) and path not in seen:
+                seen.add(path)
+                wanted.append(path)
+    return wanted
+
+
 def _check_options(opt: PackOption) -> None:
     opt.validate()
-    refused = {
-        "backend": opt.backend not in ("fused", "jax", "numpy"),
-        "compressor": opt.compressor != "none",
-        "chunking": opt.chunking != "cdc",
-        "digest_backend": opt.digest_backend != "",
-        "batch_size": opt.batch_size != 0,
-        "encrypt": opt.encrypt,
-        "aligned_chunk": opt.aligned_chunk,
-        "prefetch_patterns": opt.prefetch_patterns != "",
-        "chunk_dict_path": opt.chunk_dict_path != "",
-    }
-    bad = [f"{k}={getattr(opt, k)!r}" for k, v in refused.items() if v]
-    if bad:
-        raise ConvertError(f"Pack does not support {', '.join(bad)}")
+    refused = []
+    if opt.backend not in ("fused", "jax", "numpy"):
+        refused.append(f"backend={opt.backend!r} (the native chunk engine is not ported)")
+    if opt.encrypt:
+        refused.append("encrypt=True (the blob cipher, converter/crypto.py, is not ported)")
+    if opt.chunk_dict_path.startswith(("service://", "service+ha://")):
+        refused.append(
+            f"chunk_dict_path={opt.chunk_dict_path!r} (chunk-dict services, "
+            "parallel/dict_service.py, are not ported)"
+        )
+    if refused:
+        raise ConvertError(f"Pack does not support {'; '.join(refused)}")
 
 
 class IncrementalChunker:
@@ -140,6 +264,7 @@ class IncrementalChunker:
             chunk_size=opt.chunk_size,
             mode=opt.chunking,
             backend=opt.backend,
+            digest_backend=opt.digest_backend or None,
             digester=opt.digester,
             device=device,
         )
@@ -191,22 +316,36 @@ def Pack(
     opt: PackOption,
     chunk_dict=None,
     device: "str | torch.device | None" = None,
+    stats: "Optional[dict]" = None,
 ) -> PackResult:
     """Stream one OCI layer tar into a nydus blob written to ``dest``.
 
     ``src_tar`` is the whole tar in memory (bytes) or a file-like object,
     read once, front to back. ``chunk_dict`` is a loaded dict object
     (models/bootstrap.ChunkDict or anything with its
-    get/blob_id_for/bootstrap interface). ``device`` is where the device
-    backends run (CUDA unless ``"cpu"`` is asked for).
+    get/blob_id_for/bootstrap interface); ``opt.chunk_dict_path`` is the
+    file-based fallback. ``device`` is where the device backends run (CUDA
+    unless ``"cpu"`` is asked for).
+
+    ``stats``: optional dict that accumulates wall seconds per stage, with
+    the reference's keys, from the start of the tar walk: ``scan`` (tar
+    walk and metadata), ``chunk_digest`` (cuts and chunk digests: engine
+    and chunker calls, digest batch submit and collect), ``assemble``
+    (compression, blob append, blob digest), ``dedup`` (the rest of the
+    chunk lane: dedup, dict lookups, bookkeeping) and ``bootstrap``
+    (tables, serialization, TOC). Chunk-digest and assemble seconds are
+    timed where they are spent, during the walk too.
     """
     _check_options(opt)
+    if chunk_dict is None and opt.chunk_dict_path:
+        chunk_dict = ChunkDict.from_path(parse_chunk_dict_arg(opt.chunk_dict_path))
     shared = IncrementalChunker(opt, device=device)
     engine = shared._engine
-    # The engine's device digester (K2, or K4 for BLAKE3) for the device
-    # backends: no path finishes on the host under a device backend's name.
-    if engine.device_digester is not None:
-        digester = engine.device_digester
+    # Device digests (K2, or K4 for BLAKE3) for the jax lane whatever
+    # digest_backend says, and wherever the engine's digest backend is the
+    # device's (the fused lane's default, or digest_backend="jax").
+    if opt.backend == "jax" or engine.digest_backend == "jax":
+        digester = engine.device_digester or DeviceDigester(engine.device or device, opt.digester)
     else:
         digester = HostDigester(opt.digester)
     raw: Optional[memoryview] = None
@@ -214,7 +353,7 @@ def Pack(
         raw = memoryview(src_tar)
         src_tar = io.BytesIO(src_tar)
     out = _CountingWriter(dest)
-    blob_hash = hashlib.sha256()
+    section = _SectionWriter(out, opt, _make_compressor(opt.compressor, opt.lz4_acceleration))
 
     metas: dict[str, _Meta] = {}
     opaque_dirs: list[str] = []
@@ -223,7 +362,6 @@ def Pack(
     # Dedup state (chunk order = tar order; deterministic).
     own_chunks: dict[bytes, int] = {}
     uncomp_offsets: list[int] = []
-    extents: list[tuple[int, int, int]] = []  # (coff, csize, flags) per unique chunk
     uoff = 0
     dict_hits: dict[bytes, ChunkRecord] = {}
     dict_blobs_used: list[str] = []
@@ -232,9 +370,10 @@ def Pack(
     pending: list[tuple[_Meta, memoryview]] = []
     pending_bytes = 0
     in_flight = None
+    t_chunk = t_asm = 0.0  # stage seconds timed at their call sites
 
     def _process(batch: list[tuple[_Meta, memoryview]], digests: list[bytes]) -> None:
-        nonlocal uoff
+        nonlocal uoff, t_asm
         for (meta, data), digest in zip(batch, digests):
             ref = _ChunkRef(digest=digest, size=len(data))
             if chunk_dict is not None and digest not in dict_hits and digest not in own_chunks:
@@ -252,23 +391,27 @@ def Pack(
                     idx = len(uncomp_offsets)
                     own_chunks[digest] = idx
                     uncomp_offsets.append(uoff)
-                    # compressor "none": the stored frame is the chunk itself
-                    extents.append((out.tell(), len(data), constants.COMPRESSOR_NONE))
-                    out.write(data)
-                    blob_hash.update(data)
+                    t0 = perf_counter()
+                    section.add(idx, data, uoff)
+                    t_asm += perf_counter() - t0
                     uoff += len(data)
                 ref.uniq_idx = idx
             meta.chunks.append(ref)
 
     def _dispatch() -> None:
-        nonlocal pending, pending_bytes, in_flight
+        nonlocal pending, pending_bytes, in_flight, t_chunk
         if in_flight is not None:
             handle, batch = in_flight
             in_flight = None
-            _process(batch, digester.collect(handle))
+            t0 = perf_counter()
+            digests = digester.collect(handle)
+            t_chunk += perf_counter() - t0
+            _process(batch, digests)
         if pending:
             items = [(np.frombuffer(d, dtype=np.uint8), 0, len(d)) for _m, d in pending]
+            t0 = perf_counter()
             in_flight = (digester.submit(items), pending)
+            t_chunk += perf_counter() - t0
             pending, pending_bytes = [], 0
 
     def _add_chunk(meta: _Meta, data) -> None:
@@ -279,6 +422,7 @@ def Pack(
             _dispatch()
 
     def walk_member(tf: tarfile.TarFile, info: tarfile.TarInfo) -> None:
+        nonlocal t_chunk
         path = fstree.norm_path(info.name)
         special = fstree.classify_special(path)
         if special is not None:
@@ -310,11 +454,18 @@ def Pack(
             seg = f.read(SEGMENT_BYTES)
             if not seg:
                 break
-            for chunk in chunker.feed(seg):
+            t0 = perf_counter()
+            chunks = chunker.feed(seg)
+            t_chunk += perf_counter() - t0
+            for chunk in chunks:
                 _add_chunk(meta, chunk)
-        for chunk in chunker.finish():
+        t0 = perf_counter()
+        chunks = chunker.finish()
+        t_chunk += perf_counter() - t0
+        for chunk in chunks:
             _add_chunk(meta, chunk)
 
+    t_walk = perf_counter()
     try:
         # random access for in-memory layers, one pass for a stream
         tf = tarfile.open(fileobj=src_tar, mode="r:" if raw is not None else "r|")
@@ -326,13 +477,17 @@ def Pack(
                 walk_member(tf, info)
         except tarfile.TarError as e:
             raise ConvertError(f"bad layer tar: {e}") from e
+    t_lane = perf_counter()
+    walk_chunk, walk_asm = t_chunk, t_asm
 
-    if plan and opt.backend == "fused":
+    if plan and opt.backend == "fused" and opt.chunking == "cdc":
         # The whole layer through the engine's device full path, which falls
         # to its per-file windowed lane on FusedOverflow.
         arr_all = np.frombuffer(raw, dtype=np.uint8)
         fallbacks = engine.stats["fused_fallbacks"]
+        t0 = perf_counter()
         per_file = engine.process_many([arr_all[off : off + size] for _m, off, size in plan])
+        t_chunk += perf_counter() - t0
         if engine.stats["fused_fallbacks"] > fallbacks:
             # The reference's per-file lane queues these chunks behind the
             # walk's streamed ones (converter/stream.py:1198-1221): store
@@ -346,13 +501,20 @@ def Pack(
             )
         plan = []
     for meta, off, size in plan:
-        for chunk in shared.chunk_whole(raw[off : off + size]):
+        t0 = perf_counter()
+        chunks = shared.chunk_whole(raw[off : off + size])
+        t_chunk += perf_counter() - t0
+        for chunk in chunks:
             _add_chunk(meta, chunk)
     _dispatch()  # collects the batch in flight, submits the rest
     _dispatch()  # collects the rest
+    t0 = perf_counter()
+    section.finish()
+    t_end = perf_counter()
+    t_asm += t_end - t0
 
-    blob_size = out.tell()
-    blob_id = blob_hash.hexdigest() if blob_size else ""
+    blob_size = section.coff
+    blob_id = section.hasher.hexdigest() if blob_size else ""
     if blob_size:
         out.write(nydus_tar.make_header(toc.ENTRY_BLOB_DATA, blob_size))
 
@@ -381,6 +543,8 @@ def Pack(
             )
         )
         cipher_table.append(CipherRecord())
+        for coff_b, base_u, usize in section.batches:
+            batch_table.append(BatchRecord(0, coff_b, base_u, usize))
     for bid in dict_blobs_used:
         new_idx = len(blob_table)
         blob_index_of[bid] = new_idx
@@ -429,7 +593,7 @@ def Pack(
                         )
                     )
                 else:
-                    coff_c, csize, cflag = extents[ref.uniq_idx]
+                    coff_c, csize, cflag = section.extents[ref.uniq_idx]
                     chunk_records.append(
                         ChunkRecord(
                             digest=ref.digest,
@@ -451,7 +615,7 @@ def Pack(
         blobs=blob_table,
         ciphers=cipher_table if any(c.algo for c in cipher_table) else [],
         batches=batch_table,
-        prefetch=[],
+        prefetch=match_prefetch_paths(inodes, opt.prefetch_patterns) if opt.prefetch_patterns else [],
     )
     boot_bytes = bootstrap.to_bytes()
 
@@ -461,7 +625,7 @@ def Pack(
             toc.TOCEntry(
                 name=toc.ENTRY_BLOB_DATA,
                 flags=constants.COMPRESSOR_NONE,
-                uncompressed_digest=blob_hash.digest(),
+                uncompressed_digest=section.hasher.digest(),
                 compressed_offset=0,
                 compressed_size=blob_size,
                 uncompressed_size=blob_size,
@@ -484,6 +648,16 @@ def Pack(
     out.write(toc_bytes)
     out.write(nydus_tar.make_header(toc.ENTRY_BLOB_TOC, len(toc_bytes)))
 
+    if stats is not None:
+        for key, s in (
+            ("scan", t_lane - t_walk - walk_chunk - walk_asm),
+            ("chunk_digest", t_chunk),
+            ("dedup", t_end - t_lane - (t_chunk - walk_chunk) - (t_asm - walk_asm)),
+            ("assemble", t_asm),
+            ("bootstrap", perf_counter() - t_end),
+        ):
+            stats[key] = stats.get(key, 0.0) + s
+
     return PackResult(
         blob_id=blob_id,
         blob_size=blob_size,
@@ -497,8 +671,9 @@ def pack_layer(
     opt: PackOption,
     chunk_dict=None,
     device: "str | torch.device | None" = None,
+    stats: "Optional[dict]" = None,
 ) -> tuple[bytes, PackResult]:
     """Pack to bytes -> (framed layer blob, PackResult)."""
     dest = io.BytesIO()
-    res = Pack(dest, src_tar, opt, chunk_dict=chunk_dict, device=device)
+    res = Pack(dest, src_tar, opt, chunk_dict=chunk_dict, device=device, stats=stats)
     return dest.getvalue(), res

@@ -1,8 +1,8 @@
 """Converter option surface — semantic parity with reference types.go:58-90.
 
-A copy of the reference package's ``PackOption`` and ``ConvertError``;
-converter/pack.py states which options this package's ``Pack`` supports
-and refuses the rest."""
+A copy of the reference package's ``PackOption`` and ``ConvertError``, with
+its defaults; converter/pack.py states which option values this package's
+``Pack`` refuses."""
 
 from __future__ import annotations
 
@@ -23,17 +23,20 @@ class PackOption:
     Field semantics follow reference PackOption (pkg/converter/types.go:58-90);
     fields that configured the external builder binary are replaced by engine
     selection knobs (``backend``, ``chunking``). The fields the reference's
-    ``pack_layer`` never reads (work_dir, oci_ref, timeout) and the lz4
-    acceleration knob are left out.
+    ``pack_layer`` never reads (work_dir, oci_ref, timeout) are left out.
     """
 
     fs_version: str = layout.RAFS_V6
     chunk_dict_path: str = ""
     prefetch_patterns: str = ""
-    # The reference defaults to lz4_block; this package packs "none" only
-    # so far (the lz4/zstd lanes are host codecs not ported yet), so that
-    # is its default.
-    compressor: str = "none"  # "none" | "zstd" | "lz4_block"
+    # lz4_block, the reference's default (the legacy v5 blob default;
+    # modern nydus-image defaults to zstd). Chunks compress on the host
+    # through the system liblz4/libzstd (utils/lz4.py, utils/zstd.py).
+    compressor: str = "lz4_block"  # "none" | "zstd" | "lz4_block"
+    # LZ4 acceleration (liblz4 LZ4_compress_fast): 1 = default-codec
+    # output (max ratio); each step up trades ratio for speed.
+    # Deterministic for a fixed value.
+    lz4_acceleration: int = 1
     aligned_chunk: bool = False
     chunk_size: int = constants.CHUNK_SIZE_DEFAULT
     batch_size: int = 0
@@ -45,8 +48,10 @@ class PackOption:
     # and is refused by this package's Pack.
     backend: str = "fused"
     chunking: str = "cdc"  # "cdc" | "fixed"
-    # "" = engine default for the backend (the only value pack_layer takes
-    # here; the reference also has "host" and "jax").
+    # "" = engine default for the backend; "jax" routes chunk digests
+    # through the device digester (K2, or K4 for BLAKE3) while boundaries
+    # stay with the backend; "host" digests on the host where the
+    # reference does (converter/pack.py).
     digest_backend: str = ""
     # Chunk-digest algorithm (reference `nydus-image --digester`,
     # RafsSuperFlags 0x4 blake3 / 0x8 sha256): it changes the chunk digests
@@ -60,6 +65,10 @@ class PackOption:
             raise ConvertError(f"invalid fs version {self.fs_version!r}")
         if self.compressor not in ("none", "zstd", "lz4_block"):
             raise ConvertError(f"unsupported compressor {self.compressor!r}")
+        if not 1 <= self.lz4_acceleration <= 65537:
+            raise ConvertError(
+                f"lz4 acceleration {self.lz4_acceleration} out of range [1, 65537]"
+            )
         cs = self.chunk_size
         if cs & (cs - 1) or not (constants.CHUNK_SIZE_MIN <= cs <= constants.CHUNK_SIZE_MAX):
             raise ConvertError(

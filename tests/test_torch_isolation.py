@@ -40,6 +40,19 @@ _CHILD = textwrap.dedent(
         ti = tarfile.TarInfo("f"); ti.size = 3; tf.addfile(ti, io.BytesIO(b"abc"))
     pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000), device="cpu")
     pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, backend="jax"), device="cpu")
+    # the compressed lanes: lz4_block (the default, above) and zstd with the
+    # rest of the option surface
+    import os, tempfile
+    _b, res = pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, compressor="zstd",
+                                                     batch_size=0x1000), device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dict.boot")
+        open(path, "wb").write(res.bootstrap)
+        for backend in ("fused", "jax", "numpy"):
+            _b, r2 = pack_layer(buf.getvalue(), PackOption(
+                chunk_size=0x1000, backend=backend, compressor="zstd", prefetch_patterns="/f",
+                chunk_dict_path="bootstrap=" + path), device="cpu")
+            assert r2.referenced_blob_ids == [res.blob_id]
     metas = ChunkDigestEngine(chunk_size=0x1000, device="cpu").process_many([data, b"abc"])
     assert [m.digest for m in metas[1]] == [hashlib.sha256(b"abc").digest()]
     from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
@@ -86,10 +99,12 @@ def test_main_path_imports_neither_jax_nor_reference():
         lambda: DeviceDigester(digester="blake3"),
         lambda: pack_layer(b"", PackOption(digester="blake3")),
         lambda: pack_layer(b"", PackOption(backend="jax", digester="blake3")),
+        lambda: pack_layer(b"", PackOption(backend="jax", compressor="zstd")),
     ],
     ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
          "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
-         "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3"],
+         "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3",
+         "pack_layer_jax_zstd"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():

@@ -1,8 +1,10 @@
 """pack_layer of the PyTorch port against the JAX package's.
 
 The layer tar of the reference's fused pack-lane test (file sizes 0 to
-400 000 bytes and a symlink) is packed by both packages, for both of the
-port's backends: the framed layer blob, the bootstrap and the blob id must
+400 000 bytes and a symlink) is packed by both packages, for each of the
+port's backends and for the reference's option surface (compressors,
+batching, alignment, prefetch, file-based chunk dicts, fixed chunking,
+digest backends): the framed layer blob, the bootstrap and the blob id must
 be byte-identical.
 """
 
@@ -12,11 +14,14 @@ import tarfile
 import numpy as np
 import pytest
 
+from nydus_snapshotter_tpu.converter.convert import Unpack as j_unpack
+from nydus_snapshotter_tpu.converter.convert import blob_data_from_layer_blob
 from nydus_snapshotter_tpu.converter.convert import pack_layer as j_pack_layer
 from nydus_snapshotter_tpu.converter.stream import IncrementalChunker as JIncrementalChunker
 from nydus_snapshotter_tpu.converter.types import PackOption as JPackOption
 from nydus_snapshotter_tpu.models.bootstrap import Bootstrap as JBootstrap
 from nydus_snapshotter_tpu.models.bootstrap import ChunkDict as JChunkDict
+from nydus_snapshotter_tpu.models.nydus_real_write import real_from_bootstrap, write_real_v6
 from nydus_snapshotter_tpu.ops import cdc as jcdc
 from nydus_snapshotter_tpu.ops import fused_convert as jfc
 from nydus_snapshotter_tpu_torch.converter import (
@@ -26,8 +31,14 @@ from nydus_snapshotter_tpu_torch.converter import (
     PackOption,
     pack_layer,
 )
+from nydus_snapshotter_tpu_torch import constants
 from nydus_snapshotter_tpu_torch.models import layout
-from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap, ChunkDict
+from nydus_snapshotter_tpu_torch.models.bootstrap import (
+    CHUNK_FLAG_BATCH,
+    Bootstrap,
+    BootstrapError,
+    ChunkDict,
+)
 from nydus_snapshotter_tpu_torch.ops import fused_convert
 
 
@@ -258,27 +269,204 @@ class TestStreamingPack:
         assert blob == jblob and res.bootstrap == jres.bootstrap
 
 
+def _assert_same(got, want):
+    blob, res = got
+    jblob, jres = want
+    assert blob == jblob
+    assert res.bootstrap == jres.bootstrap
+    assert res.blob_id == jres.blob_id and res.blob_size == jres.blob_size
+    assert res.referenced_blob_ids == jres.referenced_blob_ids
+
+
+def _pack_both(tar, backend, ref_backend=None, chunk_dict=None, jchunk_dict=None, **kw):
+    """The port's ``pack_layer`` on the CPU and the reference's, with the
+    same options -> the port's (blob, result) after checking equality."""
+    got = pack_layer(tar, PackOption(backend=backend, **kw), chunk_dict=chunk_dict, device="cpu")
+    _assert_same(
+        got, j_pack_layer(tar, JPackOption(backend=ref_backend or backend, **kw), chunk_dict=jchunk_dict)
+    )
+    return got
+
+
+# Small chunks keep the plain SHA-256 of the device lanes quick on the CPU.
+SMALL = dict(chunk_size=0x1000)
+BACKENDS = ["fused", "jax", "numpy"]
+
+
+@pytest.fixture(scope="module")
+def small_tar():
+    return _layer_tar(seed=7, files=8)
+
+
+def _third_tar(seed: int = 7, files: int = 8) -> bytes:
+    """Every third file of ``_layer_tar(seed, files)``: a chunk-dict source."""
+    src = tarfile.open(fileobj=io.BytesIO(_layer_tar(seed, files)))
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        for i, m in enumerate(m for m in src if m.isreg()):
+            if i % 3 == 0:
+                tf.addfile(m, src.extractfile(m))
+    return buf.getvalue()
+
+
+class TestCompressedPack:
+    @pytest.mark.parametrize("fs_version", [layout.RAFS_V6, layout.RAFS_V5])
+    @pytest.mark.parametrize("backend", BACKENDS)
+    @pytest.mark.parametrize("compressor", ["lz4_block", "zstd"])
+    def test_matches_reference(self, small_tar, compressor, backend, fs_version):
+        _blob, res = _pack_both(small_tar, backend, compressor=compressor, fs_version=fs_version, **SMALL)
+        flags = {c.flags for c in Bootstrap.from_bytes(res.bootstrap).chunks}
+        want = constants.COMPRESSOR_ZSTD if compressor == "zstd" else constants.COMPRESSOR_LZ4_BLOCK
+        assert flags == {want}
+
+    def test_default_is_lz4_block(self, small_tar):
+        assert PackOption().compressor == JPackOption().compressor == "lz4_block"
+        _pack_both(small_tar, "numpy", **SMALL)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_zstd_blake3_matches_reference(self, backend):
+        # the reference's numpy lane: its fused lane compiles the XLA
+        # BLAKE3, and every lane packs the same bytes
+        tar = _layer_tar(seed=11, files=4)
+        _pack_both(tar, backend, ref_backend="numpy", compressor="zstd", digester="blake3", **SMALL)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_lz4_acceleration_matches_reference(self, small_tar, backend):
+        _pack_both(small_tar, backend, compressor="lz4_block", lz4_acceleration=8, **SMALL)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_batch_align_prefetch_together(self, small_tar, backend):
+        """Batches (flushed before every chunk at or above batch_size, 8 KiB here),
+        4096-byte alignment on v5 and the prefetch table, at once."""
+        _blob, res = _pack_both(
+            small_tar, backend, compressor="zstd", batch_size=0x2000, aligned_chunk=True,
+            fs_version=layout.RAFS_V5, prefetch_patterns="/d/f3\n/d\n/nothing", **SMALL,
+        )
+        boot = Bootstrap.from_bytes(res.bootstrap)
+        assert boot.batches and boot.prefetch[0] == "/d/f3"
+        assert any(c.flags & CHUNK_FLAG_BATCH for c in boot.chunks)
+        assert all(c.compressed_offset % 4096 == 0 for c in boot.chunks)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_chunk_dict_path_matches_reference(self, tmp_path, small_tar, backend):
+        """``chunk_dict_path="bootstrap=<file>"``: the bootstrap of a batched
+        pack of a third of the files; its hits, blob and batch records go
+        into the new bootstrap as the reference puts them."""
+        _dblob, dres = j_pack_layer(
+            _third_tar(), JPackOption(backend="numpy", compressor="zstd", batch_size=0x2000, **SMALL)
+        )
+        path = tmp_path / "dict.boot"
+        path.write_bytes(dres.bootstrap)
+        _blob, res = _pack_both(
+            small_tar, backend, compressor="zstd", chunk_dict_path=f"bootstrap={path}", **SMALL
+        )
+        assert res.referenced_blob_ids[1:] == [dres.blob_id]
+        boot = Bootstrap.from_bytes(res.bootstrap)
+        assert any(b.blob_index == 1 for b in boot.batches)
+        # a passed dict takes the place of the path, as in the reference
+        _pack_both(
+            small_tar, backend, compressor="zstd", chunk_dict_path="/nonexistent",
+            chunk_dict=ChunkDict(Bootstrap.from_bytes(dres.bootstrap)),
+            jchunk_dict=JChunkDict(JBootstrap.from_bytes(dres.bootstrap)), **SMALL,
+        )
+
+    def test_real_bootstrap_dict_raises(self, tmp_path, small_tar):
+        """A real nydus v6 bootstrap as the dict: the reference reads it,
+        the port does not yet and says so."""
+        # v6's fixed chunk grid: the real layout carries no CDC chunks
+        _b, jres = j_pack_layer(small_tar, JPackOption(backend="numpy", chunking="fixed", **SMALL))
+        path = tmp_path / "real.boot"
+        path.write_bytes(write_real_v6(real_from_bootstrap(JBootstrap.from_bytes(jres.bootstrap))))
+        opt = dict(chunk_dict_path=f"bootstrap={path}", **SMALL)
+        j_pack_layer(small_tar, JPackOption(backend="numpy", **opt))
+        with pytest.raises(BootstrapError, match="real nydus"):
+            pack_layer(small_tar, PackOption(backend="numpy", **opt), device="cpu")
+
+    def test_streaming_pack_zstd(self):
+        """The file-like ``Pack`` compresses as the in-memory walk does."""
+        tar = _overflow_tar(files=3)
+        opt = dict(compressor="zstd", batch_size=0x2000, **SMALL)
+        out = io.BytesIO()
+        res = Pack(out, io.BytesIO(tar), PackOption(backend="jax", **opt), device="cpu")
+        _assert_same((out.getvalue(), res), j_pack_layer(tar, JPackOption(backend="jax", **opt)))
+        _assert_same((out.getvalue(), res), pack_layer(tar, PackOption(backend="jax", **opt), device="cpu"))
+
+    @pytest.mark.parametrize("make_tar", [_overflow_tar, _sparse_tar], ids=["plain", "sparse"])
+    def test_fused_fallback_zstd(self, monkeypatch, make_tar):
+        """The fused lane forced onto its fallback stores the walk's
+        streamed chunks first, into the same batches as the reference."""
+        tar = make_tar()
+        monkeypatch.setattr(jfc, "_wcap_for", lambda n, bits, floor=1024: 2)
+        monkeypatch.setattr(fused_convert, "_wcap_for", lambda n, bits, floor=1024: 2)
+        _pack_both(tar, "fused", compressor="zstd", batch_size=0x2000, **SMALL)
+
+    def test_reference_unpacks_port_zstd_blob(self, small_tar):
+        blob, res = pack_layer(
+            small_tar, PackOption(backend="fused", compressor="zstd", batch_size=0x2000, **SMALL),
+            device="cpu",
+        )
+        out = j_unpack(res.bootstrap, {res.blob_id: blob_data_from_layer_blob(blob)})
+        src = tarfile.open(fileobj=io.BytesIO(small_tar))
+        got = tarfile.open(fileobj=io.BytesIO(out))
+        want = {m.name: src.extractfile(m).read() for m in src if m.isreg()}
+        back = {m.name.lstrip("/"): got.extractfile(m).read() for m in got if m.isreg()}
+        assert back == want
+
+    def test_stats_split(self, small_tar):
+        """``stats`` gets the reference's stage keys and accumulates."""
+        opt = PackOption(backend="jax", compressor="zstd", **SMALL)
+        stats = {}
+        pack_layer(small_tar, opt, device="cpu", stats=stats)
+        first = dict(stats)
+        pack_layer(small_tar, opt, device="cpu", stats=stats)
+        assert set(stats) == {"scan", "chunk_digest", "dedup", "assemble", "bootstrap"}
+        assert all(0 <= first[k] < stats[k] for k in stats) and first["assemble"] > 0
+
+
 class TestPackOptions:
     @pytest.mark.parametrize(
         "kw",
         [
-            {"compressor": "lz4_block"},
-            {"compressor": "zstd"},
-            {"backend": "hybrid"},
-            {"digest_backend": "jax"},
-            {"chunking": "fixed"},
-            {"digester": "md5"},
-            {"batch_size": 0x10000},
-            {"encrypt": True},
-            {"aligned_chunk": True},
-            {"prefetch_patterns": "/d"},
-            {"chunk_dict_path": "/nonexistent"},
-            {"digest_backend": "host"},
+            pytest.param({"compressor": "lz4_block"}, id="kw0"),
+            pytest.param({"compressor": "zstd"}, id="kw1"),
+            pytest.param({"digest_backend": "jax"}, id="kw3"),
+            pytest.param({"chunking": "fixed"}, id="kw4"),
+            pytest.param({"batch_size": 0x2000}, id="kw6"),
+            pytest.param({"aligned_chunk": True, "fs_version": layout.RAFS_V5}, id="kw8"),
+            pytest.param({"prefetch_patterns": "/d"}, id="kw9"),
+            pytest.param({"digest_backend": "host"}, id="kw11"),
+        ],
+    )
+    def test_option_matches_reference(self, small_tar, kw):
+        """Options that test_unsupported_options_raise refused before they
+        were ported (same ids): every lane packs the reference's bytes."""
+        for backend in BACKENDS:
+            _pack_both(small_tar, backend, **{"compressor": "none", **SMALL, **kw})
+
+    @pytest.mark.parametrize(
+        "kw",
+        [
+            pytest.param({"backend": "hybrid"}, id="kw2"),
+            pytest.param({"digester": "md5"}, id="kw5"),
+            pytest.param({"encrypt": True}, id="kw7"),
+            pytest.param({"chunk_dict_path": "/nonexistent"}, id="kw10"),
+            pytest.param({"chunk_dict_path": "service:///run/dict.sock#ns"}, id="service"),
+            pytest.param({"chunk_dict_path": "service+ha:///run/ctl.sock"}, id="service_ha"),
+            pytest.param({"lz4_acceleration": 0}, id="lz4_acceleration"),
         ],
     )
     def test_unsupported_options_raise(self, kw):
-        with pytest.raises(ConvertError):
-            pack_layer(_layer_tar(files=1), PackOption(**{"compressor": "none", **kw}), device="cpu")
+        """Refused options raise ConvertError; a missing dict file raises
+        what the reference raises there."""
+        tar = _layer_tar(files=1)
+        want = ConvertError
+        if kw.get("chunk_dict_path") == "/nonexistent":
+            with pytest.raises(Exception) as ref:
+                j_pack_layer(tar, JPackOption(**{"compressor": "none", **kw}))
+            want = type(ref.value)
+            assert want is FileNotFoundError
+        with pytest.raises(want):
+            pack_layer(tar, PackOption(**{"compressor": "none", **kw}), device="cpu")
 
     def test_bad_tar_raises(self):
         with pytest.raises(ConvertError):
