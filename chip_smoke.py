@@ -124,7 +124,31 @@ Phases (any failure exits non-zero; nothing is caught):
    pure-Python BLAKE3 would take ~11 minutes over this tar); dict hits,
    own and dict batch records and the prefetch table present; every
    frame, of the pack's blob and of the dict's, decompresses to the tar's
-   bytes, and every BLAKE3 digest equals the plain version's on the card.
+   bytes, and every BLAKE3 digest equals the plain version's on the card;
+11. growth and the dict service — (a) phase 6's dict (the native build)
+   grows by tools/registry_scale.py's 2,000,000-digest growth batch (the
+   workload generator's next draws): indices n .. n + 2M - 1; then every
+   ``lookup_u32`` launches K3 once; phase 6's 2M queries answer as before,
+   grow[:1000] answers arange(n, n + 1000), and a grow[::41] + 50,000-random
+   sample equals a fresh native build over the concatenation, probed with
+   K3; save -> load (mmap) answers identically; a second insert of 100,000,
+   ``save_incremental`` -> {"mode": "append", "appended": 100000}, load with
+   the tail replayed answers identically, and ``entries_since`` the epoch
+   before it returns exactly that batch; two restages (one per mutation a
+   probe followed). Printed: insert, restage, first lookup after it, median
+   of 5 lookups, the fresh build, save, load, incremental save; the files
+   live in a temporary directory, removed at the end. (b) a ``DictService``
+   on the card over a unix socket: merges of the bootstrap of a fused
+   SHA-256 pack of every third file of phase 4's tar (median of 3, each into
+   a fresh namespace), one ``DictClient.probe`` of every chunk digest of
+   phase 4's tar (one K3 launch, answers equal to ``GrowingChunkDict``
+   positions; median of 3 after a checked RPC), and ``pack_layer(fused,
+   chunk_dict_path="service://<sock>#ns")`` equal, byte for byte, to the
+   pack with ``chunk_dict=GrowingChunkDict(seed=<that bootstrap>)`` (median
+   of 3 after the checked run). (c) phase 2's dict grown by the digests of
+   another third of the layer's files, then ``process_many`` with it: K3
+   once, every answer equal to the host probe of the grown table, every
+   inserted digest answering its assigned index.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -164,6 +188,10 @@ REGISTRY_SEED = 42
 REGISTRY_ENTRIES = 32_000_000
 REGISTRY_QUERIES = 2_000_000
 REGISTRY_SAMPLE = 65_536  # queries also checked against the host probe
+REGISTRY_GROW = 2_000_000  # tools/registry_scale.py's growth batch
+REGISTRY_GROW_Q_RANDOM = 50_000  # its grow[::41] sample's random half
+REGISTRY_SECOND = 100_000  # the batch save_incremental appends
+SERVICE_REPS = 3
 PLAIN_SLICE_QUERIES = 1 << 18  # the plain probe gathers [Q, depth, 8] per slice
 K3_EDGE_DEPTHS = (1, 15, 16, 17, 54, 64, 256)
 K3_FIRST_STEP = 16  # chain rows of K3's first step (csrc/probe.cu kFirstRows)
@@ -633,7 +661,8 @@ def round_cycles(probe) -> float:
 def registry_workload():
     """tools/registry_scale.py's dict and queries -> (digests u32[N,8],
     planted rows i64[M/2], queries u32[M,8]: the planted rows' digests, then
-    random digests)."""
+    random digests; the generator, whose next draws are the tool's growth
+    batch)."""
     n, m = REGISTRY_ENTRIES, REGISTRY_QUERIES
     rng = np.random.default_rng(REGISTRY_SEED)
     digests = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
@@ -641,12 +670,14 @@ def registry_workload():
     queries = np.concatenate(
         [digests[hit_rows], rng.integers(0, 2**32, (m - m // 2, 8), dtype=np.uint32)]
     )
-    return digests, hit_rows, queries
+    return digests, hit_rows, queries, rng
 
 
-def registry_phase(dev, int_ops_per_s: float, sm_hz: float) -> dict:
+def registry_phase(dev, int_ops_per_s: float, sm_hz: float) -> tuple[dict, dict]:
     """Phase 6: K3 at registry scale, the JAX package's
-    tools/registry_scale.py deployment, through ``lookup_u32``."""
+    tools/registry_scale.py deployment, through ``lookup_u32`` -> (its
+    figures, and what phase 11 grows: the dict, its digests, the queries,
+    their answers and the workload's generator)."""
     import torch
 
     from nydus_snapshotter_tpu_torch.ops import probe_cuda
@@ -655,15 +686,14 @@ def registry_phase(dev, int_ops_per_s: float, sm_hz: float) -> dict:
 
     t0 = time.perf_counter()
     n, m = REGISTRY_ENTRIES, REGISTRY_QUERIES
-    digests, hit_rows, queries = registry_workload()
+    digests, hit_rows, queries, rng = registry_workload()
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cdict = sharded_dict.ShardedChunkDict(digests, device=dev)
     build_s = time.perf_counter() - t0
-    del digests
     keys, values, depth, _epoch = cdict.fused_probe_tables()
     t0 = time.perf_counter()
-    tk, tv = cdict.device_tables()
+    tk, tv, _cap, _depth = cdict.device_snapshot()
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
 
@@ -701,7 +731,7 @@ def registry_phase(dev, int_ops_per_s: float, sm_hz: float) -> dict:
     bound = k3_bound(m, st["rows"], st["hits"], int_ops_per_s)
     log(f"[6] registry dict: {n} digests (default_rng({REGISTRY_SEED})), {cdict.capacity} slots "
         f"({keys.nbytes >> 20} MiB of keys), max chain {depth}; generated in {gen_s:.1f} s, "
-        f"built in {build_s:.1f} s, padded and uploaded in {upload_s:.2f} s")
+        f"built in {build_s:.1f} s (native engine), padded and uploaded in {upload_s:.2f} s")
     log(f"[6] registry lookup_u32: {m} queries in one call, {launches} K3 launch; median "
         f"{lookup_s * 1e3:.3f} ms wall over {REPS} calls after a warm-up = "
         f"{m / lookup_s / 1e6:.2f} M queries/s (warm-up {first_s * 1e3:.3f} ms, runs: "
@@ -720,7 +750,7 @@ def registry_phase(dev, int_ops_per_s: float, sm_hz: float) -> dict:
         "chain_rows": st["rows"], "hits": st["hits"],
         "hits_in_first_step": st["hits_in_first_step"], "deepest_hit_row": st["deepest_hit_row"],
         "build_s": build_s, "upload_s": upload_s,
-    }
+    }, {"dict": cdict, "digests": digests, "queries": queries, "answers": got, "rng": rng}
 
 
 def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> dict:
@@ -1534,6 +1564,286 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def growth_phase(dev, grown: dict, kernels) -> dict:
+    """Phase 11a: the registry dict of phase 6 grown, saved, loaded and
+    saved incrementally, every lookup through K3."""
+    import tempfile
+
+    import torch
+
+    from nydus_snapshotter_tpu_torch.ops import probe_cuda
+    from nydus_snapshotter_tpu_torch.parallel import sharded_dict
+
+    cdict, digests, queries, answers, rng = (
+        grown[k] for k in ("dict", "digests", "queries", "answers", "rng"))
+    n = len(digests)
+    # tools/registry_scale.py's next draws: the growth batch, then the
+    # random half of its probe sample.
+    grow = rng.integers(0, 2**32, (REGISTRY_GROW, 8), dtype=np.uint32)
+    grow_q = np.concatenate(
+        [grow[::41], rng.integers(0, 2**32, (REGISTRY_GROW_Q_RANDOM, 8), dtype=np.uint32)])
+    second = rng.integers(0, 2**32, (REGISTRY_SECOND, 8), dtype=np.uint32)
+    launches = []
+
+    def lookup(d, q):  # one lookup_u32, its K3 launches recorded
+        kernels["probe"].launches = 0
+        got = d.lookup_u32(q)
+        launches.append(kernels["probe"].launches)
+        if launches[-1] != 1:
+            raise AssertionError(f"K3 launched {launches[-1]} times in one lookup_u32")
+        return got
+
+    restages0, depth0 = cdict.restages, cdict.max_depth
+    t = {}
+    t0 = time.perf_counter()
+    idx = cdict.insert_u32(grow)
+    t["insert_s"] = time.perf_counter() - t0
+    if not np.array_equal(idx, np.arange(n, n + REGISTRY_GROW)):
+        raise AssertionError("the growth batch was not given indices n .. n + 2M - 1")
+    t0 = time.perf_counter()
+    cdict.device_snapshot()
+    torch.cuda.synchronize()
+    t["restage_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = lookup(cdict, queries)
+    t["first_lookup_s"] = time.perf_counter() - t0
+    if not np.array_equal(got, answers):
+        raise AssertionError("phase 6's queries answer differently after the insert")
+    runs = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        again = lookup(cdict, queries)
+        runs.append(time.perf_counter() - t0)
+        if not np.array_equal(again, answers):
+            raise AssertionError("lookup_u32 answers differ between calls after the insert")
+    t["lookup_s"] = float(np.median(runs))
+    if not np.array_equal(lookup(cdict, grow[:1000]), np.arange(n, n + 1000)):
+        raise AssertionError("grow[:1000] does not answer arange(n, n + 1000)")
+    grown_q = lookup(cdict, grow_q)
+
+    t0 = time.perf_counter()
+    fresh = sharded_dict.ShardedChunkDict(np.concatenate([digests, grow]), device=dev)
+    t["fresh_build_s"] = time.perf_counter() - t0
+    fresh_cap, fresh_depth = fresh.capacity, fresh.max_depth
+    if not np.array_equal(lookup(fresh, grow_q), grown_q):
+        raise AssertionError("the grown dict differs from a fresh build over the concatenation")
+    del fresh
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "registry.dict")
+        t0 = time.perf_counter()
+        cdict.save(path)
+        t["save_s"] = time.perf_counter() - t0
+        file_mib = Path(path).stat().st_size / 2**20
+        t0 = time.perf_counter()
+        loaded = sharded_dict.ShardedChunkDict.load(path, device=dev)
+        t["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not (np.array_equal(lookup(loaded, queries), answers)
+                and np.array_equal(lookup(loaded, grow_q), grown_q)):
+            raise AssertionError("the loaded dict answers differently")
+        t["loaded_first_lookup_s"] = time.perf_counter() - t0
+        del loaded
+        torch.cuda.empty_cache()
+
+        epoch_before = cdict.epoch
+        t0 = time.perf_counter()
+        idx2 = cdict.insert_u32(second)
+        t["second_insert_s"] = time.perf_counter() - t0
+        base2 = n + REGISTRY_GROW
+        if not np.array_equal(idx2, np.arange(base2, base2 + REGISTRY_SECOND)):
+            raise AssertionError("the second batch was not given consecutive indices")
+        second_ans = lookup(cdict, second)
+        t0 = time.perf_counter()
+        inc = cdict.save_incremental(path)
+        t["save_incremental_s"] = time.perf_counter() - t0
+        if inc != {"mode": "append", "appended": REGISTRY_SECOND}:
+            raise AssertionError(f"save_incremental reported {inc}")
+        digs, vals, _epoch = cdict.entries_since(epoch_before)
+        if not (np.array_equal(digs, second) and np.array_equal(vals, idx2)):
+            raise AssertionError("entries_since(epoch before) is not exactly the second batch")
+        t0 = time.perf_counter()
+        reloaded = sharded_dict.ShardedChunkDict.load(path, device=dev)
+        t["tail_load_s"] = time.perf_counter() - t0
+        if not (np.array_equal(lookup(reloaded, queries), answers)
+                and np.array_equal(lookup(reloaded, grow_q), grown_q)
+                and np.array_equal(lookup(reloaded, second), second_ans)):
+            raise AssertionError("the dict loaded with its tail replayed answers differently")
+        del reloaded
+        torch.cuda.empty_cache()
+    restages = cdict.restages - restages0
+    if restages != 2:  # the growth batch and the second batch, each probed after
+        raise AssertionError(f"{restages} restages for 2 mutations that probes followed")
+    log(f"[11] growth: {REGISTRY_GROW} digests (tools/registry_scale.py's grow batch) into "
+        f"phase 6's {n}-entry dict: indices n .. n + {REGISTRY_GROW - 1}; insert "
+        f"{t['insert_s']:.3f} s (native upsert), max chain {depth0} -> {cdict.max_depth}; restage "
+        f"{t['restage_s']:.3f} s (pad + upload of {cdict.capacity} slots); first lookup_u32 after "
+        f"it {t['first_lookup_s'] * 1e3:.3f} ms, median of {REPS} {t['lookup_s'] * 1e3:.3f} ms "
+        f"(runs " + ", ".join(f"{x * 1e3:.3f}" for x in runs) + f" ms) = "
+        f"{len(queries) / t['lookup_s'] / 1e6:.2f} M queries/s; phase 6's {len(queries)} answers "
+        f"unchanged, grow[:1000] == arange(n, n + 1000), {len(grow_q)} sampled answers == a fresh "
+        f"native build over the concatenation ({fresh_cap} slots, max chain {fresh_depth}, built in "
+        f"{t['fresh_build_s']:.2f} s), probed with K3")
+    log(f"[11] persistence: save {t['save_s']:.2f} s ({file_mib:.0f} MiB), load (mmap) "
+        f"{t['load_s']:.3f} s, its first lookups {t['loaded_first_lookup_s']:.2f} s (restage from "
+        f"the map included), answers identical; second insert of {REGISTRY_SECOND} in "
+        f"{t['second_insert_s'] * 1e3:.1f} ms, save_incremental {inc} in "
+        f"{t['save_incremental_s'] * 1e3:.1f} ms, load with the tail replayed "
+        f"{t['tail_load_s']:.3f} s, answers identical; entries_since == the second batch; "
+        f"{restages} restages; K3 launches per lookup_u32 {sorted(set(launches))} over "
+        f"{len(launches)} calls")
+    return {"launches_per_lookup": sorted(set(launches)), "lookups": len(launches),
+            "restages": restages, "depth_before": depth0, "depth_after": cdict.max_depth,
+            "lookup_runs_ms": [x * 1e3 for x in runs], "file_mib": file_mib,
+            "fresh_capacity": fresh_cap, "fresh_depth": fresh_depth, **t}
+
+
+def fused_after_insert_phase(dev, eng, files, first, cdict, kernels) -> dict:
+    """Phase 11c: phase 2's fused process_many against its dict after an
+    insert_u32 of the digests of another third of the layer's files."""
+    keys_of = [np.frombuffer(b"".join(d), dtype=">u4").astype(np.uint32).reshape(-1, 8)
+               for i, d in enumerate(first.digests) if i % 3 == 1 and d]
+    extra = np.concatenate(keys_of)
+    epoch0 = cdict.epoch
+    t0 = time.perf_counter()
+    idx = cdict.insert_u32(extra)
+    insert_s = time.perf_counter() - t0
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = eng.process_many(files, chunk_dict=cdict)
+    wall_s = time.perf_counter() - t0
+    launches = {key: k.launches for key, k in kernels.items()}
+    if launches["probe"] != 1:
+        raise AssertionError(f"K3 launched {launches['probe']} times in process_many")
+    keys, values, depth, epoch = cdict.fused_probe_tables()
+    q_host = np.concatenate(
+        [np.frombuffer(b"".join(d), dtype=">u4").astype(np.uint32).reshape(-1, 8)
+         for d in res.digests if d])
+    want, _ = host_probe(keys, values, q_host, depth)
+    if not np.array_equal(res.probe, want):
+        raise AssertionError("probe answers after the insert differ from the host probe")
+    pos = {}
+    for d, v in zip(extra.view(np.dtype((np.void, 32)))[:, 0].tolist(), idx.tolist()):
+        pos.setdefault(d, v + 1)
+    got = dict(zip(q_host.view(np.dtype((np.void, 32)))[:, 0].tolist(), res.probe.tolist()))
+    if any(got.get(d, v) != v for d, v in pos.items()):
+        raise AssertionError("an inserted digest does not answer its assigned index")
+    hits = int((res.probe > 0).sum())
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = eng.process_many(files, chunk_dict=cdict)
+        runs.append(time.perf_counter() - t0)
+        if not np.array_equal(again.probe, res.probe):
+            raise AssertionError("probe answers differ between process_many calls")
+    log(f"[11] fused after insert: {len(extra)} digests of another third of the layer's files "
+        f"into phase 2's dict (epoch {epoch0} -> {epoch}, max chain {depth}) in "
+        f"{insert_s * 1e3:.1f} ms; process_many {wall_s:.3f} s (the dict's restage included), "
+        f"launches {launches}; {len(q_host)} probe answers == host probe of the grown table, "
+        f"{hits} hits, every inserted digest == its assigned index; median of 3 after it "
+        f"{np.median(runs):.3f} s (runs " + ", ".join(f"{x:.3f}" for x in runs) + " s)")
+    return {"launches": launches, "insert_s": insert_s, "wall_s": wall_s, "hits": hits,
+            "depth": depth, "median_s": float(np.median(runs)), "runs_s": runs}
+
+
+def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
+    """Phase 11b: a DictService on the card over a unix socket, probed with
+    one RPC and packed through with service://."""
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.converter.batch import GrowingChunkDict
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.parallel.dict_service import DictClient, DictService
+
+    src = tarfile.open(fileobj=io.BytesIO(tar))
+    regs = [m for m in src.getmembers() if m.isreg()]
+    third = io.BytesIO()
+    with tarfile.open(fileobj=third, mode="w", format=tarfile.GNU_FORMAT) as tf:
+        for m in regs[::3]:
+            tf.addfile(m, io.BytesIO(tar[m.offset_data:m.offset_data + m.size]))
+    opt = dict(chunk_size=CHUNK_SIZE, compressor="none")
+    _dblob, dres = pack_layer(third.getvalue(), PackOption(backend="fused", **opt), device=dev)
+    seed = Bootstrap.from_bytes(dres.bootstrap)
+    private = GrowingChunkDict(seed=seed)
+    pos = {c.digest: i for i, c in enumerate(private.bootstrap.chunks)}
+    digs = [c.digest for c in Bootstrap.from_bytes(res_f.bootstrap).chunks]
+    want = np.asarray([pos.get(d, -1) for d in digs], dtype=np.int64)
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = DictService(device=dev)
+        svc.run(str(Path(tmp) / "dict.sock"))
+        try:
+            cli = DictClient(svc.sock_path)
+            merges = []
+            for i in range(SERVICE_REPS):  # each into a fresh namespace: a real merge
+                t0 = time.perf_counter()
+                st = cli.merge(dres.bootstrap, f"m{i}")
+                merges.append(time.perf_counter() - t0)
+                if st["added"] != len(private):
+                    raise AssertionError(f"merge added {st['added']} of {len(private)} chunks")
+            cli.merge(dres.bootstrap, "ns")
+            probes = []
+            for i in range(1 + SERVICE_REPS):
+                kernels["probe"].launches = 0
+                t0 = time.perf_counter()
+                ans = cli.probe(digs, "ns")
+                probes.append(time.perf_counter() - t0)
+                if kernels["probe"].launches != 1:
+                    raise AssertionError(f"K3 launched {kernels['probe'].launches} times in one "
+                                         "probe RPC")
+                if not np.array_equal(ans, want):
+                    raise AssertionError("probe RPC answers differ from GrowingChunkDict positions")
+            path = f"service://{svc.sock_path}#ns"
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            via = pack_layer(tar, PackOption(backend="fused", chunk_dict_path=path, **opt),
+                             device=dev)
+            first_s = time.perf_counter() - t0
+            launches = {key: k.launches for key, k in kernels.items()}
+            priv = pack_layer(tar, PackOption(backend="fused", **opt), chunk_dict=private,
+                              device=dev)
+            if not (via[0] == priv[0] and via[1].bootstrap == priv[1].bootstrap
+                    and via[1].blob_id == priv[1].blob_id):
+                raise AssertionError("the service:// pack differs from the private-dict pack")
+            if dres.blob_id not in via[1].referenced_blob_ids or via[0] == blob_f:
+                raise AssertionError("the service:// pack found no dict hit")
+            packs, privs = [], []  # in turns: service, private
+            for _ in range(SERVICE_REPS):
+                for runs, kw, cd in ((packs, {"chunk_dict_path": path}, None), (privs, {}, private)):
+                    t0 = time.perf_counter()
+                    again = pack_layer(tar, PackOption(backend="fused", **opt, **kw), chunk_dict=cd,
+                                       device=dev)
+                    runs.append(time.perf_counter() - t0)
+                    if again[0] != via[0]:
+                        raise AssertionError("a timed pack differs from the checked service:// pack")
+            cli.close()
+        finally:
+            svc.stop()
+    hits = int((want >= 0).sum())
+    out = {"probe_launches": 1, "pack_launches": launches, "digests": len(digs), "hits": hits,
+           "dict_chunks": len(private), "merge_ms": float(np.median(merges)) * 1e3,
+           "probe_rpc_ms": float(np.median(probes[1:])) * 1e3,
+           "probe_rpc_runs_ms": [x * 1e3 for x in probes],
+           "pack_s": float(np.median(packs)), "pack_runs_s": packs, "pack_first_s": first_s,
+           "private_pack_s": float(np.median(privs)), "private_pack_runs_s": privs}
+    log(f"[11] service: DictService on {dev} over a unix socket; merge of a {len(private)}-chunk "
+        f"bootstrap (fused SHA-256 pack of every third file of phase 4's tar) median "
+        f"{out['merge_ms']:.1f} ms (runs " + ", ".join(f"{x * 1e3:.1f}" for x in merges)
+        + f" ms); probe RPC of all {len(digs)} chunk digests of phase 4's tar: one K3 launch, "
+        f"answers == GrowingChunkDict positions ({hits} hits), median {out['probe_rpc_ms']:.2f} ms "
+        f"after the first (runs " + ", ".join(f"{x * 1e3:.2f}" for x in probes) + " ms)")
+    log(f"[11] service:// pack: fused pack_layer of phase 4's tar through the service == the "
+        f"private GrowingChunkDict pack (blob, bootstrap, blob id), dict blob referenced; "
+        f"launches {launches}; checked run {first_s:.3f} s; in turns with the private-dict pack, "
+        f"median of {SERVICE_REPS} {out['pack_s']:.3f} s (runs " + ", ".join(f"{x:.3f}" for x in packs)
+        + f" s) against {out['private_pack_s']:.3f} s (runs " + ", ".join(f"{x:.3f}" for x in privs)
+        + " s)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1749,7 +2059,7 @@ def main() -> int:
     all_offs_h, all_sizes_h = torch.from_numpy(extents)
     all_offs, all_sizes_dev = torch.from_numpy(extents).to(dev)
     allq = sha256_cuda.sha256_chunks(buffer_dev, all_offs_h, all_sizes_h)  # pass 2's launch
-    tk, tv = cdict.device_tables()  # the tables the main path probed
+    tk, tv, _cap, _depth = cdict.device_snapshot()  # the tables the main path probed
     wstart, off = probe_cuda.window_starts(allq, keys.shape[0])
     k3_args = (tk, tv, allq, wstart, off, depth)
     k3 = probe_cuda.probe_padded(*k3_args)
@@ -1920,7 +2230,7 @@ def main() -> int:
         f"process_many")
 
     # -- 6. registry -------------------------------------------------------
-    registry = registry_phase(dev, int_ops_per_s, sm_hz)
+    registry, grown = registry_phase(dev, int_ops_per_s, sm_hz)
 
     # -- 7. windowed engine --------------------------------------------------
     windowed = windowed_phase(dev, files, res, kernels, int_ops_per_s, sm_hz, rc)
@@ -1936,6 +2246,14 @@ def main() -> int:
 
     # -- 10. compressed packs --------------------------------------------------
     comp = compressed_phase(dev, tar, lanes, all_kernels)
+
+    # -- 11. registry growth, the dict service, the fused probe after an insert --
+    t11 = time.perf_counter()
+    growth = growth_phase(dev, grown, kernels)
+    del grown
+    service = service_phase(dev, tar, blob_f, res_f, kernels)
+    fused_grown = fused_after_insert_phase(dev, eng, files, first, cdict, kernels)
+    log(f"[11] {time.perf_counter() - t11:.1f} s")
 
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, n_launches=None, **extra):
@@ -1979,7 +2297,11 @@ def main() -> int:
         row("probe", "probe_padded", pkg + "probe.cu",
             "nydus_snapshotter_tpu/ops/probe_pallas.py:151", k3_err, k3_ms, k3_call_ms, k3_plain_ms,
             k3_bd, k3_ms, k3_call_ms, k3_bd, f"{len(q_all)} queries, depth {depth}",
-            kernel_l2_warm_ms=k3_warm_ms, registry=registry),
+            kernel_l2_warm_ms=k3_warm_ms, registry=registry,
+            growth_launches_per_lookup=growth["launches_per_lookup"],
+            service_probe_launches=service["probe_launches"],
+            fused_after_insert_launches=fused_grown["launches"]["probe"],
+            growth=growth, service=service, fused_after_insert=fused_grown),
         row(None, "blake3_chunks", pkg + "blake3.cu",
             "nydus_snapshotter_tpu/ops/blake3_jax.py:214", b3["max_abs_err"],
             b3["kernel_ms"], b3["call_ms"], b3["plain_ms"], b3["bound"], b3["kernel_ms"],

@@ -36,14 +36,19 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   as in the reference's device lanes; zstd goes through the system libzstd
   whenever it is bound (utils/zstd.py), never a bundled build.
 - ``prefetch_patterns`` fill the bootstrap's prefetch table;
-  ``chunk_dict_path`` (``bootstrap=<file>`` or a bare path, this package's
-  bootstrap layout) loads a chunk dict when none is passed.
+  ``chunk_dict_path`` opens a chunk dict when none is passed, through
+  parallel/dict_service.open_chunk_dict: ``service://<uds>[,<uds>...]
+  [#namespace]`` is a mirror of a chunk-dict service's namespace,
+  ``bootstrap=<file>`` or a bare path a bootstrap of this package's layout.
+  ``chunk_dict`` takes any dict with the ``get``/``blob_id_for``/
+  ``bootstrap`` interface: ``ChunkDict``, ``GrowingChunkDict``,
+  ``ServiceChunkDict``.
 - RAFS v5 or v6.
 
 Refused with :class:`ConvertError`: ``backend="hybrid"`` (the native chunk
-engine is not ported), ``encrypt=True`` (the blob cipher is not ported)
-and chunk-dict services (``service://``, ``service+ha://``). A real nydus
-v5/v6 bootstrap as ``chunk_dict_path`` raises ``BootstrapError``
+lane is not ported), ``encrypt=True`` (the blob cipher is not ported) and
+the HA chunk-dict service (``service+ha://``, ``|`` failover groups). A real
+nydus v5/v6 bootstrap as ``chunk_dict_path`` raises ``BootstrapError``
 (models/bootstrap.ChunkDict.from_path).
 
 A file-like ``src_tar`` streams: each member is read in 4 MiB segments
@@ -75,11 +80,9 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     BatchRecord,
     BlobRecord,
     Bootstrap,
-    ChunkDict,
     ChunkRecord,
     CipherRecord,
     Inode,
-    parse_chunk_dict_arg,
 )
 from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester, HostDigester
 from nydus_snapshotter_tpu_torch.utils import lz4
@@ -236,13 +239,14 @@ def _check_options(opt: PackOption) -> None:
     opt.validate()
     refused = []
     if opt.backend not in ("fused", "jax", "numpy"):
-        refused.append(f"backend={opt.backend!r} (the native chunk engine is not ported)")
+        refused.append(f"backend={opt.backend!r} (the native chunk lane is not ported)")
     if opt.encrypt:
         refused.append("encrypt=True (the blob cipher, converter/crypto.py, is not ported)")
-    if opt.chunk_dict_path.startswith(("service://", "service+ha://")):
+    path = opt.chunk_dict_path
+    if path.startswith("service+ha://") or (path.startswith("service://") and "|" in path):
         refused.append(
-            f"chunk_dict_path={opt.chunk_dict_path!r} (chunk-dict services, "
-            "parallel/dict_service.py, are not ported)"
+            f"chunk_dict_path={path!r} (the HA chunk-dict service, service+ha:// and "
+            "'|' failover groups, is not ported)"
         )
     if refused:
         raise ConvertError(f"Pack does not support {'; '.join(refused)}")
@@ -322,10 +326,11 @@ def Pack(
 
     ``src_tar`` is the whole tar in memory (bytes) or a file-like object,
     read once, front to back. ``chunk_dict`` is a loaded dict object
-    (models/bootstrap.ChunkDict or anything with its
-    get/blob_id_for/bootstrap interface); ``opt.chunk_dict_path`` is the
-    file-based fallback. ``device`` is where the device backends run (CUDA
-    unless ``"cpu"`` is asked for).
+    (``ChunkDict``, ``GrowingChunkDict``, ``ServiceChunkDict`` or anything
+    with their get/blob_id_for/bootstrap interface); without one,
+    ``opt.chunk_dict_path`` opens one (``open_chunk_dict``: a service
+    mirror, closed when the pack ends, or a bootstrap file). ``device`` is
+    where the device backends run (CUDA unless ``"cpu"`` is asked for).
 
     ``stats``: optional dict that accumulates wall seconds per stage, with
     the reference's keys, from the start of the tar walk: ``scan`` (tar
@@ -337,8 +342,19 @@ def Pack(
     timed where they are spent, during the walk too.
     """
     _check_options(opt)
+    opened = None
     if chunk_dict is None and opt.chunk_dict_path:
-        chunk_dict = ChunkDict.from_path(parse_chunk_dict_arg(opt.chunk_dict_path))
+        from nydus_snapshotter_tpu_torch.parallel.dict_service import open_chunk_dict
+
+        chunk_dict = opened = open_chunk_dict(opt.chunk_dict_path)
+    try:
+        return _pack(dest, src_tar, opt, chunk_dict, device, stats)
+    finally:
+        if hasattr(opened, "close"):  # a service mirror's connections
+            opened.close()
+
+
+def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResult:
     shared = IncrementalChunker(opt, device=device)
     engine = shared._engine
     # Device digests (K2, or K4 for BLAKE3) for the jax lane whatever

@@ -44,8 +44,8 @@ class PackOption:
     # Engine selection, with the reference's value names: fused = the device full path (ops/fused_convert, the default
     # here); jax = the windowed device lane (ops/chunker.ChunkDigestEngine,
     # on CUDA in this package); numpy = the host differential path (numpy
-    # CDC + hashlib). hybrid needs the native chunk engine, not ported yet,
-    # and is refused by this package's Pack.
+    # CDC + hashlib). hybrid needs the native chunk engine's chunking and
+    # digest arms, not ported yet, and is refused by this package's Pack.
     backend: str = "fused"
     chunking: str = "cdc"  # "cdc" | "fixed"
     # "" = engine default for the backend; "jax" routes chunk digests

@@ -270,8 +270,8 @@ class ChunkDigestEngine:
             raise ValueError(f"unknown chunking mode {mode!r}")
         if backend == "hybrid":
             raise ValueError(
-                "backend='hybrid' needs the native chunk engine (native_cdc), "
-                "which is not ported yet (ROADMAP.md Queue A item 10)"
+                "backend='hybrid' needs the native chunk engine's chunking and digest "
+                "arms (native_cdc), which are not ported yet (ROADMAP.md Queue A item 10)"
             )
         if backend not in ("jax", "numpy", "fused"):
             raise ValueError(f"unknown backend {backend!r}")

@@ -353,8 +353,10 @@ class FusedDeviceEngine:
         (BLAKE3) over every chunk, and the optional dict probe int32[M] over
         them.
 
-        The dict owns its padded device tables (staged once, dropped when
-        its tables change), so repeated batches never re-upload them.
+        The dict owns its padded device tables and the geometry they were
+        padded for (restaged once after each insert or rebuild, never
+        cached here), so repeated batches never re-upload them and a grown
+        dict is probed whole.
         """
         offs, sizes = torch.from_numpy(extents)
         states = chunk_digests(self.digester, buffer_dev, offs, sizes)
@@ -364,9 +366,9 @@ class FusedDeviceEngine:
                 raise ValueError(
                     f"chunk dict lives on {chunk_dict.device}, the engine on {self.device}"
                 )
-            tk, tv = chunk_dict.device_tables()
-            wstart, off = probe_cuda.window_starts(states, chunk_dict.capacity)
-            probe = probe_cuda.probe_padded(tk, tv, states, wstart, off, chunk_dict.max_depth)
+            tk, tv, cap, depth = chunk_dict.device_snapshot()
+            wstart, off = probe_cuda.window_starts(states, cap)
+            probe = probe_cuda.probe_padded(tk, tv, states, wstart, off, depth)
         return states, probe
 
     def process_many(

@@ -43,8 +43,12 @@ def as_u32_int64(x: torch.Tensor) -> torch.Tensor:
 
 
 def from_u32(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """numpy u32 array -> int32 tensor (bit pattern) on ``device``."""
+    """numpy u32 array -> int32 tensor (bit pattern) on ``device``. A
+    read-only array (``np.frombuffer`` of bytes) is copied first: torch
+    tensors are writable."""
     arr = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
+    if not arr.flags.writeable:
+        arr = arr.copy()
     return torch.from_numpy(arr).to(device)
 
 

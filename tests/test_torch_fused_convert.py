@@ -108,7 +108,7 @@ class TestFusedAgainstReference:
         calls.clear()
         states, probe = port.digest_probe(buffer, extents, cdict)
         assert calls == [n_chunks] and states.shape == (n_chunks, 8)
-        tk, tv = cdict.device_tables()
+        tk, tv, _cap, _depth = cdict.device_snapshot()
         per_bucket = {}
         for b in buckets:
             want = real(buffer, torch.from_numpy(b.offsets), torch.from_numpy(b.sizes))

@@ -17,7 +17,7 @@ from nydus_snapshotter_tpu_torch import entry
 from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
 from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester
 from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
-from nydus_snapshotter_tpu_torch.parallel import sharded_dict
+from nydus_snapshotter_tpu_torch.parallel import dict_service, sharded_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,6 +64,29 @@ _CHILD = textwrap.dedent(
         metas = ChunkDigestEngine(chunk_size=0x1000, backend=backend, digester="blake3",
                                   device="cpu").process_many([b"abc"])
         assert [m.digest for m in metas[0]] == [pyb3.blake3(b"abc")]
+    # the growing dict: grow, save, load, save_incremental; the dict service
+    d = sharded_dict.ShardedChunkDict(np.random.default_rng(2).integers(
+        0, 2**32, (500, 8), dtype=np.uint32), device="cpu")
+    grow = np.random.default_rng(3).integers(0, 2**32, (100, 8), dtype=np.uint32)
+    assert list(d.insert_u32(grow)) == list(range(500, 600))
+    from nydus_snapshotter_tpu_torch.parallel import dict_service
+    with tempfile.TemporaryDirectory() as t:
+        path = os.path.join(t, "d.dict")
+        d.save(path)
+        d.insert_u32(grow[:10] + 1)
+        assert d.save_incremental(path) == {"mode": "append", "appended": 10}
+        again = sharded_dict.ShardedChunkDict.load(path, device="cpu")
+        assert list(again.lookup_u32(grow[:10] + 1)) == list(range(600, 610))
+        svc = dict_service.DictService(device="cpu")
+        svc.run(os.path.join(t, "dict.sock"))
+        try:
+            cli = dict_service.DictClient(svc.sock_path)
+            assert cli.merge(res.bootstrap, "ns")["added"] > 0
+            digs = [c.digest for c in dict_service.Bootstrap.from_bytes(res.bootstrap).chunks]
+            assert list(cli.probe(digs[:1], "ns")) == [0]
+            cli.close()
+        finally:
+            svc.stop()
     fwd, args = entry.entry(device="cpu")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
@@ -100,11 +123,13 @@ def test_main_path_imports_neither_jax_nor_reference():
         lambda: pack_layer(b"", PackOption(digester="blake3")),
         lambda: pack_layer(b"", PackOption(backend="jax", digester="blake3")),
         lambda: pack_layer(b"", PackOption(backend="jax", compressor="zstd")),
+        lambda: sharded_dict.ShardedChunkDict.load("/nonexistent.dict"),
+        lambda: dict_service.DictService(),
     ],
     ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
          "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
          "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3",
-         "pack_layer_jax_zstd"],
+         "pack_layer_jax_zstd", "dict_load", "dict_service"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():

@@ -444,14 +444,38 @@ class TestPackOptions:
             _pack_both(small_tar, backend, **{"compressor": "none", **SMALL, **kw})
 
     @pytest.mark.parametrize(
+        "kw", [pytest.param({"chunk_dict_path": "service://{sock}#ns"}, id="service")]
+    )
+    def test_dict_service_matches_reference(self, tmp_path, small_tar, kw):
+        """``chunk_dict_path="service://..."`` (refused before it was ported,
+        same id): a port DictService on the CPU holds the bootstrap of a pack
+        of a third of the files. Every port lane packs through its mirror
+        what the reference's pack_layer packs through its own client of the
+        same service."""
+        from nydus_snapshotter_tpu_torch.parallel.dict_service import DictClient, DictService
+
+        _dblob, dres = j_pack_layer(_third_tar(), JPackOption(backend="numpy", **SMALL))
+        svc = DictService(device="cpu")
+        svc.run(str(tmp_path / "dict.sock"))
+        try:
+            assert DictClient(svc.sock_path).merge(dres.bootstrap, "ns")["added"] > 0
+            path = kw["chunk_dict_path"].format(sock=svc.sock_path)
+            for backend in BACKENDS:
+                _blob, res = _pack_both(small_tar, backend, chunk_dict_path=path, **SMALL)
+                assert res.referenced_blob_ids[1:] == [dres.blob_id]
+        finally:
+            svc.stop()
+
+    @pytest.mark.parametrize(
         "kw",
         [
             pytest.param({"backend": "hybrid"}, id="kw2"),
             pytest.param({"digester": "md5"}, id="kw5"),
             pytest.param({"encrypt": True}, id="kw7"),
             pytest.param({"chunk_dict_path": "/nonexistent"}, id="kw10"),
-            pytest.param({"chunk_dict_path": "service:///run/dict.sock#ns"}, id="service"),
             pytest.param({"chunk_dict_path": "service+ha:///run/ctl.sock"}, id="service_ha"),
+            pytest.param({"chunk_dict_path": "service:///run/a.sock|/run/b.sock#ns"},
+                         id="service_group"),
             pytest.param({"lz4_acceleration": 0}, id="lz4_acceleration"),
         ],
     )

@@ -146,20 +146,26 @@ class TestCarriedDict:
         assert pd.fused_probe_tables()[2:] == (depth, epoch)
 
     def test_numpy_build_matches_reference_build(self, monkeypatch):
-        """The port's build is the reference's numpy build, table for table
-        (duplicates included); against the reference's default build arm
-        the lookups agree."""
+        """The port's numpy build is the reference's numpy build, table for
+        table (duplicates included), and its native build the reference's
+        native build; the port's dict (native) answers as the reference's
+        default build arm."""
         from nydus_snapshotter_tpu.ops import native_cdc
+        from nydus_snapshotter_tpu_torch.ops import native_cdc as p_native
 
         rng = np.random.default_rng(23)
         digests = rng.integers(0, 2**32, (5000, 8), dtype=np.uint32)
         digests[4000:] = digests[:1000]  # duplicates: first insertion wins
-        pkeys, pvals = sharded_dict._build_host_tables(digests, 1)
+        nkeys, nvals = sharded_dict._build_host_tables(digests, 1)
         dkeys, dvals = j_build(digests, 1)
+        assert np.array_equal(nkeys, dkeys) and np.array_equal(nvals, dvals)
         monkeypatch.setattr(native_cdc, "dict_build_available", lambda: False)
+        monkeypatch.setattr(p_native, "dict_build_available", lambda: False)
+        pkeys, pvals = sharded_dict._build_host_tables(digests, 1)
         jkeys, jvals = j_build(digests, 1)
         assert np.array_equal(pkeys, jkeys) and np.array_equal(pvals, jvals)
         assert sharded_dict._table_max_depth(pkeys, pvals) == j_depth(jkeys, jvals)
+        monkeypatch.undo()
         pd = sharded_dict.ShardedChunkDict(digests, device="cpu")
         q = np.concatenate([digests, rng.integers(0, 2**32, (500, 8), dtype=np.uint32)])
         ddepth = j_depth(dkeys, dvals)
