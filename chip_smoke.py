@@ -1750,7 +1750,8 @@ def fused_after_insert_phase(dev, eng, files, first, cdict, kernels) -> dict:
 
 def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
     """Phase 11b: a DictService on the card over a unix socket, probed with
-    one RPC and packed through with service://."""
+    one RPC, timed in merge-then-probe cycles (the first probe after a merge
+    restages the grown table) and packed through with service://."""
     import tempfile
 
     from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
@@ -1760,13 +1761,19 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
 
     src = tarfile.open(fileobj=io.BytesIO(tar))
     regs = [m for m in src.getmembers() if m.isreg()]
-    third = io.BytesIO()
-    with tarfile.open(fileobj=third, mode="w", format=tarfile.GNU_FORMAT) as tf:
-        for m in regs[::3]:
-            tf.addfile(m, io.BytesIO(tar[m.offset_data:m.offset_data + m.size]))
     opt = dict(chunk_size=CHUNK_SIZE, compressor="none")
-    _dblob, dres = pack_layer(third.getvalue(), PackOption(backend="fused", **opt), device=dev)
+
+    def boot_of(members):  # the bootstrap of a fused pack of these files
+        part = io.BytesIO()
+        with tarfile.open(fileobj=part, mode="w", format=tarfile.GNU_FORMAT) as tf:
+            for m in members:
+                tf.addfile(m, io.BytesIO(tar[m.offset_data:m.offset_data + m.size]))
+        return pack_layer(part.getvalue(), PackOption(backend="fused", **opt), device=dev)[1]
+
+    dres = boot_of(regs[::3])
     seed = Bootstrap.from_bytes(dres.bootstrap)
+    # one image's bootstrap per merge-then-probe cycle: disjoint files
+    cycle_boots = [boot_of(regs[1::3][i::SERVICE_REPS]).bootstrap for i in range(SERVICE_REPS)]
     private = GrowingChunkDict(seed=seed)
     pos = {c.digest: i for i, c in enumerate(private.bootstrap.chunks)}
     digs = [c.digest for c in Bootstrap.from_bytes(res_f.bootstrap).chunks]
@@ -1784,17 +1791,45 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
                 if st["added"] != len(private):
                     raise AssertionError(f"merge added {st['added']} of {len(private)} chunks")
             cli.merge(dres.bootstrap, "ns")
-            probes = []
-            for i in range(1 + SERVICE_REPS):
+            probes, rpc_launches = [], []
+
+            def probe_rpc(ns, expect):  # one probe RPC, its K3 launches recorded
                 kernels["probe"].launches = 0
                 t0 = time.perf_counter()
-                ans = cli.probe(digs, "ns")
-                probes.append(time.perf_counter() - t0)
-                if kernels["probe"].launches != 1:
-                    raise AssertionError(f"K3 launched {kernels['probe'].launches} times in one "
-                                         "probe RPC")
-                if not np.array_equal(ans, want):
+                ans = cli.probe(digs, ns)
+                took = time.perf_counter() - t0
+                rpc_launches.append(kernels["probe"].launches)
+                if rpc_launches[-1] != 1:
+                    raise AssertionError(f"K3 launched {rpc_launches[-1]} times in one probe RPC")
+                if not np.array_equal(ans, expect):
                     raise AssertionError("probe RPC answers differ from GrowingChunkDict positions")
+                return took
+
+            for i in range(1 + SERVICE_REPS):
+                probes.append(probe_rpc("ns", want))
+            # A service's traffic: one merge and one probe per converted
+            # image. Each merge grows the namespace's table, so the first
+            # probe after it restages the padded device copy.
+            records = GrowingChunkDict(seed=seed)
+            cli.merge(dres.bootstrap, "cycle")
+            probe_rpc("cycle", want)
+            index = svc._dicts["cycle"].index
+            cycles = []  # (merge s, first probe s, second probe s, restages)
+            for boot in cycle_boots:
+                restages = index.restages
+                t0 = time.perf_counter()
+                st = cli.merge(boot, "cycle")
+                merge_s = time.perf_counter() - t0
+                added = records.add_bootstrap(Bootstrap.from_bytes(boot))
+                if st["added"] != added or not added:
+                    raise AssertionError(f"cycle merge added {st['added']}; want {added} (> 0)")
+                cpos = {c.digest: i for i, c in enumerate(records.bootstrap.chunks)}
+                cwant = np.asarray([cpos.get(d, -1) for d in digs], dtype=np.int64)
+                after_s = probe_rpc("cycle", cwant)
+                again_s = probe_rpc("cycle", cwant)
+                cycles.append((merge_s, after_s, again_s, index.restages - restages))
+                if cycles[-1][3] != 1:
+                    raise AssertionError(f"{cycles[-1][3]} restages in one merge-then-probe cycle")
             path = f"service://{svc.sock_path}#ns"
             for k in kernels.values():
                 k.launches = 0
@@ -1823,10 +1858,16 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
         finally:
             svc.stop()
     hits = int((want >= 0).sum())
-    out = {"probe_launches": 1, "pack_launches": launches, "digests": len(digs), "hits": hits,
+    out = {"probe_launches": sorted(set(rpc_launches)), "pack_launches": launches,
+           "digests": len(digs), "hits": hits,
            "dict_chunks": len(private), "merge_ms": float(np.median(merges)) * 1e3,
            "probe_rpc_ms": float(np.median(probes[1:])) * 1e3,
            "probe_rpc_runs_ms": [x * 1e3 for x in probes],
+           "cycle_chunks": len(records), "cycle_capacity": index.capacity,
+           "cycle_merge_ms": float(np.median([c[0] for c in cycles])) * 1e3,
+           "probe_after_merge_ms": float(np.median([c[1] for c in cycles])) * 1e3,
+           "probe_after_merge_runs_ms": [c[1] * 1e3 for c in cycles],
+           "probe_second_after_merge_ms": float(np.median([c[2] for c in cycles])) * 1e3,
            "pack_s": float(np.median(packs)), "pack_runs_s": packs, "pack_first_s": first_s,
            "private_pack_s": float(np.median(privs)), "private_pack_runs_s": privs}
     log(f"[11] service: DictService on {dev} over a unix socket; merge of a {len(private)}-chunk "
@@ -1834,7 +1875,14 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
         f"{out['merge_ms']:.1f} ms (runs " + ", ".join(f"{x * 1e3:.1f}" for x in merges)
         + f" ms); probe RPC of all {len(digs)} chunk digests of phase 4's tar: one K3 launch, "
         f"answers == GrowingChunkDict positions ({hits} hits), median {out['probe_rpc_ms']:.2f} ms "
-        f"after the first (runs " + ", ".join(f"{x * 1e3:.2f}" for x in probes) + " ms)")
+        f"after the first (runs " + ", ".join(f"{x * 1e3:.2f}" for x in probes) + " ms); K3 "
+        f"launches per RPC {out['probe_launches']}")
+    log(f"[11] service merge-then-probe: {SERVICE_REPS} cycles into one namespace (disjoint files "
+        f"of phase 4's tar; {out['cycle_chunks']} chunks, capacity {out['cycle_capacity']} at the "
+        f"end), one restage each; merge median {out['cycle_merge_ms']:.1f} ms, first probe RPC "
+        f"after it {out['probe_after_merge_ms']:.2f} ms (runs " + ", ".join(
+            f"{c[1] * 1e3:.2f}" for c in cycles) + f" ms), the second "
+        f"{out['probe_second_after_merge_ms']:.2f} ms")
     log(f"[11] service:// pack: fused pack_layer of phase 4's tar through the service == the "
         f"private GrowingChunkDict pack (blob, bootstrap, blob id), dict blob referenced; "
         f"launches {launches}; checked run {first_s:.3f} s; in turns with the private-dict pack, "

@@ -185,7 +185,7 @@ def dict_upsert_native(
 ) -> "tuple[int, int, np.ndarray] | None":
     """Probe-or-insert a whole batch in one sequential pass: (depth, n_new,
     indices i64[n]), or None on a chain overflow (the placed prefix carries
-    final values; the caller's fallback sees those entries as hits)."""
+    final values and stays in the tables)."""
     lib = load()
     _check("digests", digests, np.uint32)
     _check("keys", keys, np.uint32)

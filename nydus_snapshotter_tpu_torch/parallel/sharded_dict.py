@@ -263,8 +263,8 @@ class ShardedChunkDict:
         # since the last rebuild — feeds save_incremental/entries_since.
         self._journal: list[tuple[int, np.ndarray, np.ndarray]] = []
         self._n_unique: "int | None" = None  # occupied slots (lazy for v4 loads)
-        # Serializes mutation and device restaging. Reentrant: insert_u32's
-        # vectorized path probes (and may restage) while holding it.
+        # Serializes mutation and device restaging. Reentrant:
+        # save_incremental's full rewrite calls save while holding it.
         self._mu = threading.RLock()
         self._staged = None  # (snapshot, keys_pad, vals_pad) on self.device
         self.restages = 0
@@ -322,7 +322,12 @@ class ShardedChunkDict:
             void = np.ascontiguousarray(digests_u32).view(np.dtype((np.void, 32)))[:, 0]
             _, first, inverse = np.unique(void, return_index=True, return_inverse=True)
             uniq = digests_u32[first]
-            existing = self.lookup_u32(uniq)  # int64, -1 = absent
+            # The live host tables, as the reference's single-shard probe
+            # reads them: an overflowed _insert_fast left its placed prefix
+            # there without publishing, so the device copy cannot see it.
+            existing = native_cdc.dict_probe_native(
+                uniq, self._keys, self._values, 1, self.capacity, self.max_depth
+            )  # int64, -1 = absent
             new_mask = existing < 0
             assigned = np.where(new_mask, base + first, existing)
             self.epoch += 1
@@ -349,11 +354,11 @@ class ShardedChunkDict:
         order): no host-side dedup sort and no separate lookup. Returns the
         assigned indices, or None when the dict is empty, a worst-case
         batch would breach the load factor, or a chain overflowed mid-batch
-        (the entries placed so far carry their final values, so the
-        vectorized fallback resolves them as ordinary hits). Caller holds
-        ``_mu``."""
+        (the entries placed so far carry their final values; the vectorized
+        fallback probes the live host tables, where those within the
+        published depth read as hits). Caller holds ``_mu``."""
         n = len(digests_u32)
-        if not native_cdc.dict_upsert_available() or self.n_entries == 0:
+        if self.n_entries == 0:
             return None
         if self._ensure_unique_count() + n > int(self.load_factor * self.capacity):
             return None  # worst-case (all new) breaches: take the slow path
@@ -394,53 +399,19 @@ class ShardedChunkDict:
         if self._ensure_unique_count() + k > int(self.load_factor * cap):
             self._rebuild(digests, stored_values)
             return True
-        if native_cdc.dict_insert_available():
-            depth = native_cdc.dict_insert_native(
-                np.ascontiguousarray(digests),
-                np.ascontiguousarray(stored_values.astype(np.int32)),
-                1, cap, INSERT_MAX_PROBE, self._keys, self._values,
-            )
-            if depth < 0:
-                # Chain overflow: fold the whole batch into a rebuild (the
-                # placed prefix is in the table; the build's first-wins
-                # dedup drops those duplicates).
-                self._rebuild(digests, stored_values)
-                return True
-            self._n_unique = self._ensure_unique_count() + k
-            self.max_depth = max(self.max_depth, depth)
-            self._publish()
-            return False
-        base_word = digests[:, 1].astype(np.int64)
-        vals_i32 = stored_values.astype(np.int32)
-        remaining = np.arange(k, dtype=np.int64)
-        depth_reached = 0
-        for j in range(INSERT_MAX_PROBE):
-            if not len(remaining):
-                break
-            lin = (base_word[remaining] + j) & (cap - 1)
-            free = self._values[lin] == 0
-            cand = remaining[free]
-            cand_lin = lin[free]
-            # Earliest contender per slot: np.unique keeps the smallest
-            # input index per duplicate value, and ``cand`` is ascending.
-            win_lin, u_idx = np.unique(cand_lin, return_index=True)
-            winners = cand[u_idx]
-            # Key before value: a concurrent host probe seeing the key with
-            # value 0 treats the slot as empty.
-            self._keys[win_lin] = digests[winners]
-            self._values[win_lin] = vals_i32[winners]
-            if len(winners):
-                depth_reached = j + 1
-            done = np.zeros(k, dtype=bool)
-            done[winners] = True
-            remaining = remaining[~done[remaining]]
-        if len(remaining):
-            # Chain overflow: fold the stragglers into a rebuild (the placed
-            # part of the batch is collected by the rebuild's scan).
-            self._rebuild(digests[remaining], stored_values[remaining])
+        depth = native_cdc.dict_insert_native(
+            np.ascontiguousarray(digests),
+            np.ascontiguousarray(stored_values.astype(np.int32)),
+            1, cap, INSERT_MAX_PROBE, self._keys, self._values,
+        )
+        if depth < 0:
+            # Chain overflow: fold the whole batch into a rebuild (the
+            # placed prefix is in the table; the build's first-wins dedup
+            # drops those duplicates).
+            self._rebuild(digests, stored_values)
             return True
         self._n_unique = self._ensure_unique_count() + k
-        self.max_depth = max(self.max_depth, depth_reached)
+        self.max_depth = max(self.max_depth, depth)
         self._publish()
         return False
 

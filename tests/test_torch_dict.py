@@ -44,6 +44,7 @@ def _same_tables(pd: ShardedChunkDict, jd: JDict) -> None:
     assert (depth, epoch, pd.rebuild_epoch, pd.n_entries) == (
         jdepth, jepoch, jd.rebuild_epoch, jd.n_entries
     )
+    assert pd._ensure_unique_count() == jd._ensure_unique_count()
 
 
 @pytest.fixture(autouse=True)
@@ -173,6 +174,41 @@ class TestGrowth:
         assert (cap, depth) == (pd.capacity, pd.max_depth)
         assert tk.shape[0] == cap + probe_cuda.window_rows(depth)
         assert np.array_equal(got, jd.lookup_u32(crowd))
+        _same_tables(pd, jd)
+
+    @pytest.mark.parametrize("backend", ["auto", "pallas"])
+    def test_upsert_overflow_falls_back_on_live_tables(self, backend):
+        """More than INSERT_MAX_PROBE new digests on one chain, below the
+        load factor: the native upsert places a prefix and overflows. The
+        fallback must read that prefix from the live host tables (a device
+        copy staged before the insert lacks it) and restage nothing."""
+        base = _digests(44, 1000)
+        probe = _port(base)
+        crowd = _digests(45, sharded_dict.INSERT_MAX_PROBE + 60)
+        # One chain at this capacity, from the first run of empty slots as
+        # long as the table's depth: the prefix the upsert places there lies
+        # inside the probe window. The high bits spread it in a rebuild.
+        depth = probe.max_depth
+        empty = np.convolve(probe._values == 0, np.ones(depth, int), "valid") == depth
+        slot = np.uint32(np.argmax(empty))
+        assert empty[slot]
+        mask = np.uint32(probe.capacity - 1)
+        crowd[:, 1] = (crowd[:, 1] & ~mask) | slot
+        batch = np.concatenate([crowd, crowd[:20]])
+        assert probe._ensure_unique_count() + len(batch) <= int(probe.load_factor * probe.capacity)
+        assert probe._insert_fast(batch, probe.n_entries) is None  # the upsert overflows
+        pd, jd = _port(base, probe_backend=backend), _ref(base)
+        assert np.array_equal(pd.lookup_u32(base), np.arange(1000))  # stages the old tables
+        restages = pd.restages
+        idx = pd.insert_u32(batch)
+        assert pd.restages == restages
+        assert np.array_equal(idx, jd.insert_u32(batch))
+        want = np.concatenate([np.arange(1000, 1000 + len(crowd)), np.arange(1000, 1020)])
+        assert np.array_equal(idx, want)
+        fresh = _port(np.concatenate([base, batch]))
+        q = np.concatenate([base, crowd, _digests(46, 200)])
+        assert np.array_equal(pd.lookup_u32(q), fresh.lookup_u32(q))
+        assert np.array_equal(pd.lookup_u32(q), jd.lookup_u32(q))
         _same_tables(pd, jd)
 
     def test_restage_once_per_mutation(self):
@@ -453,4 +489,6 @@ def test_reference_native_engine_is_built():
     """The reference's own build arm is what the comparisons above hold the
     port's native tables against."""
     assert j_native.dict_build_available() and native_cdc.dict_build_available()
+    assert native_cdc.dict_insert_available() and native_cdc.dict_upsert_available()
+    assert native_cdc.dict_probe_available()
     assert torch.device("cpu") == _port(_digests(120, 10)).device
