@@ -125,6 +125,14 @@ Phases (any failure exits non-zero; nothing is caught):
    own and dict batch records and the prefetch table present; every
    frame, of the pack's blob and of the dict's, decompresses to the tar's
    bytes, and every BLAKE3 digest equals the plain version's on the card;
+   and equal to its true numpy-lane twin too (BLAKE3 on the native host
+   arm, no launch). Every compressed fused and jax pack must take the
+   deferred section writer (``PackResult.route``: the native
+   ``pack_section`` pass, no Python replay, ``_pack_threads()`` workers,
+   every unique chunk a zero-copy extent of the tar); each run prints its
+   route and its ``stats`` beside the serial writer's split. Per codec the
+   fused pack at ``NTPU_PACK_THREADS=1`` and the file-like ``Pack`` over a
+   ``BytesIO`` of the tar (the serial ``_SectionWriter``) must equal it;
 11. growth and the dict service — (a) phase 6's dict (the native build)
    grows by tools/registry_scale.py's 2,000,000-digest growth batch (the
    workload generator's next draws): indices n .. n + 2M - 1; then every
@@ -148,7 +156,21 @@ Phases (any failure exits non-zero; nothing is caught):
    of 3 after the checked run). (c) phase 2's dict grown by the digests of
    another third of the layer's files, then ``process_many`` with it: K3
    once, every answer equal to the host probe of the grown table, every
-   inserted digest answering its assigned index.
+   inserted digest answering its assigned index;
+12. host arms — the native chunk engine on the card machine's CPU: its
+   active SIMD arms (gear bitmaps, table scan, BLAKE3 leaves), SHA-NI, the
+   core counts. (a) ``ChunkDigestEngine(backend="hybrid").process_many``
+   over phase 2's layer at SHA-256 and BLAKE3, 64 KiB and 1 MiB chunks:
+   every cut and digest equal to phases 2, 7 and 9's results, no kernel
+   launched (counters zeroed just before, read just after); median of 3
+   after the checked run, GiB/s. (b) ``pack_layer(backend="hybrid")`` over
+   phase 4's tar (lz4_block) at ``NTPU_PACK_THREADS=1``: the whole-layer
+   ``pack_files`` lane at SHA-256 and at BLAKE3, and the
+   ``chunk_digest_multi`` lane with phase 10's dict bootstrap as
+   ``chunk_dict_path``; (c) at the default thread count, the serial
+   per-file lane. Each equal to its fused twin (blob, bootstrap, blob id),
+   its lane and route printed, no launch, the median of 3 after the checked
+   run with its ``stats``.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -159,6 +181,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import io
 import json
@@ -192,6 +215,16 @@ REGISTRY_GROW = 2_000_000  # tools/registry_scale.py's growth batch
 REGISTRY_GROW_Q_RANDOM = 50_000  # its grow[::41] sample's random half
 REGISTRY_SECOND = 100_000  # the batch save_incremental appends
 SERVICE_REPS = 3
+# Phase 10's compressed packs as the serial section writer ran them before
+# the deferred writer took them (the median run's wall and stats: scan +
+# chunk_digest + dedup + assemble + bootstrap, s; NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 5): printed beside this run's.
+SERIAL_WRITER_COMPRESSED = {
+    ("lz4_block", "fused"): "2.364 s [0.475 + 0.562 + 0.050 + 1.117 + 0.141]",
+    ("lz4_block", "jax"): "4.519 s [0.477 + 2.885 + 0.054 + 0.976 + 0.109]",
+    ("zstd", "fused"): "3.646 s [0.273 + 0.490 + 0.049 + 2.730 + 0.079]",
+    ("zstd", "jax"): "7.406 s [0.510 + 3.772 + 0.077 + 2.903 + 0.126]",
+}
 PLAIN_SLICE_QUERIES = 1 << 18  # the plain probe gathers [Q, depth, 8] per slice
 K3_EDGE_DEPTHS = (1, 15, 16, 17, 54, 64, 256)
 K3_FIRST_STEP = 16  # chain rows of K3's first step (csrc/probe.cu kFirstRows)
@@ -440,6 +473,29 @@ def submits_without_sync(submits: list):
         yield submits
     finally:
         chunker.DeviceDigester.submit = real
+
+
+STAT_KEYS = ("scan", "chunk_digest", "fused_pack", "dedup", "assemble", "bootstrap")
+
+
+def fmt_stats(st: dict) -> str:
+    """A pack's ``stats`` split, s (``fused_pack`` only where it ran)."""
+    return " + ".join(f"{k} {st[k]:.3f}" for k in STAT_KEYS if k != "fused_pack" or st[k])
+
+
+@contextlib.contextmanager
+def pack_threads(value: str):
+    """Inside: ``NTPU_PACK_THREADS=value`` with ``NTPU_PACK_THREADS_FORCE``
+    unset (the count is capped at the core count)."""
+    import os
+
+    saved = {k: os.environ.pop(k, None) for k in ("NTPU_PACK_THREADS", "NTPU_PACK_THREADS_FORCE")}
+    os.environ["NTPU_PACK_THREADS"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("NTPU_PACK_THREADS")
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
 
 
 def max_abs_err(got, want) -> int:
@@ -927,6 +983,7 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
         f"{k2_1m_ms * 1e-3 * sm_hz / longest_1m:.0f} cycles per block of the longest chunk")
     return {
         "offs_1m": offs_1m, "sizes_1m": sizes_1m,
+        "digests_1m": [m.digest for metas in res_1m for m in metas],
         "launches": launches, "wall_s": wall, "runs_s": walls, "split_s": split,
         "gib_per_s": n_bytes / 2**30 / wall, "busy_ms": busy_ms,
         "window_kernel_ms": win_ms, "window_bound_ms": win_bound[0], "window_bound_by": win_bound[1],
@@ -1337,6 +1394,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
         "leaves_kernel_ms": k_leaves_ms, "parents_kernel_ms": k_parents_ms,
         "plain_ms": main_plain_ms, "bound": bd, "kernel_1m_ms": k_1m_ms, "call_1m_ms": call_1m_ms,
         "plain_1m_ms": plain_1m_ms, "bound_1m": bd_1m, "windowed_launches": win_launches,
+        "digests_u32": flat_plain, "digests_1m_u32": to_u32(plain_1m),
         "pack_fused_launches": pack_launches, "wall_s": wall, "gib_per_s": n_bytes / 2**30 / wall,
         "busy_ms": busy_ms, "pack_wall_s": pack_wall, "windowed_1m_wall_s": win_wall,
         "pack_jax_launches": jax_launches, "pack_jax_wall_s": jax_wall,
@@ -1351,7 +1409,8 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
     import torch
 
     from nydus_snapshotter_tpu_torch import constants
-    from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.converter import Pack, PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.converter.pack import _pack_threads
     from nydus_snapshotter_tpu_torch.models import fstree
     from nydus_snapshotter_tpu_torch.models.bootstrap import CHUNK_FLAG_BATCH, Bootstrap
     from nydus_snapshotter_tpu_torch.ops import blake3
@@ -1429,12 +1488,11 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
             first = time.perf_counter() - t0
         return out, first, {key: k.launches for key, k in kernels.items()}, len(submits)
 
-    def fmt_stats(st: dict) -> str:
-        return " + ".join(f"{k} {st[k]:.3f}" for k in ("scan", "chunk_digest", "dedup", "assemble",
-                                                         "bootstrap"))
-
     def same(a, b) -> bool:
         return a[0] == b[0] and a[1].bootstrap == b[1].bootstrap and a[1].blob_id == b[1].blob_id
+
+    def fmt_route(r: dict) -> str:
+        return ", ".join(f"{k} {v}" for k, v in r.items())
 
     out: dict = {"codecs": {}, "libraries": {c: list(lib) if lib else None for c, lib in libs.items()}}
     for codec in codecs:
@@ -1450,12 +1508,21 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
             f"chunk records' frames ({n_frames} distinct) decompress to the tar's bytes; "
             f"{numpy_s:.3f} s ({fmt_stats(st_n)})")
         res_c = {"numpy_s": numpy_s, "numpy_stats": st_n, "ratio": ratio, "records": n_rec,
-                 "frames": n_frames, "data_bytes": ref[1].blob_size}
+                 "frames": n_frames, "data_bytes": ref[1].blob_size, "numpy_route": ref[1].route}
+        n_unique = Bootstrap.from_bytes(ref[1].bootstrap).blobs[0].chunk_count
         for lane in ("fused", "jax"):
             got, first, launches, batches = counted(
                 lambda: pack_layer(tar, PackOption(backend=lane, **opt), device=dev))
             if not same(got, ref):
                 raise AssertionError(f"{codec} pack {lane} differs from the numpy lane")
+            # The reference's writer choice for an in-memory tar: the deferred
+            # section writer, its native pass (no Python replay), every unique
+            # chunk a zero-copy extent of the tar.
+            route = got[1].route
+            want_route = {"lane": "fused" if lane == "fused" else "per_file", "writer": "deferred",
+                          "native": True, "threads": _pack_threads(), "src0": n_unique, "src1": 0}
+            if route != want_route:
+                raise AssertionError(f"{codec} pack {lane} took {route}; want {want_route}")
             # the uncompressed twins' counts: fused one K1 and one K2 launch
             # (the tar is one batch); jax those of phase 8's jax pack
             want = ({"gear": 1, "sha": 1} if lane == "fused" else
@@ -1477,12 +1544,41 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
             batch_note = (f" ({batches} digest batches, each submitted under sync debug mode "
                           "'error')" if lane == "jax" else "")
             log(f"[10] {codec} pack {lane}: == numpy byte for byte; launches {launches}{batch_note}; "
-                f"checked run {first:.3f} s, median {wall:.3f} s (runs, wall / host CPU s / minor page "
-                "faults [stats s]: " + ", ".join(
+                f"route: {fmt_route(route)} (no replay); checked run {first:.3f} s, median "
+                f"{wall:.3f} s (runs, wall / host CPU s / minor page faults [stats s]: " + ", ".join(
                     f"{w:.3f} / {c:.3f} / {f} [{fmt_stats(s)}]" for (w, c, f), s in zip(runs, stats))
-                + ")")
+                + f"); the serial section writer, median run [stats s]: "
+                f"{SERIAL_WRITER_COMPRESSED[codec, lane]}")
             res_c[lane] = {"launches": launches, "batches": batches, "first_s": first, "wall_s": wall,
-                           "runs": [list(r) for r in runs], "stats": stats}
+                           "runs": [list(r) for r in runs], "stats": stats, "route": route}
+
+        # The same fused pack on one section thread, and through the
+        # file-like Pack (every member streamed, the serial section writer).
+        st1, got1 = {}, []
+        with pack_threads("1"):
+            one = host_timed(lambda: got1.append(pack_layer(
+                tar, PackOption(backend="fused", **opt), device=dev, stats=st1)))
+        if not same(got1[0], ref) or got1[0][1].route["threads"] != 1:
+            raise AssertionError(f"{codec} fused pack at NTPU_PACK_THREADS=1 differs "
+                                 f"({got1[0][1].route})")
+        del got1
+        st_s, got_s = {}, []
+        stream = io.BytesIO()
+        t_s = host_timed(lambda: got_s.append(Pack(
+            stream, io.BytesIO(tar), PackOption(backend="fused", **opt), device=dev, stats=st_s)))
+        sres = got_s[0]
+        if not same((stream.getvalue(), sres), ref) or sres.route["writer"] != "serial":
+            raise AssertionError(f"{codec} file-like Pack differs from the in-memory packs "
+                                 f"({sres.route})")
+        del stream
+        log(f"[10] {codec} fused pack at NTPU_PACK_THREADS=1: == byte for byte, {one[0]:.3f} s / "
+            f"host CPU {one[1]:.3f} s [{fmt_stats(st1)}]; the file-like Pack (BytesIO of the tar, "
+            f"{fmt_route(sres.route)}): == blob, bootstrap and blob id, {t_s[0]:.3f} s / host CPU "
+            f"{t_s[1]:.3f} s [{fmt_stats(st_s)}]")
+        res_c.update(one_thread=list(one), one_thread_stats=st1, file_like=list(t_s),
+                     file_like_stats=st_s)
+        if codec == "lz4_block":
+            out["lz4_ref"] = ref
         out["codecs"][codec] = res_c
 
     # -- every new option at once: one fused pack against its numpy twin -----
@@ -1519,8 +1615,18 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
         twin = pack_layer(tar, PackOption(backend="numpy", digest_backend="jax", **opt_all), device=dev,
                           stats=st_t)
         twin_s = time.perf_counter() - t0
-    if not same(fused, twin):
-        raise AssertionError("the all-options fused pack differs from its numpy twin")
+        # the numpy lane as it is: BLAKE3 on the native host arm, no device
+        for k in kernels.values():
+            k.launches = 0
+        st_h = {}
+        t0 = time.perf_counter()
+        host_twin = pack_layer(tar, PackOption(backend="numpy", **opt_all), stats=st_h)
+        host_s = time.perf_counter() - t0
+        host_launches = {key: k.launches for key, k in kernels.items()}
+    if not same(fused, twin) or not same(fused, host_twin):
+        raise AssertionError("the all-options fused pack differs from its numpy twins")
+    if any(host_launches.values()):
+        raise AssertionError(f"the all-options numpy twin launched {host_launches}")
     res = fused[1]
     boot = Bootstrap.from_bytes(res.bootstrap)
     hits = sum(1 for c in boot.chunks if c.blob_index == 1)
@@ -1549,14 +1655,16 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
     del buf
     log(f"[10] all options, {codec} + blake3 + batch_size 0x10000 + prefetch_patterns {prefetch} + "
         f"chunk_dict_path (the bootstrap of a numpy pack of every third file, {dict_s:.3f} s): "
-        f"fused == its numpy twin (digest_backend='jax') byte for byte; launches {launches}; "
+        f"fused == its numpy twins (digest_backend='jax', and the host lane: native BLAKE3, no "
+        f"launch, {host_s:.3f} s [{fmt_stats(st_h)}]) byte for byte; launches {launches}; "
         f"{hits} dict hits, {own_batches} own and {dict_batches} dict batch records, "
         f"{len(boot.prefetch)} prefetch entries; all {n_rec} records' frames ({n_frames} distinct, "
         f"own and dict blob) decompress to the tar's bytes and their BLAKE3 digests == the plain "
         f"version; fused {first:.3f} s ({fmt_stats(st_a)}), twin {twin_s:.3f} s "
         f"({fmt_stats(st_t)}); phase {time.perf_counter() - t_phase:.1f} s")
     out["all_options"] = {"codec": codec, "launches": launches, "fused_s": first, "fused_stats": st_a,
-                          "twin_s": twin_s, "dict_hits": hits, "own_batches": own_batches,
+                          "twin_s": twin_s, "host_twin_s": host_s, "dict_hits": hits,
+                          "dict_bootstrap": dres.bootstrap, "own_batches": own_batches,
                           "dict_batches": dict_batches, "prefetch": len(boot.prefetch)}
     return out
 
@@ -1889,6 +1997,148 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
         f"median of {SERVICE_REPS} {out['pack_s']:.3f} s (runs " + ", ".join(f"{x:.3f}" for x in packs)
         + f" s) against {out['private_pack_s']:.3f} s (runs " + ", ".join(f"{x:.3f}" for x in privs)
         + " s)")
+    return out
+
+
+def cpu_flag(flag: str) -> bool:
+    """Whether /proc/cpuinfo lists ``flag`` for this host's CPU."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return any(line.startswith("flags") and flag in line.split() for line in f)
+    except OSError:
+        return False
+
+
+def host_arms_phase(dev, files, res_sha, windowed, b3, e2e_s, tar, comp, kernels) -> dict:
+    """Phase 12: the native engine's host arms on the card machine, the
+    ``hybrid`` engine and its pack lanes; no kernel may launch in them."""
+    import os
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.converter.pack import _pack_threads
+    from nydus_snapshotter_tpu_torch.ops import chunker, native_cdc
+
+    t_phase = time.perf_counter()
+    arm = {3: "avx512", 2: "avx2", 1: "scalar"}
+    isa = {"gear": native_cdc.gear_active_isa(), "cdc": native_cdc.cdc_active_isa(),
+           "b3": native_cdc.b3_active_isa(), "sha_ni": cpu_flag("sha_ni")}
+    cores = {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+             "pack_threads": _pack_threads()}
+    log(f"[12] host: os.cpu_count() {cores['cpu_count']}, {cores['affinity']} cores in this "
+        f"process's affinity mask, _pack_threads() {cores['pack_threads']}; the engine's arms: gear "
+        f"bitmaps {arm[isa['gear']]}, table scan {arm[isa['cdc']]}, BLAKE3 leaves "
+        f"{arm[isa['b3']]}; SHA-NI {'in use' if isa['sha_ni'] else 'absent (scalar SHA-256)'}")
+    n_bytes = sum(f.size for f in files)
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def no_launch(what: str):
+        got = {key: k.launches for key, k in kernels.items()}
+        if any(got.values()):
+            raise AssertionError(f"{what} launched {got}; the host lane launches nothing")
+
+    def words(digests: list[bytes]) -> np.ndarray:
+        return np.frombuffer(b"".join(digests), dtype="<u4").astype(np.uint32).reshape(-1, 8)
+
+    # -- (a) the engine over phase 2's layer --------------------------------
+    sizes_64k = [np.diff(np.concatenate([[0], c])).tolist() for c in res_sha.cuts]
+    cases = [
+        (CHUNK_SIZE, "sha256", [s for f in sizes_64k for s in f],
+         lambda d: d == [x for digs in res_sha.digests for x in digs], "phase 2's fused results"),
+        (CHUNK_SIZE, "blake3", [s for f in sizes_64k for s in f],
+         lambda d: np.array_equal(words(d), b3["digests_u32"]), "phase 9's fused BLAKE3 results"),
+        (0x100000, "sha256", windowed["sizes_1m"].tolist(),
+         lambda d: d == windowed["digests_1m"], "phase 7's results"),
+        (0x100000, "blake3", windowed["sizes_1m"].tolist(),
+         lambda d: np.array_equal(words(d), b3["digests_1m_u32"]), "phase 9's 1 MiB BLAKE3 results"),
+    ]
+    out: dict = {"isa": isa, "cores": cores, "engine": {}}
+    for chunk_size, digester, want_sizes, digests_ok, against in cases:
+        eng = chunker.ChunkDigestEngine(chunk_size=chunk_size, backend="hybrid", digester=digester)
+        if eng.device is not None:
+            raise AssertionError("the hybrid engine took a device")
+        zero()
+        t0 = time.perf_counter()
+        got = eng.process_many(files)
+        first = time.perf_counter() - t0
+        no_launch(f"hybrid process_many ({digester}, {chunk_size >> 10} KiB)")
+        if [m.size for metas in got for m in metas] != want_sizes:
+            raise AssertionError(f"hybrid cuts ({digester}, {chunk_size >> 10} KiB) differ from {against}")
+        if not digests_ok([m.digest for metas in got for m in metas]):
+            raise AssertionError(f"hybrid digests ({digester}, {chunk_size >> 10} KiB) differ from "
+                                 f"{against}")
+        runs = [host_timed(lambda: eng.process_many(files)) for _ in range(3)]
+        wall = float(np.median([r[0] for r in runs]))
+        log(f"[12] ChunkDigestEngine(backend='hybrid', digester='{digester}') at "
+            f"{chunk_size >> 10} KiB chunks: {len(want_sizes)} chunks, every cut and digest == "
+            f"{against}; no launch; checked run {first:.3f} s, median {wall:.3f} s over 3 = "
+            f"{n_bytes / 2**30 / wall:.3f} GiB/s (runs, wall / host CPU s / minor page faults: "
+            + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in runs) + ")"
+            + (f"; the fused device engine, phase 5: {n_bytes / 2**30 / e2e_s:.3f} GiB/s"
+               if (chunk_size, digester) == (CHUNK_SIZE, "sha256") else ""))
+        out["engine"][f"{digester}_{chunk_size >> 10}k"] = {
+            "first_s": first, "wall_s": wall, "gib_per_s": n_bytes / 2**30 / wall,
+            "runs": [list(r) for r in runs]}
+        del got
+
+    # -- (b) and (c): the hybrid pack lanes over phase 4's tar ----------------
+    codec = "lz4_block" if "lz4_block" in comp["codecs"] else next(iter(comp["codecs"]))
+
+    def same(a, b) -> bool:
+        return a[0] == b[0] and a[1].bootstrap == b[1].bootstrap and a[1].blob_id == b[1].blob_id
+
+    def lane_case(name: str, threads: "str | None", want_lane: str, **kw):
+        opt = PackOption(chunk_size=CHUNK_SIZE, compressor=codec, **kw)
+        twin = pack_layer(tar, dataclasses.replace(opt, backend="fused"), device=dev)
+        hopt = dataclasses.replace(opt, backend="hybrid")
+        with pack_threads(threads) if threads else contextlib.nullcontext():
+            zero()
+            st = {}
+            t0 = time.perf_counter()
+            got = pack_layer(tar, hopt, stats=st)
+            first = time.perf_counter() - t0
+            no_launch(f"the hybrid pack ({name})")
+            route = got[1].route
+            if not same(got, twin):
+                raise AssertionError(f"the hybrid pack ({name}) differs from its fused twin")
+            if route["lane"] != want_lane or route["writer"] != "deferred" or not route["native"]:
+                raise AssertionError(f"the hybrid pack ({name}) took {route}; want lane {want_lane}, "
+                                     "the deferred writer's native pass")
+            runs, stats = [], []
+            for _ in range(3):
+                st_r, blobs = {}, []
+                runs.append(host_timed(lambda: blobs.append(pack_layer(tar, hopt, stats=st_r)[0])))
+                stats.append(st_r)
+                if blobs[0] != got[0]:
+                    raise AssertionError(f"the hybrid pack ({name}) differs from its checked run")
+        wall = float(np.median([r[0] for r in runs]))
+        log(f"[12] hybrid pack, {name}, NTPU_PACK_THREADS={threads or 'unset'}: == its fused twin "
+            f"(blob, bootstrap, blob id); no launch; route: "
+            + ", ".join(f"{k} {v}" for k, v in route.items())
+            + f"; checked run {first:.3f} s [{fmt_stats(st)}], median {wall:.3f} s (runs, wall / "
+            "host CPU s / minor page faults [stats s]: " + ", ".join(
+                f"{w:.3f} / {c:.3f} / {f} [{fmt_stats(x)}]" for (w, c, f), x in zip(runs, stats)) + ")")
+        return {"route": route, "first_s": first, "wall_s": wall, "runs": [list(r) for r in runs],
+                "stats": stats}
+
+    out["packs"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dict.boot"
+        path.write_bytes(comp["all_options"]["dict_bootstrap"])
+        for name, threads, lane, kw in (
+            (f"{codec} SHA-256, no dict", "1", "pack_files", {}),
+            (f"{codec} BLAKE3, no dict", "1", "pack_files", {"digester": "blake3"}),
+            (f"{codec} BLAKE3, phase 10's dict file", "1", "chunk_digest_multi",
+             {"digester": "blake3", "chunk_dict_path": f"bootstrap={path}"}),
+            (f"{codec} SHA-256, no dict", None,
+             "per_file" if _pack_threads() > 1 else "pack_files", {}),
+        ):
+            out["packs"][f"{lane}_{kw.get('digester', 'sha256')}_{threads or 'default'}"] = lane_case(
+                name, threads, lane, **kw)
+    log(f"[12] phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2302,6 +2552,9 @@ def main() -> int:
     service = service_phase(dev, tar, blob_f, res_f, kernels)
     fused_grown = fused_after_insert_phase(dev, eng, files, first, cdict, kernels)
     log(f"[11] {time.perf_counter() - t11:.1f} s")
+
+    # -- 12. the native engine's host arms: the hybrid engine and pack lanes --
+    host_arms_phase(dev, files, res, windowed, b3, e2e_s, tar, comp, all_kernels)
 
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, n_launches=None, **extra):

@@ -18,7 +18,16 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   cut by ``ChunkDigestEngine.boundaries`` (kernel K1 per file) and its
   chunks are digested on the card in 32 MiB batches (kernel K2), one batch
   in flight while the host cuts the next files.
-- ``backend="numpy"``: the host oracle, numpy CDC and ``hashlib``.
+- ``backend="hybrid"``: the native chunk engine's host lane
+  (ops/native_cdc), no device. At ``_pack_threads() == 1`` the whole layer
+  goes through one native call: ``pack_files`` (chunk, digest, dedup,
+  compress, assemble and hash) when there is no chunk dict and the
+  deferred section writer is in use, else ``chunk_digest_multi`` (cuts and
+  digests) before the dedup lane. With more threads each file takes one
+  fused chunk+digest call in tar order (the reference's serial per-file
+  lane; its threaded pipeline, parallel/pipeline.py, is not ported) and
+  files no larger than the minimum chunk are digested in one batch.
+- ``backend="numpy"``: the host oracle, numpy CDC and host digests.
 - ``digest_backend``: ``"jax"`` digests every lane's batches on the card;
   ``"host"`` digests the ``numpy`` and ``fused`` lanes' batches on the host
   (the ``jax`` lane digests on the card whatever it says, as the
@@ -32,9 +41,21 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   ``"zstd"`` (level 3) or ``"none"``; ``batch_size`` packs chunks below it
   into jointly compressed batches (``CHUNK_FLAG_BATCH``, batch records in
   the bootstrap); ``aligned_chunk`` aligns each stored frame to 4096 bytes
-  on RAFS v5. Compression runs on the host, serially, in the dedup lane,
-  as in the reference's device lanes; zstd goes through the system libzstd
-  whenever it is bound (utils/zstd.py), never a bundled build.
+  on RAFS v5. Which writer compresses is the reference's choice
+  (converter/stream.py:771-790): an in-memory tar (``bytes``) packed with
+  ``none``, ``lz4_block`` or ``zstd`` and no ``batch_size`` or v5
+  alignment takes :class:`_DeferredSectionWriter` on every lane. It
+  records each unique chunk's extent (a zero-copy offset into the tar, or
+  loose bytes in a side buffer) and after the chunk lane compresses,
+  assembles and hashes the whole section in one GIL-free native call
+  (``native_cdc.pack_section``) over ``_pack_threads()`` workers, by default
+  the core count; the bytes do not depend on the count. Without the system
+  codec library the engine can dlopen, the extents replay through the
+  Python codec. Otherwise (a file-like ``src_tar``, ``batch_size``, v5
+  ``aligned_chunk``) :class:`_SectionWriter` compresses chunk by chunk in
+  the dedup lane, on one thread. Codecs are the system liblz4 and libzstd
+  (utils/lz4.py, utils/zstd.py, and the engine's own dlopen of the same
+  names), never a bundled build.
 - ``prefetch_patterns`` fill the bootstrap's prefetch table;
   ``chunk_dict_path`` opens a chunk dict when none is passed, through
   parallel/dict_service.open_chunk_dict: ``service://<uds>[,<uds>...]
@@ -45,9 +66,9 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   ``ServiceChunkDict``.
 - RAFS v5 or v6.
 
-Refused with :class:`ConvertError`: ``backend="hybrid"`` (the native chunk
-lane is not ported), ``encrypt=True`` (the blob cipher is not ported) and
-the HA chunk-dict service (``service+ha://``, ``|`` failover groups). A real
+Refused with :class:`ConvertError`: ``encrypt=True`` (the blob cipher is
+not ported) and the HA chunk-dict service (``service+ha://``, ``|``
+failover groups). A real
 nydus v5/v6 bootstrap as ``chunk_dict_path`` raises ``BootstrapError``
 (models/bootstrap.ChunkDict.from_path).
 
@@ -63,6 +84,7 @@ from __future__ import annotations
 
 import hashlib
 import io
+import os
 import stat
 import tarfile
 from dataclasses import dataclass, field
@@ -84,7 +106,13 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     CipherRecord,
     Inode,
 )
-from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester, HostDigester
+from nydus_snapshotter_tpu_torch.ops import native_cdc
+from nydus_snapshotter_tpu_torch.ops.chunker import (
+    ChunkDigestEngine,
+    DeviceDigester,
+    HostDigester,
+    host_digests_for,
+)
 from nydus_snapshotter_tpu_torch.utils import lz4
 from nydus_snapshotter_tpu_torch.utils import zstd as zstd_native
 
@@ -98,6 +126,13 @@ class PackResult:
     blob_size: int
     bootstrap: bytes
     referenced_blob_ids: list[str]
+    # How the pack ran: ``lane`` (the lane that took the in-memory files:
+    # "pack_files", "chunk_digest_multi", "fused" or "per_file"; "stream"
+    # for a file-like tar), ``writer`` ("deferred" or "serial"), and for the
+    # deferred writer ``native`` (False when its section replayed through
+    # the Python codec), ``threads`` and the unique chunks it recorded from
+    # the tar buffer (``src0``) and from loose bytes (``src1``).
+    route: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -213,6 +248,132 @@ class _SectionWriter:
         self._flush_batch()
 
 
+class _SectionDigest:
+    """The ``hasher`` of :class:`_DeferredSectionWriter`: the section
+    digest the native pass computed."""
+
+    def __init__(self) -> None:
+        self._d = b""
+
+    def digest(self) -> bytes:
+        return self._d
+
+    def hexdigest(self) -> str:
+        return self._d.hex()
+
+
+class _DeferredSectionWriter:
+    """The blob data section assembled in one native pass at ``finish``
+    (the reference's converter/stream.py:356-463).
+
+    ``add`` only records each unique chunk's extent: a chunk that is a view
+    into the tar buffer becomes a zero-copy (0, offset, size) extent, any
+    other chunk (``bytes``, or a view of another buffer) is copied into a
+    side buffer as (1, offset, size). ``finish`` hands the extents to
+    ``native_cdc.pack_section``, which compresses, appends and hashes over
+    ``_pack_threads()`` workers. It writes what :class:`_SectionWriter`
+    writes for packed chunks (align 1, no batches, no cipher). When the
+    engine cannot dlopen the codec's system library, the extents replay
+    through the Python codec: the same bytes, on one thread.
+    """
+
+    def __init__(self, out: _CountingWriter, opt: PackOption, compress, raw: memoryview):
+        self.out = out
+        self.compress = compress  # the replay only
+        self.hasher = _SectionDigest()
+        self.coff = 0
+        self.extents: list[Optional[tuple[int, int, int]]] = []
+        self.batches: list[tuple[int, int, int]] = []
+        self._kind = {"lz4_block": 1, "zstd": 2}.get(opt.compressor, 0)
+        # the codec parameter: lz4's acceleration, or zstd's level
+        self._accel = constants.ZSTD_LEVEL if self._kind == 2 else opt.lz4_acceleration
+        self._cflag = {
+            "lz4_block": constants.COMPRESSOR_LZ4_BLOCK,
+            "zstd": constants.COMPRESSOR_ZSTD,
+        }.get(opt.compressor, constants.COMPRESSOR_NONE)
+        self._raw_arr = np.frombuffer(raw, dtype=np.uint8)
+        self._base = self._raw_arr.ctypes.data
+        self._raw_len = len(raw)
+        self._items: list[tuple[int, int, int]] = []
+        self._side = bytearray()
+        self.native: Optional[bool] = None  # set by finish: native pass, or replay
+        self.threads = 0
+
+    def add(self, uniq_idx: int, data, uoff: int) -> None:
+        assert uniq_idx == len(self._items)
+        size = len(data)
+        if isinstance(data, memoryview):
+            off = np.frombuffer(data, dtype=np.uint8).ctypes.data - self._base
+            if 0 <= off and off + size <= self._raw_len:
+                self._items.append((0, off, size))
+                return
+            data = bytes(data)
+        self._items.append((1, len(self._side), size))
+        self._side += data
+
+    def source_counts(self) -> tuple[int, int]:
+        """(extents recorded from the tar buffer, from loose bytes)."""
+        src1 = sum(1 for src, _o, _s in self._items if src)
+        return len(self._items) - src1, src1
+
+    def finish(self) -> None:
+        if not self._items:
+            return
+        ext = np.asarray(self._items, dtype=np.int64)
+        side = np.frombuffer(self._side, dtype=np.uint8) if self._side else np.empty(0, np.uint8)
+        self.threads = _pack_threads()
+        res = native_cdc.pack_section(self._raw_arr, side, ext, self._kind, self._accel, self.threads)
+        self.native = res is not None
+        if res is None:
+            hasher = hashlib.sha256()
+            for src, off, size in self._items:
+                buf = self._raw_arr[off : off + size] if src == 0 else side[off : off + size]
+                comp, cflag = self.compress(memoryview(buf))
+                self.extents.append((self.coff, len(comp), cflag))
+                hasher.update(comp)
+                self.out.write(comp)
+                self.coff += len(comp)
+            self.hasher._d = hasher.digest()
+            return
+        self._adopt(*res)
+
+    def _adopt(self, blob, comp_extents, digest: bytes) -> None:
+        """Take a native pass's assembled section (``finish`` and
+        ``finish_fused``)."""
+        self.extents = [
+            (int(comp_extents[j, 0]), int(comp_extents[j, 1]), self._cflag)
+            for j in range(comp_extents.shape[0])
+        ]
+        self.hasher._d = digest
+        if blob.size:
+            self.out.write(memoryview(blob))
+        self.coff = int(blob.size)
+
+    def finish_fused(self, blob, comp_extents, digest: bytes) -> None:
+        """Take the output of the whole-layer ``pack_files`` pass, which
+        already compressed, assembled and hashed; nothing was ``add``ed, so
+        ``finish`` stays a no-op."""
+        self.native = True
+        self._adopt(blob, comp_extents, digest)
+
+
+def _pack_threads() -> int:
+    """Workers of the native section pass (and the test of the
+    single-thread host lanes): ``NTPU_PACK_THREADS`` asks for a count,
+    capped at ``os.cpu_count()`` unless ``NTPU_PACK_THREADS_FORCE`` is set
+    (not "" or "0"); by default the core count."""
+    try:
+        n = int(os.environ.get("NTPU_PACK_THREADS", ""))
+    except ValueError:
+        n = 0
+    ncpu = os.cpu_count() or 1
+    if n >= 1:
+        if os.environ.get("NTPU_PACK_THREADS_FORCE", "") not in ("", "0"):
+            return n
+        return min(n, ncpu)
+    return ncpu
+
+
 def match_prefetch_paths(inodes, patterns: str) -> list[str]:
     """Resolve prefetch patterns to regular-file inode paths, hint order.
 
@@ -238,8 +399,8 @@ def match_prefetch_paths(inodes, patterns: str) -> list[str]:
 def _check_options(opt: PackOption) -> None:
     opt.validate()
     refused = []
-    if opt.backend not in ("fused", "jax", "numpy"):
-        refused.append(f"backend={opt.backend!r} (the native chunk lane is not ported)")
+    if opt.backend not in ("fused", "jax", "hybrid", "numpy"):
+        refused.append(f"backend={opt.backend!r}")
     if opt.encrypt:
         refused.append("encrypt=True (the blob cipher, converter/crypto.py, is not ported)")
     path = opt.chunk_dict_path
@@ -260,7 +421,10 @@ class IncrementalChunker:
     ``max_size`` of lookahead in the buffer is final; the rest is carried.
     Produces exactly the cuts a whole-stream run produces. Boundaries go
     through the engine (``jax``/``fused``: the windowed device lane;
-    ``numpy``: the host); callers packing many files share one engine.
+    ``hybrid``: the native chunker; ``numpy``: the host); callers packing
+    many files share one engine. When the engine's native chunk+digest arm
+    applies (``hybrid`` CDC with host digests) every chunk comes with its
+    digest; otherwise the digest is None.
     """
 
     def __init__(self, opt: PackOption, engine: ChunkDigestEngine | None = None, device=None):
@@ -274,42 +438,55 @@ class IncrementalChunker:
         )
         params = self._engine.params
         self.lookahead = params.max_size if params else opt.chunk_size
+        self.fused = self._engine._fused_available()
         self._buf = bytearray()
 
-    def feed(self, seg: bytes) -> list[bytes]:
+    def _cuts(self, arr: np.ndarray) -> tuple[np.ndarray, Optional[bytes]]:
+        if self.fused:
+            return native_cdc.chunk_digest_native(
+                arr, self._engine.params, digester=self._engine.digester
+            )
+        return self._engine.boundaries(arr), None
+
+    def feed(self, seg: bytes) -> list[tuple[bytes, Optional[bytes]]]:
         self._buf += seg
         if len(self._buf) < 2 * self.lookahead:
             return []
         return self._drain(final=False)
 
-    def finish(self) -> list[bytes]:
+    def finish(self) -> list[tuple[bytes, Optional[bytes]]]:
         out = self._drain(final=True)
         self._buf = bytearray()
         return out
 
-    def _drain(self, final: bool) -> list[bytes]:
+    def _drain(self, final: bool) -> list[tuple[bytes, Optional[bytes]]]:
         buf = self._buf
         if not buf:
             return []
+        cuts, digests = self._cuts(np.frombuffer(buf, dtype=np.uint8))
         out = []
         s = 0
-        for c in self._engine.boundaries(np.frombuffer(buf, dtype=np.uint8)):
+        for i, c in enumerate(cuts):
             c = int(c)
             if not final and s + self.lookahead > len(buf):
                 break
-            out.append(bytes(buf[s:c]))
+            digest = digests[32 * i : 32 * i + 32] if digests is not None else None
+            out.append((bytes(buf[s:c]), digest))
             s = c
         self._buf = bytearray(buf[s:]) if not final else bytearray()
         return out
 
-    def chunk_whole(self, view: memoryview) -> list[memoryview]:
-        """Chunks of a complete in-memory file, as zero-copy views."""
+    def chunk_whole(self, view: memoryview) -> list[tuple[memoryview, Optional[bytes]]]:
+        """Chunks of a complete in-memory file as zero-copy views, with
+        their digests where the native arm made them."""
         if len(view) == 0:
             return []
+        cuts, digests = self._cuts(np.frombuffer(view, dtype=np.uint8))
         out = []
         s = 0
-        for c in self._engine.boundaries(np.frombuffer(view, dtype=np.uint8)):
-            out.append(view[s : int(c)])
+        for i, c in enumerate(cuts):
+            digest = digests[32 * i : 32 * i + 32] if digests is not None else None
+            out.append((view[s : int(c)], digest))
             s = int(c)
         return out
 
@@ -336,10 +513,13 @@ def Pack(
     the reference's keys, from the start of the tar walk: ``scan`` (tar
     walk and metadata), ``chunk_digest`` (cuts and chunk digests: engine
     and chunker calls, digest batch submit and collect), ``assemble``
-    (compression, blob append, blob digest), ``dedup`` (the rest of the
-    chunk lane: dedup, dict lookups, bookkeeping) and ``bootstrap``
-    (tables, serialization, TOC). Chunk-digest and assemble seconds are
-    timed where they are spent, during the walk too.
+    (compression, blob append, blob digest: with the deferred writer its
+    native pass at the end), ``fused_pack`` (the ``hybrid`` lane's
+    whole-layer ``pack_files`` call, which chunks, dedups and assembles at
+    once), ``dedup`` (the rest of the chunk lane: dedup, dict lookups,
+    bookkeeping) and ``bootstrap`` (tables, serialization, TOC). Chunk-digest
+    and assemble seconds are timed where they are spent, during the walk
+    too. ``PackResult.route`` says which lane and section writer ran.
     """
     _check_options(opt)
     opened = None
@@ -369,11 +549,28 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
         raw = memoryview(src_tar)
         src_tar = io.BytesIO(src_tar)
     out = _CountingWriter(dest)
-    section = _SectionWriter(out, opt, _make_compressor(opt.compressor, opt.lz4_acceleration))
+    compress = _make_compressor(opt.compressor, opt.lz4_acceleration)
+    align_needed = opt.aligned_chunk and opt.fs_version == layout.RAFS_V5
+    if (
+        raw is not None
+        and opt.compressor in ("none", "lz4_block", "zstd")
+        and not opt.batch_size
+        and not align_needed
+        and native_cdc.pack_section_available()
+    ):
+        section = _DeferredSectionWriter(out, opt, compress, raw)
+    else:
+        section = _SectionWriter(out, opt, compress)
 
     metas: dict[str, _Meta] = {}
     opaque_dirs: list[str] = []
-    plan: list[tuple[_Meta, int, int]] = []  # in-memory files: (meta, data offset, size)
+    # In-memory files, in tar order: (tag, meta, data offset, size). On the
+    # native host lane files no larger than the minimum chunk (one chunk
+    # each) are tagged "small" and digested together in one batch.
+    plan: list[tuple[str, _Meta, int, int]] = []
+    params = engine.params
+    small_max = params.min_size if params is not None else opt.chunk_size
+    defer_small = raw is not None and shared.fused
 
     # Dedup state (chunk order = tar order; deterministic).
     own_chunks: dict[bytes, int] = {}
@@ -386,7 +583,7 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
     pending: list[tuple[_Meta, memoryview]] = []
     pending_bytes = 0
     in_flight = None
-    t_chunk = t_asm = 0.0  # stage seconds timed at their call sites
+    t_chunk = t_asm = t_fused = 0.0  # stage seconds timed at their call sites
 
     def _process(batch: list[tuple[_Meta, memoryview]], digests: list[bytes]) -> None:
         nonlocal uoff, t_asm
@@ -430,8 +627,12 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
             t_chunk += perf_counter() - t0
             pending, pending_bytes = [], 0
 
-    def _add_chunk(meta: _Meta, data) -> None:
+    def _add_chunk(meta: _Meta, data, digest: Optional[bytes] = None) -> None:
         nonlocal pending_bytes
+        if digest is not None:
+            # the native arm digested it with its cuts: store it now, in order
+            _process([(meta, data)], [digest])
+            return
         pending.append((meta, data))
         pending_bytes += len(data)
         if pending_bytes >= DIGEST_BATCH_BYTES:
@@ -459,7 +660,8 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
         meta.size = info.size
         if raw is not None and not info.sparse:
             # zero-copy: the member's bytes are a slice of the caller's buffer
-            plan.append((meta, info.offset_data, info.size))
+            tag = "small" if defer_small and info.size <= small_max else "file"
+            plan.append((tag, meta, info.offset_data, info.size))
             return
         # streaming input, or a sparse member (its data is stored compacted)
         f = tf.extractfile(info)
@@ -473,13 +675,13 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
             t0 = perf_counter()
             chunks = chunker.feed(seg)
             t_chunk += perf_counter() - t0
-            for chunk in chunks:
-                _add_chunk(meta, chunk)
+            for chunk, digest in chunks:
+                _add_chunk(meta, chunk, digest)
         t0 = perf_counter()
         chunks = chunker.finish()
         t_chunk += perf_counter() - t0
-        for chunk in chunks:
-            _add_chunk(meta, chunk)
+        for chunk, digest in chunks:
+            _add_chunk(meta, chunk, digest)
 
     t_walk = perf_counter()
     try:
@@ -495,14 +697,83 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
             raise ConvertError(f"bad layer tar: {e}") from e
     t_lane = perf_counter()
     walk_chunk, walk_asm = t_chunk, t_asm
+    lane = "per_file" if raw is not None else "stream"
+
+    n_threads = _pack_threads()
+    arr_all = np.frombuffer(raw, dtype=np.uint8) if raw is not None else None
+    # The single-thread host lanes (converter/stream.py:955-1045): one
+    # native call for every planned file.
+    use_multi = (
+        plan
+        and n_threads == 1
+        and shared.fused
+        and opt.chunking == "cdc"
+        and native_cdc.chunk_digest_multi_available()
+    )
+    if (
+        use_multi
+        and chunk_dict is None
+        and isinstance(section, _DeferredSectionWriter)
+        and native_cdc.pack_files_available()
+        # the pass owns the whole dedup and storage state: nothing may
+        # have been stored during the walk (sparse members stream then)
+        and uoff == 0
+        and not own_chunks
+        and not pending
+        and in_flight is None
+        and not section._items
+    ):
+        ext = np.asarray([(off, size) for _t, _m, off, size in plan], dtype=np.int64)
+        t0 = perf_counter()
+        fused = native_cdc.pack_files(
+            arr_all, ext, params, section._kind, section._accel, n_threads, digester=opt.digester
+        )
+        if fused is not None:
+            digs, sizes, uniq = fused["digests"], fused["chunk_sizes"], fused["chunk_uniq"]
+            pos = 0
+            for (_tag, meta, _off, _size), nc in zip(plan, fused["file_nchunks"]):
+                for k in range(pos, pos + int(nc)):
+                    meta.chunks.append(
+                        _ChunkRef(digest=digs[32 * k : 32 * k + 32], size=int(sizes[k]),
+                                  uniq_idx=int(uniq[k]))
+                    )
+                pos += int(nc)
+            usz = fused["uniq_sizes"]
+            if len(usz):
+                uncomp_offsets = np.concatenate([[0], np.cumsum(usz[:-1])]).astype(np.int64).tolist()
+                uoff = int(usz.sum())
+            section.threads = n_threads
+            section.finish_fused(fused["blob"], fused["comp_extents"], fused["blob_digest"])
+            plan = []
+            lane = "pack_files"
+        t_fused += perf_counter() - t0
+    if use_multi and plan:
+        ext = np.asarray([(off, size) for _t, _m, off, size in plan], dtype=np.int64)
+        t0 = perf_counter()
+        ncuts, cuts_all, digs_all = native_cdc.chunk_digest_multi(
+            arr_all, ext, params, digester=opt.digester
+        )
+        t_chunk += perf_counter() - t0
+        pos = 0
+        for (_tag, meta, off, size), nc in zip(plan, ncuts):
+            view = raw[off : off + size]
+            batch, dlist, s0 = [], [], 0
+            for k in range(pos, pos + int(nc)):
+                c = int(cuts_all[k])
+                batch.append((meta, view[s0:c]))
+                dlist.append(digs_all[32 * k : 32 * k + 32])
+                s0 = c
+            _process(batch, dlist)
+            pos += int(nc)
+        plan = []
+        lane = "chunk_digest_multi"
 
     if plan and opt.backend == "fused" and opt.chunking == "cdc":
         # The whole layer through the engine's device full path, which falls
         # to its per-file windowed lane on FusedOverflow.
-        arr_all = np.frombuffer(raw, dtype=np.uint8)
         fallbacks = engine.stats["fused_fallbacks"]
         t0 = perf_counter()
-        per_file = engine.process_many([arr_all[off : off + size] for _m, off, size in plan])
+        per_file = engine.process_many([arr_all[off : off + size] for _t, _m, off, size in plan])
         t_chunk += perf_counter() - t0
         if engine.stats["fused_fallbacks"] > fallbacks:
             # The reference's per-file lane queues these chunks behind the
@@ -510,24 +781,45 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
             # those first.
             _dispatch()
             _dispatch()
-        for (meta, off, _size), chunks in zip(plan, per_file):
+        for (_tag, meta, off, _size), chunks in zip(plan, per_file):
             _process(
                 [(meta, raw[off + c.offset : off + c.offset + c.size]) for c in chunks],
                 [c.digest for c in chunks],
             )
         plan = []
-    for meta, off, size in plan:
+        lane = "fused"
+    small = [(arr_all, off, size) for tag, _m, off, size in plan if tag == "small"]
+    if small:
         t0 = perf_counter()
-        chunks = shared.chunk_whole(raw[off : off + size])
+        small_digests = iter(host_digests_for(opt.digester)(small))
         t_chunk += perf_counter() - t0
-        for chunk in chunks:
-            _add_chunk(meta, chunk)
+    # The serial per-file lane (the reference's lane when its threaded
+    # pipeline is off): files in tar order.
+    for tag, meta, off, size in plan:
+        view = raw[off : off + size]
+        if tag == "small":
+            _process([(meta, view)], [next(small_digests)])
+            continue
+        t0 = perf_counter()
+        chunks = shared.chunk_whole(view)
+        t_chunk += perf_counter() - t0
+        if chunks and chunks[0][1] is not None:
+            _process([(meta, c) for c, _d in chunks], [d for _c, d in chunks])
+        else:
+            for chunk, _d in chunks:
+                _add_chunk(meta, chunk)
     _dispatch()  # collects the batch in flight, submits the rest
     _dispatch()  # collects the rest
     t0 = perf_counter()
     section.finish()
     t_end = perf_counter()
     t_asm += t_end - t0
+    if isinstance(section, _DeferredSectionWriter):
+        src0, src1 = section.source_counts()
+        route = {"lane": lane, "writer": "deferred", "native": section.native,
+                 "threads": section.threads, "src0": src0, "src1": src1}
+    else:
+        route = {"lane": lane, "writer": "serial"}
 
     blob_size = section.coff
     blob_id = section.hasher.hexdigest() if blob_size else ""
@@ -668,7 +960,9 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
         for key, s in (
             ("scan", t_lane - t_walk - walk_chunk - walk_asm),
             ("chunk_digest", t_chunk),
-            ("dedup", t_end - t_lane - (t_chunk - walk_chunk) - (t_asm - walk_asm)),
+            # the whole-layer pack_files call: chunk, dedup and assemble in one
+            ("fused_pack", t_fused),
+            ("dedup", t_end - t_lane - (t_chunk - walk_chunk) - (t_asm - walk_asm) - t_fused),
             ("assemble", t_asm),
             ("bootstrap", perf_counter() - t_end),
         ):
@@ -679,6 +973,7 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
         blob_size=blob_size,
         bootstrap=boot_bytes,
         referenced_blob_ids=[b.blob_id for b in blob_table],
+        route=route,
     )
 
 

@@ -43,9 +43,10 @@ class PackOption:
     encrypt: bool = False
     # Engine selection, with the reference's value names: fused = the device full path (ops/fused_convert, the default
     # here); jax = the windowed device lane (ops/chunker.ChunkDigestEngine,
-    # on CUDA in this package); numpy = the host differential path (numpy
-    # CDC + hashlib). hybrid needs the native chunk engine's chunking and
-    # digest arms, not ported yet, and is refused by this package's Pack.
+    # on CUDA in this package); hybrid = the native chunk engine's host lane
+    # (ops/native_cdc: SIMD cuts with SHA-NI or BLAKE3 digests in one pass,
+    # no device); numpy = the host differential path (numpy CDC, host
+    # digests).
     backend: str = "fused"
     chunking: str = "cdc"  # "cdc" | "fixed"
     # "" = engine default for the backend; "jax" routes chunk digests
@@ -56,7 +57,7 @@ class PackOption:
     # Chunk-digest algorithm (reference `nydus-image --digester`,
     # RafsSuperFlags 0x4 blake3 / 0x8 sha256): it changes the chunk digests
     # in the bootstrap and nothing else. The fused and jax lanes digest
-    # either on the card; the numpy lane digests blake3 on the host arm.
+    # either on the card; the hybrid and numpy lanes on the native host arm.
     # The blob ID stays sha256 (OCI convention).
     digester: str = "sha256"
 

@@ -20,12 +20,16 @@ for ``nydus-image create``'s chunk + digest loop:
 The backend names are the reference's, so an option that works there means
 the same here: ``"jax"`` is the windowed device lane (on CUDA in this
 package), ``"fused"`` the full-path engine (ops/fused_convert.py) with the
-windowed lane behind it, ``"numpy"`` the host oracle. Fixed-size mode skips
-the hash and the cut resolution. ``digester`` is ``"sha256"`` or
-``"blake3"`` (the reference toolchain's default): with the ``"jax"`` digest
-backend BLAKE3 runs on the card, with the others on the host BLAKE3 arm
-(the pure-Python copy in utils/blake3.py, as the reference digests when its
-native engine is not built).
+windowed lane behind it, ``"hybrid"`` the host lane of the native chunk
+engine (ops/native_cdc.py: cuts by ``chunk_data_best``, streams chunked on a
+thread pool, and with host digests one fused chunk+digest call per stream;
+no CUDA context unless ``digest_backend="jax"``), ``"numpy"`` the host
+oracle. Fixed-size mode skips the hash and the cut resolution. ``digester``
+is ``"sha256"`` or ``"blake3"`` (the reference toolchain's default): with
+the ``"jax"`` digest backend BLAKE3 runs on the card, with the others on the
+native engine's host arm (``ntpu_blake3_many``). Host SHA-256 batches of 8
+or more chunks go through ``ntpu_sha256_many`` (SHA-NI when the CPU has
+it), smaller ones through ``hashlib``.
 """
 
 from __future__ import annotations
@@ -40,9 +44,8 @@ from time import perf_counter
 import numpy as np
 import torch
 
-from nydus_snapshotter_tpu_torch.ops import cdc, fused_convert, gear, gear_cuda
+from nydus_snapshotter_tpu_torch.ops import cdc, fused_convert, gear, gear_cuda, native_cdc
 from nydus_snapshotter_tpu_torch.tensors import as_int32, resolve_device
-from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
 
 DEFAULT_WINDOW = 1 << 22  # 4 MiB per device window
 MIN_WINDOW = 1 << 19  # smallest window: a small stream's row is pow2_ceil(size) >= this
@@ -96,34 +99,55 @@ def _as_array(data) -> np.ndarray:
     return np.frombuffer(data, dtype=np.uint8)
 
 
+def _cpu_count() -> int:
+    return os.cpu_count() or 4
+
+
 def _map_threads(fn, items: list, min_batch: int = 2) -> list:
-    """Thread-pool map for GIL-dropping work (hashlib over buffers larger
-    than 2 KiB); sequential below ``min_batch``."""
+    """Thread-pool map for GIL-dropping work (native ctypes calls, hashlib
+    over buffers larger than 2 KiB); sequential below ``min_batch``."""
     if len(items) < min_batch:
         return [fn(i) for i in items]
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 4)) as pool:
+    with ThreadPoolExecutor(max_workers=min(32, _cpu_count())) as pool:
         return list(pool.map(fn, items))
 
 
+def _grouped_native_digests(items: list[tuple[np.ndarray, int, int]], native_fn) -> list[bytes]:
+    """(array, offset, size) items -> digests, by GIL-dropping native batch
+    calls: runs of extents that share an array make one call each, and with
+    fewer runs than cores a run is split so one large stream still spreads
+    over the cores. ``native_fn(arr, extents_i64) -> bytes`` (32 bytes an
+    extent) is ``sha256_many_native`` or ``blake3_many_native``."""
+    groups: list[tuple[np.ndarray, list[tuple[int, int]]]] = []
+    for arr, off, size in items:
+        if groups and groups[-1][0] is arr:
+            groups[-1][1].append((off, size))
+        else:
+            groups.append((arr, [(off, size)]))
+    ncpu = _cpu_count()
+    if ncpu > 1 and len(groups) < ncpu:
+        per = max(8, -(-len(items) // ncpu))
+        groups = [(arr, exts[i : i + per]) for arr, exts in groups for i in range(0, len(exts), per)]
+    flat = _map_threads(lambda g: native_fn(g[0], np.asarray(g[1], dtype=np.int64)), groups)
+    return [blob[32 * i : 32 * (i + 1)] for blob in flat for i in range(len(blob) // 32)]
+
+
 def _host_digests(items: list[tuple[np.ndarray, int, int]]) -> list[bytes]:
-    """Threaded host SHA-256 over (array, offset, size) extents: the
-    reference's ``_host_digests`` as it runs without its native engine."""
-
-    def one(item: tuple[np.ndarray, int, int]) -> bytes:
-        arr, off, size = item
-        return hashlib.sha256(memoryview(arr)[off : off + size]).digest()
-
-    return _map_threads(one, items, min_batch=8)
+    """Host SHA-256 over (array, offset, size) extents: threaded native
+    batch calls (SHA-NI when the CPU has it) for 8 items or more, below
+    that ``hashlib`` in this thread, as the reference routes."""
+    if len(items) >= 8:
+        return _grouped_native_digests(items, native_cdc.sha256_many_native)
+    return [hashlib.sha256(memoryview(a)[o : o + s]).digest() for a, o, s in items]
 
 
 def _host_digests_blake3(items: list[tuple[np.ndarray, int, int]]) -> list[bytes]:
-    """Host BLAKE3 over (array, offset, size) extents: the reference's
-    ``_host_digests_blake3`` as it runs without its native engine (the
-    pure-Python spec implementation; native_cdc is not ported). Pure Python
-    holds the interpreter lock, so it runs in this thread."""
-    return [pyb3.blake3(bytes(memoryview(a)[o : o + s])) for a, o, s in items]
+    """Threaded host BLAKE3 over (array, offset, size) extents, on the
+    native engine's BLAKE3 arm (``ntpu_blake3_many``) whatever the batch
+    size. (The pure-Python utils/blake3.py is the tests' oracle.)"""
+    return _grouped_native_digests(items, native_cdc.blake3_many_native)
 
 
 def host_digests_for(digester: str):
@@ -242,13 +266,15 @@ class ChunkDigestEngine:
 
     Parameters mirror the reference's: ``chunk_size`` (power-of-two
     average; pkg/converter/types.go:76-79), ``mode`` ``cdc`` or ``fixed``,
-    ``backend`` ``jax`` (the windowed device lane), ``fused`` or ``numpy``,
-    ``digest_backend`` ``jax`` (K2, or K4 for BLAKE3), ``host`` (threaded
-    hashlib) or ``numpy`` (hashlib), by default the backend's own, and
+    ``backend`` ``jax`` (the windowed device lane), ``fused``, ``hybrid``
+    (the native host lane) or ``numpy``, ``digest_backend`` ``jax`` (K2, or
+    K4 for BLAKE3), ``host`` (threaded native batches; ``hybrid``'s
+    default) or ``numpy`` (hashlib), by default the backend's own, and
     ``digester`` ``sha256`` or ``blake3`` (whose ``host`` and ``numpy``
-    digests run on the host BLAKE3 arm). ``device`` is where
+    digests run on the native BLAKE3 arm). ``device`` is where
     the device arms run: CUDA unless ``"cpu"`` is asked for, which takes the
-    kernels' plain versions. ``stats`` accumulates the wall seconds of the
+    kernels' plain versions; the ``numpy`` and ``hybrid`` backends take a
+    device only with ``digest_backend="jax"``. ``stats`` accumulates the wall seconds of the
     windowed ``process_many``'s two halves: ``boundaries_many`` (upload,
     K1, bitmap download, cut resolution) and ``digest_all`` (staging,
     upload, K2, digest download), and counts in ``fused_fallbacks`` the
@@ -268,16 +294,13 @@ class ChunkDigestEngine:
     ):
         if mode not in ("cdc", "fixed"):
             raise ValueError(f"unknown chunking mode {mode!r}")
-        if backend == "hybrid":
-            raise ValueError(
-                "backend='hybrid' needs the native chunk engine's chunking and digest "
-                "arms (native_cdc), which are not ported yet (ROADMAP.md Queue A item 10)"
-            )
-        if backend not in ("jax", "numpy", "fused"):
+        if backend not in ("jax", "numpy", "hybrid", "fused"):
             raise ValueError(f"unknown backend {backend!r}")
         if window % 32 or window <= 0:
             raise ValueError("window must be a positive multiple of 32")
-        self.digest_backend = digest_backend or ("jax" if backend == "fused" else backend)
+        self.digest_backend = digest_backend or (
+            "host" if backend == "hybrid" else "jax" if backend == "fused" else backend
+        )
         if self.digest_backend not in ("jax", "numpy", "host"):
             raise ValueError(f"unknown digest backend {self.digest_backend!r}")
         if digester not in ("sha256", "blake3"):
@@ -288,7 +311,7 @@ class ChunkDigestEngine:
         self.window = window
         self.digester = digester
         self.params = cdc.CDCParams(chunk_size) if mode == "cdc" else None
-        hashes_on_device = mode == "cdc" and backend != "numpy"
+        hashes_on_device = mode == "cdc" and backend in ("jax", "fused")
         self.device = (
             resolve_device(device) if hashes_on_device or self.digest_backend == "jax" else None
         )
@@ -312,6 +335,8 @@ class ChunkDigestEngine:
             return cdc.chunk_fixed(arr.size, self.chunk_size)
         if arr.size == 0:
             return np.asarray([], dtype=np.int64)
+        if self.backend == "hybrid":
+            return native_cdc.chunk_data_best(arr, self.params)
         if self.backend == "numpy":
             return cdc.chunk_data_np(arr, self.params)
         cand_s, cand_l = self._candidates_windowed(arr)
@@ -381,8 +406,11 @@ class ChunkDigestEngine:
 
         On the windowed lanes: at most ``DEPTH`` streams in flight,
         collected in order, so the card hashes stream i+1 while the host
-        resolves stream i; one K1 launch per non-empty stream.
+        resolves stream i; one K1 launch per non-empty stream. On
+        ``hybrid``: a thread pool (the native chunker drops the GIL).
         """
+        if self.backend == "hybrid":
+            return _map_threads(self.boundaries, arrs)
         if self.mode != "cdc" or self.backend == "numpy":
             return [self.boundaries(a) for a in arrs]
         arrs = [_as_array(a) for a in arrs]
@@ -450,7 +478,8 @@ class ChunkDigestEngine:
         boundaries of every stream, then every chunk digested in one pass.
         ``backend="fused"`` runs the full-path engine and, when it cannot
         take the input (:class:`fused_convert.FusedOverflow`), this
-        windowed path, as the reference does."""
+        windowed path, as the reference does; ``hybrid`` with host digests
+        one native chunk+digest call per stream, on a thread pool."""
         if not streams:
             return []
         arrs = [_as_array(s) for s in streams]
@@ -459,6 +488,8 @@ class ChunkDigestEngine:
             if out is not None:
                 return out
             self.stats["fused_fallbacks"] += 1
+        if self._fused_available():
+            return self._process_many_fused(arrs)
         t0 = perf_counter()
         per_file_extents = [cdc.cuts_to_extents(c) for c in self.boundaries_many(arrs)]
         t1 = perf_counter()
@@ -491,3 +522,23 @@ class ChunkDigestEngine:
         except fused_convert.FusedOverflow:
             return None
         return out
+
+    def _fused_available(self) -> bool:
+        """The native single-pass chunk+digest arm (SIMD bitmaps, SHA-NI or
+        BLAKE3 leaves) takes ``hybrid`` CDC with host digests."""
+        return (
+            self.mode == "cdc"
+            and self.backend == "hybrid"
+            and self.digest_backend == "host"
+            and native_cdc.chunk_digest_available()
+        )
+
+    def _process_many_fused(self, arrs: list[np.ndarray]) -> list[list[ChunkMeta]]:
+        def one(arr: np.ndarray) -> list[ChunkMeta]:
+            cuts, digests = native_cdc.chunk_digest_native(arr, self.params, digester=self.digester)
+            return [
+                ChunkMeta(offset=o, size=s, digest=digests[32 * i : 32 * i + 32])
+                for i, (o, s) in enumerate(cdc.cuts_to_extents(cuts))
+            ]
+
+        return _map_threads(one, arrs)

@@ -182,6 +182,80 @@ class TestDigests:
         assert got == [hashlib.sha256(a[o : o + s]).digest() for a, o, s in items]
 
 
+class TestHybridEngine:
+    """``backend="hybrid"``: the native chunk engine's host lane, against
+    the reference's hybrid engine and the port's numpy engine."""
+
+    @pytest.mark.parametrize("digester", ["sha256", "blake3"])
+    @pytest.mark.parametrize("mode", ["cdc", "fixed"])
+    def test_matches_reference_and_numpy(self, mode, digester):
+        streams = _streams(RNG_SEED + 11, [0, 1, 5_000, 100_000, 300_001, 70_000])
+        kw = dict(chunk_size=CHUNK, mode=mode, digester=digester)
+        eng = ChunkDigestEngine(backend="hybrid", **kw)
+        got = [_metas(m) for m in eng.process_many(streams)]
+        want = JEngine(backend="hybrid", **kw).process_many(streams)
+        oracle = ChunkDigestEngine(backend="numpy", **kw).process_many(streams)
+        assert got == [_metas(m) for m in want] == [_metas(m) for m in oracle]
+        assert [_metas(eng.process(s)) for s in streams] == got
+
+    def test_boundaries_and_digests_match_reference(self):
+        streams = _streams(RNG_SEED + 12, [0, 700_000, 17, 40_000, 600_000])
+        arrs = [np.frombuffer(s, np.uint8) for s in streams]
+        eng = ChunkDigestEngine(chunk_size=CHUNK, backend="hybrid")
+        ref = JEngine(chunk_size=CHUNK, backend="hybrid")
+        for g, w in zip(eng.boundaries_many(arrs), ref.boundaries_many(arrs)):
+            assert np.array_equal(g, w)
+        pieces = [s[: (i * 997) % 3000] for i, s in enumerate(streams * 3)]
+        assert eng.digest_many(pieces) == ref.digest_many(pieces)
+        assert eng.digest_many(pieces) == [hashlib.sha256(p).digest() for p in pieces]
+
+    def test_fused_arm_takes_host_digests(self, monkeypatch):
+        """With host digests process_many makes one native chunk+digest
+        call per stream; with numpy digests it cuts and digests apart."""
+        calls = []
+        real = chunker.native_cdc.chunk_digest_native
+        monkeypatch.setattr(chunker.native_cdc, "chunk_digest_native",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        streams = _streams(RNG_SEED + 13, [50_000, 0, 9])
+        fused = ChunkDigestEngine(chunk_size=CHUNK, backend="hybrid").process_many(streams)
+        assert len(calls) == len(streams)
+        apart = ChunkDigestEngine(chunk_size=CHUNK, backend="hybrid",
+                                  digest_backend="numpy").process_many(streams)
+        assert len(calls) == len(streams)
+        assert [_metas(m) for m in fused] == [_metas(m) for m in apart]
+
+    def test_device_digests_on_request(self, counted):
+        """digest_backend="jax": native cuts, digests by K2's wrapper on the
+        engine's device (its plain version on the CPU); no K1."""
+        streams = _streams(RNG_SEED + 14, [40_000, 3])
+        eng = ChunkDigestEngine(chunk_size=CHUNK, backend="hybrid", digest_backend="jax", device="cpu")
+        assert eng.device == torch.device("cpu")
+        got = eng.process_many(streams)
+        want = JEngine(chunk_size=CHUNK, backend="numpy").process_many(streams)
+        assert [_metas(m) for m in got] == [_metas(m) for m in want]
+        assert counted == {"gear": 0, "sha": 1}
+
+    @pytest.mark.parametrize("n", [1, 7, 8, 40])
+    def test_host_digest_routes(self, monkeypatch, n):
+        """Host SHA-256: the native batch call from 8 items, hashlib below;
+        host BLAKE3 always native. Digests as hashlib and the pure-Python
+        BLAKE3 give them."""
+        from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
+
+        calls = {"sha": 0, "b3": 0}
+        for key, name in (("sha", "sha256_many_native"), ("b3", "blake3_many_native")):
+            real = getattr(chunker.native_cdc, name)
+            monkeypatch.setattr(chunker.native_cdc, name,
+                                lambda *a, _r=real, _k=key: calls.__setitem__(_k, calls[_k] + 1) or _r(*a))
+        arr = np.frombuffer(_streams(RNG_SEED + 15, [n * 300 + 5])[0], np.uint8)
+        items = [(arr, 300 * i + i % 5, 290 + i % 7) for i in range(n)]
+        raw = [arr[o : o + s].tobytes() for _a, o, s in items]
+        assert chunker._host_digests(items) == [hashlib.sha256(r).digest() for r in raw]
+        assert (calls["sha"] > 0) == (n >= 8)
+        assert chunker._host_digests_blake3(items) == [pyb3.blake3(r) for r in raw]
+        assert calls["b3"] > 0
+
+
 class TestModesAndArguments:
     def test_fixed_mode(self):
         data = b"z" * 20_000
@@ -199,17 +273,27 @@ class TestModesAndArguments:
     @pytest.mark.parametrize(
         "kw,match",
         [
-            ({"mode": "nope"}, "mode"),
-            ({"backend": "cuda"}, "backend"),
-            ({"window": 100}, "window"),
-            ({"digest_backend": "gpu"}, "digest backend"),
-            ({"backend": "hybrid"}, "native_cdc.*Queue A item 10"),
-            ({"digester": "md5"}, "digester"),
+            pytest.param({"mode": "nope"}, "mode", id="kw0-mode"),
+            pytest.param({"backend": "cuda"}, "backend", id="kw1-backend"),
+            pytest.param({"window": 100}, "window", id="kw2-window"),
+            pytest.param({"digest_backend": "gpu"}, "digest backend", id="kw3-digest backend"),
+            pytest.param({"digester": "md5"}, "digester", id="kw5-digester"),
         ],
     )
     def test_invalid_args(self, kw, match):
         with pytest.raises(ValueError, match=match):
             ChunkDigestEngine(device="cpu", **kw)
+
+    @pytest.mark.parametrize("kw", [pytest.param({"backend": "hybrid"}, id="kw4")])
+    def test_formerly_refused_args(self, kw):
+        """``backend="hybrid"`` (refused until the native chunk engine's
+        arms were ported; same id) runs: host digests by default, no
+        device, the reference's chunks."""
+        eng = ChunkDigestEngine(chunk_size=CHUNK, device="cpu", **kw)
+        assert eng.digest_backend == "host" and eng.device is None
+        streams = _streams(RNG_SEED, [0, 1, 70_000])
+        want = JEngine(chunk_size=CHUNK, **kw).process_many(streams)
+        assert [_metas(m) for m in eng.process_many(streams)] == [_metas(m) for m in want]
 
     def test_numpy_engine_needs_no_device(self):
         eng = ChunkDigestEngine(chunk_size=CHUNK, backend="numpy")

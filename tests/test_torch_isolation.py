@@ -58,7 +58,7 @@ _CHILD = textwrap.dedent(
     from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
     b3 = FusedDeviceEngine(chunk_size=0x1000, digester="blake3", device="cpu").process_many([b"abc"])
     assert b3.digests[0] == [pyb3.blake3(b"abc")]
-    for backend in ("fused", "jax", "numpy"):
+    for backend in ("fused", "jax", "hybrid", "numpy"):
         pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, backend=backend, digester="blake3"),
                    device="cpu")
         metas = ChunkDigestEngine(chunk_size=0x1000, backend=backend, digester="blake3",
@@ -94,6 +94,62 @@ _CHILD = textwrap.dedent(
     sys.exit(1 if bad else 0)
     """
 )
+
+
+_HYBRID_CHILD = textwrap.dedent(
+    """
+    import hashlib, io, os, sys, tarfile
+    import numpy as np
+    import torch
+
+    def refuse(*a, **k):
+        raise AssertionError("the hybrid lane touched CUDA")
+
+    for name in ("is_available", "init", "current_device", "device_count", "set_device",
+                 "Stream", "Event", "synchronize", "current_stream"):
+        setattr(torch.cuda, name, refuse)
+    from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
+
+    rng = np.random.default_rng(4)
+    data = rng.integers(0, 256, 90_000, dtype=np.uint8).tobytes()
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        for i, n in enumerate((3, 900, 90_000)):
+            ti = tarfile.TarInfo(f"f{i}"); ti.size = n; tf.addfile(ti, io.BytesIO(data[:n]))
+    for digester in ("sha256", "blake3"):
+        eng = ChunkDigestEngine(chunk_size=0x1000, backend="hybrid", digester=digester)
+        assert eng.device is None and eng.device_digester is None
+        metas = eng.process_many([data, b"abc"])
+        assert sum(m.size for m in metas[0]) == len(data)
+        os.environ["NTPU_PACK_THREADS_FORCE"] = "1"
+        for threads in ("1", "4"):
+            os.environ["NTPU_PACK_THREADS"] = threads
+            for compressor in ("lz4_block", "zstd"):
+                _b, res = pack_layer(buf.getvalue(), PackOption(
+                    chunk_size=0x1000, backend="hybrid", compressor=compressor, digester=digester))
+                assert res.route["lane"] == ("pack_files" if threads == "1" else "per_file"), res.route
+    assert not torch.cuda.is_initialized()
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
+    print("LEAKED", bad)
+    sys.exit(1 if bad else 0)
+    """
+)
+
+
+def test_hybrid_makes_no_cuda_context():
+    """``backend="hybrid"`` runs without a device argument, touches no CUDA
+    call (each raises in the child) and imports neither jax nor the
+    reference package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _HYBRID_CHILD], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
 
 
 def test_main_path_imports_neither_jax_nor_reference():

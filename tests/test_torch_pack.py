@@ -8,12 +8,15 @@ digest backends): the framed layer blob, the bootstrap and the blob id must
 be byte-identical.
 """
 
+import hashlib
 import io
+import os
 import tarfile
 
 import numpy as np
 import pytest
 
+from nydus_snapshotter_tpu.converter.convert import Pack as j_Pack
 from nydus_snapshotter_tpu.converter.convert import Unpack as j_unpack
 from nydus_snapshotter_tpu.converter.convert import blob_data_from_layer_blob
 from nydus_snapshotter_tpu.converter.convert import pack_layer as j_pack_layer
@@ -39,6 +42,7 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     BootstrapError,
     ChunkDict,
 )
+from nydus_snapshotter_tpu_torch.converter import pack as native_pack
 from nydus_snapshotter_tpu_torch.ops import fused_convert
 
 
@@ -251,13 +255,36 @@ class TestStreamingPack:
         jch = JIncrementalChunker(JPackOption(chunk_size=0x1000, backend="numpy"))
         chunks, jchunks = [], []
         for off in range(0, len(data), seg):
-            chunks.extend(ch.feed(data[off : off + seg]))
+            chunks.extend(c for c, _ in ch.feed(data[off : off + seg]))
             jchunks.extend(c for c, _ in jch.feed(data[off : off + seg]))
-        chunks.extend(ch.finish())
+        chunks.extend(c for c, _ in ch.finish())
         jchunks.extend(c for c, _ in jch.finish())
         assert b"".join(chunks) == data and chunks == jchunks
         want = jcdc.chunk_data_np(np.frombuffer(data, np.uint8), jcdc.CDCParams(0x1000))
         assert np.array_equal(np.cumsum([len(c) for c in chunks]), want)
+
+    @pytest.mark.parametrize("digester", ["sha256", "blake3"])
+    def test_incremental_chunker_native_arm(self, digester):
+        """On ``hybrid`` the chunker's native arm hands each chunk with its
+        digest, in the reference's chunks."""
+        from nydus_snapshotter_tpu_torch.utils import blake3 as pyb3
+
+        data = np.random.default_rng(29).integers(0, 256, 300_000, dtype=np.uint8).tobytes()
+        opt = dict(chunk_size=0x1000, backend="hybrid", digester=digester)
+        ch = IncrementalChunker(PackOption(**opt))
+        jch = JIncrementalChunker(JPackOption(**opt))
+        assert ch.fused and jch.fused
+        got, want = [], []
+        for off in range(0, len(data), 1 << 14):
+            got.extend(ch.feed(data[off : off + (1 << 14)]))
+            want.extend(jch.feed(data[off : off + (1 << 14)]))
+        got.extend(ch.finish())
+        want.extend(jch.finish())
+        assert got == want and b"".join(c for c, _ in got) == data
+        h = pyb3.blake3 if digester == "blake3" else (lambda b: hashlib.sha256(b).digest())
+        assert all(d == h(c) for c, d in got)
+        whole = ch.chunk_whole(memoryview(data))
+        assert [(bytes(c), d) for c, d in whole] == got
 
     def test_sparse_member_matches_reference(self):
         """A GNU sparse member goes through the same chunker, in the
@@ -290,7 +317,7 @@ def _pack_both(tar, backend, ref_backend=None, chunk_dict=None, jchunk_dict=None
 
 # Small chunks keep the plain SHA-256 of the device lanes quick on the CPU.
 SMALL = dict(chunk_size=0x1000)
-BACKENDS = ["fused", "jax", "numpy"]
+BACKENDS = ["fused", "jax", "hybrid", "numpy"]
 
 
 @pytest.fixture(scope="module")
@@ -413,14 +440,20 @@ class TestCompressedPack:
         assert back == want
 
     def test_stats_split(self, small_tar):
-        """``stats`` gets the reference's stage keys and accumulates."""
+        """``stats`` gets the reference's stage keys and accumulates; the
+        whole-layer ``fused_pack`` key stays 0 off the hybrid lane."""
         opt = PackOption(backend="jax", compressor="zstd", **SMALL)
-        stats = {}
+        stats, jstats = {}, {}
         pack_layer(small_tar, opt, device="cpu", stats=stats)
         first = dict(stats)
         pack_layer(small_tar, opt, device="cpu", stats=stats)
-        assert set(stats) == {"scan", "chunk_digest", "dedup", "assemble", "bootstrap"}
-        assert all(0 <= first[k] < stats[k] for k in stats) and first["assemble"] > 0
+        j_pack_layer(small_tar, JPackOption(backend="jax", compressor="zstd", **SMALL), stats=jstats)
+        assert set(stats) == set(jstats) == {
+            "scan", "chunk_digest", "fused_pack", "dedup", "assemble", "bootstrap"
+        }
+        assert first["fused_pack"] == stats["fused_pack"] == 0
+        assert all(0 <= first[k] < stats[k] for k in stats if k != "fused_pack")
+        assert first["assemble"] > 0
 
 
 class TestPackOptions:
@@ -435,13 +468,27 @@ class TestPackOptions:
             pytest.param({"aligned_chunk": True, "fs_version": layout.RAFS_V5}, id="kw8"),
             pytest.param({"prefetch_patterns": "/d"}, id="kw9"),
             pytest.param({"digest_backend": "host"}, id="kw11"),
+            pytest.param({"backend": "hybrid"}, id="kw2"),
         ],
     )
-    def test_option_matches_reference(self, small_tar, kw):
+    def test_option_matches_reference(self, monkeypatch, small_tar, kw):
         """Options that test_unsupported_options_raise refused before they
-        were ported (same ids): every lane packs the reference's bytes."""
-        for backend in BACKENDS:
-            _pack_both(small_tar, backend, **{"compressor": "none", **SMALL, **kw})
+        were ported (same ids): every lane packs the reference's bytes. The
+        hybrid backend packs them at one thread (its whole-layer lane) and at
+        four (its per-file lane), and the file-like Pack too."""
+        kw = {"compressor": "none", **SMALL, **kw}
+        if "backend" not in kw:
+            for backend in BACKENDS:
+                _pack_both(small_tar, backend, **kw)
+            return
+        monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
+        for threads, lane in (("1", "pack_files"), ("4", "per_file")):
+            monkeypatch.setenv("NTPU_PACK_THREADS", threads)
+            blob, res = _pack_both(small_tar, **kw)
+            assert res.route["lane"] == lane
+            out = io.BytesIO()
+            Pack(out, io.BytesIO(small_tar), PackOption(**kw), device="cpu")
+            assert out.getvalue() == blob
 
     @pytest.mark.parametrize(
         "kw", [pytest.param({"chunk_dict_path": "service://{sock}#ns"}, id="service")]
@@ -469,7 +516,6 @@ class TestPackOptions:
     @pytest.mark.parametrize(
         "kw",
         [
-            pytest.param({"backend": "hybrid"}, id="kw2"),
             pytest.param({"digester": "md5"}, id="kw5"),
             pytest.param({"encrypt": True}, id="kw7"),
             pytest.param({"chunk_dict_path": "/nonexistent"}, id="kw10"),
@@ -495,3 +541,178 @@ class TestPackOptions:
     def test_bad_tar_raises(self):
         with pytest.raises(ConvertError):
             pack_layer(b"not a tar", PackOption(compressor="none"), device="cpu")
+
+
+def _file_like_pair(tar, backend, **kw) -> bool:
+    """The port's and the reference's file-like ``Pack`` of ``tar`` (every
+    member streamed in tar order, so a sparse member's chunks are not
+    stored first as on the in-memory walk) write the same bytes, through
+    the serial writer."""
+    out, jout = io.BytesIO(), io.BytesIO()
+    res = Pack(out, io.BytesIO(tar), PackOption(backend=backend, **kw), device="cpu")
+    jres = j_Pack(jout, io.BytesIO(tar), JPackOption(backend=backend, **kw))
+    return (res.route["writer"] == "serial" and out.getvalue() == jout.getvalue()
+            and res.bootstrap == jres.bootstrap)
+
+
+class TestSectionWriters:
+    """The reference's writer choice (converter/stream.py:771-790): an
+    in-memory tar with none/lz4_block/zstd and no batching, v5 alignment or
+    encryption takes the deferred native section writer on every lane; the
+    rest, and every file-like tar, the serial ``_SectionWriter``. The bytes
+    are the reference's either way."""
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    @pytest.mark.parametrize("compressor", ["lz4_block", "zstd", "none"])
+    def test_deferred_writer_on_every_lane(self, small_tar, backend, compressor):
+        kw = dict(compressor=compressor, **SMALL)
+        blob, res = _pack_both(small_tar, backend, **kw)
+        route = res.route
+        assert route["writer"] == "deferred" and route["native"] is True
+        assert route["threads"] == native_pack._pack_threads()
+        # every unique chunk of an in-memory tar is a zero-copy view into it
+        n_unique = Bootstrap.from_bytes(res.bootstrap).blobs[0].chunk_count
+        assert (route["src0"], route["src1"]) == (n_unique, 0)
+        out = io.BytesIO()
+        fres = Pack(out, io.BytesIO(small_tar), PackOption(backend=backend, **kw), device="cpu")
+        assert fres.route == {"lane": "stream", "writer": "serial"}
+        assert out.getvalue() == blob and fres.bootstrap == res.bootstrap
+
+    @pytest.mark.parametrize(
+        "kw",
+        [
+            pytest.param({"batch_size": 0x2000}, id="batch_size"),
+            pytest.param({"aligned_chunk": True, "fs_version": layout.RAFS_V5}, id="aligned_v5"),
+        ],
+    )
+    @pytest.mark.parametrize("backend", ["jax", "hybrid", "numpy"])
+    def test_serial_writer_options(self, small_tar, backend, kw):
+        _blob, res = _pack_both(small_tar, backend, compressor="zstd", **SMALL, **kw)
+        assert res.route["writer"] == "serial"
+
+    def test_aligned_chunk_on_v6_stays_deferred(self, small_tar):
+        _blob, res = _pack_both(small_tar, "numpy", aligned_chunk=True, **SMALL)
+        assert res.route["writer"] == "deferred"
+
+    @pytest.mark.parametrize("backend", ["jax", "hybrid", "numpy"])
+    def test_streamed_chunks_go_to_the_side_buffer(self, backend):
+        """A sparse member streams during the walk: its chunks are bytes,
+        copied into the side buffer (source 1); the in-memory files' chunks
+        stay views into the tar (source 0)."""
+        tar = _sparse_tar()
+        blob, res = _pack_both(tar, backend, compressor="lz4_block", **SMALL)
+        src0, src1 = res.route["src0"], res.route["src1"]
+        assert src0 > 0 and src1 > 0
+        assert src0 + src1 == Bootstrap.from_bytes(res.bootstrap).blobs[0].chunk_count
+        assert _file_like_pair(tar, backend, compressor="lz4_block", **SMALL)
+
+    @pytest.mark.parametrize("make_tar", [lambda: _layer_tar(seed=7, files=8), _sparse_tar],
+                             ids=["plain", "sparse"])
+    @pytest.mark.parametrize("compressor", ["lz4_block", "zstd"])
+    def test_forced_replay(self, monkeypatch, make_tar, compressor):
+        """Without a codec library the engine can dlopen, pack_section
+        returns None and the extents replay through the Python codec: the
+        same bytes."""
+        monkeypatch.setattr(native_pack.native_cdc, "pack_section", lambda *a, **k: None)
+        for backend in ("jax", "hybrid", "numpy"):
+            _blob, res = _pack_both(make_tar(), backend, compressor=compressor, **SMALL)
+            assert res.route["writer"] == "deferred" and res.route["native"] is False
+
+    @pytest.mark.parametrize("backend", ["fused", "jax", "hybrid", "numpy"])
+    def test_thread_count_does_not_change_bytes(self, monkeypatch, small_tar, backend):
+        monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
+        got = {}
+        for threads in ("1", "4"):
+            monkeypatch.setenv("NTPU_PACK_THREADS", threads)
+            blob, res = pack_layer(small_tar, PackOption(backend=backend, compressor="zstd", **SMALL),
+                                   device="cpu")
+            assert res.route["threads"] == int(threads)
+            got[threads] = (blob, res.bootstrap, res.blob_id)
+        assert got["1"] == got["4"]
+
+    def test_pack_threads_as_the_reference_reads_them(self, monkeypatch):
+        from nydus_snapshotter_tpu.converter import stream as jstream
+
+        ncpu = os.cpu_count() or 1
+        for threads, force, want in (
+            (None, None, ncpu), ("1", None, 1), ("3", None, min(3, ncpu)),
+            (str(ncpu + 5), None, ncpu), (str(ncpu + 5), "1", ncpu + 5), (str(ncpu + 5), "0", ncpu),
+            ("0", None, ncpu), ("many", "1", ncpu),
+        ):
+            for var, value in (("NTPU_PACK_THREADS", threads), ("NTPU_PACK_THREADS_FORCE", force)):
+                if value is None:
+                    monkeypatch.delenv(var, raising=False)
+                else:
+                    monkeypatch.setenv(var, value)
+            assert native_pack._pack_threads() == jstream._pack_threads() == want
+
+
+class TestHybridLanes:
+    """The hybrid backend's single-thread lanes (NTPU_PACK_THREADS=1) under
+    the reference's guards (converter/stream.py:955-1045): the whole-layer
+    ``pack_files`` lane with no chunk dict and the deferred writer, else the
+    ``chunk_digest_multi`` lane; at more threads the serial per-file lane.
+    Each packs the reference's bytes, the file-like Pack's and the fused
+    lane's."""
+
+    @pytest.mark.parametrize("digester", ["sha256", "blake3"])
+    @pytest.mark.parametrize("compressor", ["lz4_block", "zstd", "none"])
+    def test_pack_files_lane(self, monkeypatch, small_tar, compressor, digester):
+        monkeypatch.setenv("NTPU_PACK_THREADS", "1")
+        kw = dict(compressor=compressor, digester=digester, **SMALL)
+        stats = {}
+        blob, res = pack_layer(small_tar, PackOption(backend="hybrid", **kw), stats=stats)
+        _assert_same((blob, res), j_pack_layer(small_tar, JPackOption(backend="hybrid", **kw)))
+        assert res.route == {"lane": "pack_files", "writer": "deferred", "native": True,
+                             "threads": 1, "src0": 0, "src1": 0}
+        assert stats["fused_pack"] > 0
+        out = io.BytesIO()
+        Pack(out, io.BytesIO(small_tar), PackOption(backend="hybrid", **kw))
+        assert out.getvalue() == blob
+        if digester == "sha256":
+            fblob, fres = pack_layer(small_tar, PackOption(backend="fused", **kw), device="cpu")
+            assert fblob == blob and fres.bootstrap == res.bootstrap
+
+    @pytest.mark.parametrize(
+        "case", ["dict", "sparse", "batch_size"],
+    )
+    def test_chunk_digest_multi_lane(self, monkeypatch, tmp_path, small_tar, case):
+        """A chunk dict, a sparse member streamed during the walk, or the
+        serial writer each keep the whole-layer lane off."""
+        monkeypatch.setenv("NTPU_PACK_THREADS", "1")
+        kw = dict(compressor="lz4_block", digester="blake3", **SMALL)
+        tar = small_tar
+        if case == "dict":
+            _dblob, dres = j_pack_layer(_third_tar(), JPackOption(backend="numpy", **kw))
+            path = tmp_path / "dict.boot"
+            path.write_bytes(dres.bootstrap)
+            kw["chunk_dict_path"] = f"bootstrap={path}"
+        elif case == "sparse":
+            tar = _sparse_tar()
+        else:
+            kw["batch_size"] = 0x2000
+        blob, res = _pack_both(tar, "hybrid", **kw)
+        assert res.route["lane"] == "chunk_digest_multi"
+        if case == "dict":
+            assert res.referenced_blob_ids[1:] == [dres.blob_id]
+        assert _file_like_pair(tar, "hybrid", **kw)
+
+    def test_per_file_lane_digests_small_files_in_one_batch(self, monkeypatch, small_tar):
+        """At several threads each file takes one chunk+digest call, and
+        the files of at most the minimum chunk one batch digest."""
+        monkeypatch.setenv("NTPU_PACK_THREADS", "4")
+        monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
+        calls = {"file": 0, "batch": 0}
+        real_cd = native_pack.native_cdc.chunk_digest_native
+        real_b = native_pack.host_digests_for
+        monkeypatch.setattr(native_pack.native_cdc, "chunk_digest_native",
+                            lambda *a, **k: calls.__setitem__("file", calls["file"] + 1) or real_cd(*a, **k))
+        monkeypatch.setattr(native_pack, "host_digests_for",
+                            lambda d: lambda items: calls.__setitem__("batch", calls["batch"] + 1)
+                            or real_b(d)(items))
+        blob, res = _pack_both(small_tar, "hybrid", compressor="lz4_block", **SMALL)
+        assert res.route["lane"] == "per_file" and res.route["threads"] == 4
+        with tarfile.open(fileobj=io.BytesIO(small_tar)) as tf:
+            sizes = [m.size for m in tf if m.isreg() and m.size]
+        small = sum(1 for s in sizes if s <= SMALL["chunk_size"] // 4)
+        assert calls == {"file": len(sizes) - small, "batch": 1 if small else 0}
