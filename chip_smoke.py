@@ -55,15 +55,15 @@ Phases (any failure exits non-zero; nothing is caught):
 7. windowed engine — ``ChunkDigestEngine(backend="jax")``'s
    ``process_many`` over phase 2's layer: every cut and digest equal to
    phase 2's fused results, K1 launched once per non-empty file and K2 once
-   per int32-addressable piece; wall time the median of 3 runs after that
-   checked run (the warm-up), split into ``boundaries_many`` and ``digest_all``, and the
+   per int32-addressable piece; wall time the median of ``WINDOWED_REPS``
+   runs after that checked run (the warm-up), split into ``boundaries_many`` and ``digest_all``, and the
    device's busy share from one torch.profiler trace; K1 alone on one
    512 KiB window and K2 alone on one 32 MiB digest batch (the windowed
    lanes' own shapes), K1's output against its plain version and K2's
    against hashlib; the engine's own staged rows and bitmaps of one
    multi-row stream (the layer's largest files joined) at 1, 2 and 4 MiB
    windows against the plain version, exactly, and its cuts against the
-   numpy chunker; then 3 runs at the engine's default 1 MiB average
+   numpy chunker; then 1 + ``WINDOWED_REPS`` runs at the engine's default 1 MiB average
    chunks, every digest against hashlib, the cuts of >= 64 MiB of files
    against the numpy chunker, and K2 alone on that launch (its output
    against hashlib);
@@ -92,8 +92,8 @@ Phases (any failure exits non-zero; nothing is caught):
    from one profiler trace); ``ChunkDigestEngine(backend="jax",
    digester="blake3")`` at 1 MiB chunks (K4 once per piece, its batch
    submitted under sync debug mode "error", digests equal the plain
-   version's; median of 3 after the checked run, with the boundaries and
-   digest split); ``pack_layer(backend="fused", digester="blake3")`` over
+   version's; median of ``WINDOWED_REPS`` after the checked run, with the
+   boundaries and digest split); ``pack_layer(backend="fused", digester="blake3")`` over
    phase 4's tar (blob and blob id equal phase 4's SHA-256 fused blob, the
    bootstrap's digests the plain version's over the blob's chunks; median
    of 3) and ``pack_layer(backend="jax", digester="blake3")`` over the same
@@ -162,8 +162,8 @@ Phases (any failure exits non-zero; nothing is caught):
    core counts. (a) ``ChunkDigestEngine(backend="hybrid").process_many``
    over phase 2's layer at SHA-256 and BLAKE3, 64 KiB and 1 MiB chunks:
    every cut and digest equal to phases 2, 7 and 9's results, no kernel
-   launched (counters zeroed just before, read just after); median of 3
-   after the checked run, GiB/s. (b) ``pack_layer(backend="hybrid")`` over
+   launched (counters zeroed just before, read just after); median of
+   ``HYBRID_REPS`` after the checked run, GiB/s. (b) ``pack_layer(backend="hybrid")`` over
    phase 4's tar (lz4_block) at ``NTPU_PACK_THREADS=1``: the whole-layer
    ``pack_files`` lane at SHA-256 and at BLAKE3, and the
    ``chunk_digest_multi`` lane with phase 10's dict bootstrap as
@@ -171,6 +171,33 @@ Phases (any failure exits non-zero; nothing is caught):
    per-file lane. Each equal to its fused twin (blob, bootstrap, blob id),
    its lane and route printed, no launch, the median of 3 after the checked
    run with its ``stats``.
+13. images — image-level conversion, BASELINE configs #2 and #3 at the
+   ``PackOption`` defaults (1 MiB CDC chunks, lz4_block, SHA-256). Image A
+   is phase 2's file population split into bench.py's six log-spread
+   layers (weights 32:16:8:4:2:2); image B rebuilds A (its lower five
+   layer tars byte for byte, its top layer A's with a quarter of the files
+   rewritten, ``.wh.`` whiteouts for a tenth of A's fifth layer and an
+   opaque marker on a lower-layer directory); image C runs another app on
+   A's lowest three layers (three new layers of ~256 MiB, half their files
+   copies of A's upper-layer files under other paths).
+   ``BatchConverter(PackOption(backend="fused")).convert_many([A, B, C])``
+   with launch counters zeroed just before and read just after: K1 and K2
+   exactly once per layer, K3 and K4 never (pack and merge dedup on host
+   lookups). Every image's bootstrap, ``blob_digests``, ``layer_blobs`` and
+   ``new_dict_chunks`` equal the ``hybrid`` batch's (no launch) and the
+   fused batch's at ``layer_fanout=1``; ``Unpack`` of each image, with the
+   blobs of every image so far, equals ``apply_overlay`` of its source
+   layer trees (paths, modes, sizes, link targets, whiteouts applied, every
+   regular file's bytes). Real formats: A's image as ``rafs-v5`` read back
+   by ``load_any_bootstrap`` with the same chunk records; that file as
+   ``chunk_dict_path`` of a fused pack of C's largest new layer, equal to
+   its hybrid twin with the same hit set as against A's native bootstrap;
+   a ``rafs-v6`` emit of A's top layer packed at ``chunking="fixed"`` read
+   back the same way. Printed: the wall s and GiB/s of the fused batch
+   (median of 3 after the checked run), the fan-out-1 and hybrid batches
+   (their checked runs); per image input bytes, stored blob bytes, dedup
+   ratio, new dict chunks, Merge ms and Unpack s; each real-format emit and
+   load; the phase's seconds. Files go to a temporary directory, removed.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -203,7 +230,12 @@ CUT_CHECK_BYTES = 64 << 20
 K1_SLICE = 64 << 20
 K2_PLAIN_MAX_CAP = 128  # the plain SHA-256 loops in Python per 64-byte block
 REPS = 5
-WINDOWED_REPS = 3  # phase 7's windowed process_many: ~15 s a run
+# Timed runs after the checked one of the slowest host-bound earlier lanes:
+# the windowed engine (phases 7 and 9, ~10-15 s a run) and the hybrid
+# engine (phase 12, ~4 s a run). One each keeps the script inside its time
+# limit with phase 13; their medians of 3 from PRs 5-9 stand in PERF.md.
+WINDOWED_REPS = 1
+HYBRID_REPS = 1
 DEVICE = "cuda"
 
 # K3's registry-scale workload: tools/registry_scale.py's deployment.
@@ -215,6 +247,11 @@ REGISTRY_GROW = 2_000_000  # tools/registry_scale.py's growth batch
 REGISTRY_GROW_Q_RANDOM = 50_000  # its grow[::41] sample's random half
 REGISTRY_SECOND = 100_000  # the batch save_incremental appends
 SERVICE_REPS = 3
+# Phase 13's images: bench.py's six log-spread layers of one image; image
+# C's three new layers; the fused batch's timed runs after the checked one.
+IMAGE_WEIGHTS = (32, 16, 8, 4, 2, 2)
+IMAGE_C_NEW_MIB = (128, 80, 48)
+IMAGE_REPS = 3
 # Phase 10's compressed packs as the serial section writer ran them before
 # the deferred writer took them (the median run's wall and stats: scan +
 # chunk_digest + dedup + assemble + bootstrap, s; NVIDIA H100 80GB HBM3,
@@ -935,7 +972,7 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
     # The engine's default 1 MiB average chunks.
     eng_1m = chunker.ChunkDigestEngine(backend="jax", device=dev)
     walls_1m, splits_1m, res_1m = [], [], None
-    for _ in range(3):
+    for _ in range(1 + WINDOWED_REPS):
         before = dict(eng_1m.stats)
         t0 = time.perf_counter()
         out = eng_1m.process_many(files)
@@ -1278,7 +1315,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
     if le_words([m.digest for ms in metas for m in ms]).tolist() != plain_1m.cpu().tolist():
         raise AssertionError("windowed BLAKE3 digests differ from the plain version")
     win_walls, win_splits = [], []
-    for _ in range(3):
+    for _ in range(WINDOWED_REPS):
         before = dict(weng.stats)
         t0 = time.perf_counter()
         weng.process_many(files)
@@ -1288,7 +1325,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
     log(f"[9] windowed ChunkDigestEngine(backend='jax', digester='blake3') at 1 MiB chunks: "
         f"{len(sizes_1m)} chunks, cuts == phase 7's, digests == the plain version; launches "
         f"{win_launches}, the digest batch submitted under sync debug mode 'error'; checked run "
-        f"{win_s:.3f}: {win_first[0]:.3f} + {win_first[1]:.3f} s; median {win_wall:.3f} s over 3 runs after it (wall: boundaries_many + "
+        f"{win_s:.3f}: {win_first[0]:.3f} + {win_first[1]:.3f} s; median {win_wall:.3f} s over {WINDOWED_REPS} runs after it (wall: boundaries_many + "
         "digest_all) " + ", ".join(f"{x:.3f}: {b:.3f} + {d:.3f}" for x, (b, d) in
                                    zip(win_walls, win_splits)) + " s (SHA-256, phase 7: "
         + ", ".join(f"{x:.3f}: {b:.3f} + {d:.3f}" for x, (b, d) in
@@ -2070,11 +2107,11 @@ def host_arms_phase(dev, files, res_sha, windowed, b3, e2e_s, tar, comp, kernels
         if not digests_ok([m.digest for metas in got for m in metas]):
             raise AssertionError(f"hybrid digests ({digester}, {chunk_size >> 10} KiB) differ from "
                                  f"{against}")
-        runs = [host_timed(lambda: eng.process_many(files)) for _ in range(3)]
+        runs = [host_timed(lambda: eng.process_many(files)) for _ in range(HYBRID_REPS)]
         wall = float(np.median([r[0] for r in runs]))
         log(f"[12] ChunkDigestEngine(backend='hybrid', digester='{digester}') at "
             f"{chunk_size >> 10} KiB chunks: {len(want_sizes)} chunks, every cut and digest == "
-            f"{against}; no launch; checked run {first:.3f} s, median {wall:.3f} s over 3 = "
+            f"{against}; no launch; checked run {first:.3f} s, median {wall:.3f} s over {HYBRID_REPS} = "
             f"{n_bytes / 2**30 / wall:.3f} GiB/s (runs, wall / host CPU s / minor page faults: "
             + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in runs) + ")"
             + (f"; the fused device engine, phase 5: {n_bytes / 2**30 / e2e_s:.3f} GiB/s"
@@ -2140,6 +2177,311 @@ def host_arms_phase(dev, files, res_sha, windowed, b3, e2e_s, tar, comp, kernels
                 name, threads, lane, **kw)
     log(f"[12] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def split_by_weight(files: list[np.ndarray], weights) -> list[list[np.ndarray]]:
+    """``files`` in order, cut into ``len(weights)`` runs whose byte totals
+    follow ``weights`` (the last run takes the rest)."""
+    total = sum(f.size for f in files)
+    ends = np.cumsum(np.asarray(weights, dtype=np.float64) / sum(weights) * total)
+    groups: list[list[np.ndarray]] = [[] for _ in weights]
+    used, li = 0, 0
+    for f in files:
+        while li < len(weights) - 1 and used >= ends[li]:
+            li += 1
+        groups[li].append(f)
+        used += f.size
+    return groups
+
+
+def named_tar(members: list, extra: tuple = ()) -> bytes:
+    """A layer tar of ``(name, array)`` members, then empty entries named
+    ``extra``: directories (a trailing "/"), ``.wh.`` whiteouts, opaque
+    markers."""
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w", format=tarfile.GNU_FORMAT) as tf:
+        for name, data in members:
+            ti = tarfile.TarInfo(name)
+            ti.size = data.size
+            tf.addfile(ti, io.BytesIO(data.data))
+        for name in extra:
+            ti = tarfile.TarInfo(name.rstrip("/"))
+            if name.endswith("/"):
+                ti.type, ti.mode = tarfile.DIRTYPE, 0o755
+            tf.addfile(ti)
+    return buf.getvalue()
+
+
+def image_corpus(files: list[np.ndarray]) -> dict:
+    """Phase 13's images A, B and C (see the module docstring) from phase
+    2's ``files``: their layer tars and what B whites out."""
+    layers = split_by_weight(files, IMAGE_WEIGHTS)
+    members = [[(f"layer{li}/d{fi % 97}/f{fi}.bin", f) for fi, f in enumerate(g)]
+               for li, g in enumerate(layers)]
+    a = [named_tar(m) for m in members]
+    gen = FileGen(SEED + 13)
+    top = [(name, gen.file(f.size, "random") if fi % 4 == 0 else f)
+           for fi, (name, f) in enumerate(members[5])]
+    gone = [name for fi, (name, _f) in enumerate(members[4]) if fi % 10 == 0]
+    opaque = members[3][0][0].rsplit("/", 1)[0]
+    whiteouts = tuple(n.rsplit("/", 1)[0] + "/.wh." + n.rsplit("/", 1)[1] for n in gone)
+    # the opaque directory's own entries precede its marker, as in a
+    # container engine's layer diff (a marker two levels below any entry of
+    # its layer is refused by the reference's Pack, and so by this one's)
+    dirs = (opaque.rsplit("/", 1)[0] + "/", opaque + "/")
+    b = a[:5] + [named_tar(top, whiteouts + dirs + (opaque + "/.wh..wh..opq",))]
+    upper = [f for m in members[3:] for _n, f in m]
+    fresh = FileGen(SEED + 17)
+    c_new, k = [], 0
+    for li, mib in enumerate(IMAGE_C_NEW_MIB):
+        out, used, fi = [], 0, 0
+        while used < mib << 20:
+            if fi % 2 == 0:  # a copy of one of A's upper-layer files, another path
+                data, name = upper[k % len(upper)], f"app{li}/copies/c{fi}.bin"
+                k += 1
+            else:
+                size = int(np.clip(fresh.rng.lognormal(8.5, 2.0), 128, 8 << 20))
+                r = fresh.rng.random()
+                data = fresh.file(size, "text" if r < 0.4 else ("binary" if r < 0.8 else "random"))
+                name = f"app{li}/d{fi % 53}/g{fi}.bin"
+            out.append((name, data))
+            used += data.size
+            fi += 1
+        c_new.append(named_tar(out))
+    return {"images": [("A", a), ("B", b), ("C", a[:3] + c_new)], "gone": gone,
+            "opaque": opaque}
+
+
+def tree_of(entries) -> tuple[dict, set]:
+    """Non-directory entries -> {path: (mode, symlink, hardlink, bytes)},
+    and the set of directory paths."""
+    files, dirs = {}, set()
+    for e in entries:
+        if e.is_dir:
+            dirs.add(e.path)
+        else:
+            files[e.path] = (e.mode, e.symlink_target, e.hardlink_target, e.data)
+    return files, dirs
+
+
+def image_phase(dev, files, kernels, t_start: float) -> dict:
+    """Phase 13: BatchConverter over images A, B and C on the fused lane,
+    against the hybrid and fan-out-1 batches, Unpack against the source
+    trees, and the real RAFS v5/v6 bootstraps."""
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch.converter import (
+        Merge, MergeOption, PackOption, Unpack, batch, pack_layer,
+    )
+    from nydus_snapshotter_tpu_torch.converter.convert import (
+        blob_data_from_layer_blob, bootstrap_from_layer_blob,
+    )
+    from nydus_snapshotter_tpu_torch.models import fstree
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.models.nydus_real import load_any_bootstrap
+
+    t_phase = time.perf_counter()
+    corpus = image_corpus(files)
+    images = corpus["images"]
+    n_layers = sum(len(t) for _n, t in images)
+    in_bytes = {name: sum(len(t) for t in tars) for name, tars in images}
+    total_in = sum(in_bytes.values())
+    t_gen = time.perf_counter() - t_phase
+    log(f"[13] images: " + "; ".join(
+        f"{name} {len(tars)} layers, {in_bytes[name]} bytes of tar ("
+        + " / ".join(f"{len(t) / 2**20:.1f}" for t in tars) + " MiB)" for name, tars in images)
+        + f"; {n_layers} layers, {total_in / 2**30:.3f} GiB in all; B whites out "
+        f"{len(corpus['gone'])} files and makes {corpus['opaque']} opaque; built in {t_gen:.1f} s")
+
+    def counts() -> dict:
+        return {key: k.launches for key, k in kernels.items()}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def same(got, want, what: str):
+        for g, w in zip(got, want):
+            if (g.bootstrap, g.blob_digests, g.layer_blobs, g.new_dict_chunks) != (
+                    w.bootstrap, w.blob_digests, w.layer_blobs, w.new_dict_chunks):
+                raise AssertionError(f"image {g.name}: the {what} differs from the fused batch")
+
+    cpu_s: dict[str, list] = {"fused": [], "fanout1": [], "hybrid": []}
+
+    def run(backend: str, key: str = "", **kw):
+        """One batch -> (results, wall s); its host CPU s go to cpu_s[key]."""
+        bc = batch.BatchConverter(PackOption(backend=backend), device=dev, **kw)
+        out = []
+        wall, cpu, _faults = host_timed(lambda: out.append(bc.convert_many(images)))
+        if key:
+            cpu_s[key].append(cpu)
+        return out[0], wall
+
+    # -- the fused batch: launches, checked run ---------------------------
+    merge_ms: list[float] = []
+    real_merge = batch.Merge
+
+    def timed_merge(*a, **k):
+        t0 = time.perf_counter()
+        out = real_merge(*a, **k)
+        merge_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    batch.Merge = timed_merge
+    try:
+        zero()
+        fused, fused_first = run("fused")
+        launches = counts()
+    finally:
+        batch.Merge = real_merge
+    want = {"gear": n_layers, "sha": n_layers, "probe": 0, "b3_leaves": 0, "b3_parents": 0}
+    if launches != want:
+        raise AssertionError(f"the fused batch launched {launches}; want {want} (K1 and K2 once "
+                             "per layer, K3 and K4 never)")
+    fused_walls = []
+    for _ in range(IMAGE_REPS):
+        again, wall = run("fused", "fused")
+        same(again, fused, "fused batch's timed run")
+        fused_walls.append(wall)
+    del again
+    fused_wall = float(np.median(fused_walls))
+    zero()
+    serial, serial_wall = run("fused", "fanout1", layer_fanout=1)
+    serial_launches = counts()
+    same(serial, fused, "fan-out-1 batch")
+    if serial_launches != want:
+        raise AssertionError(f"the fan-out-1 batch launched {serial_launches}; want {want}")
+    del serial
+    zero()
+    hybrid, hybrid_wall = run("hybrid", "hybrid")
+    if any(counts().values()):
+        raise AssertionError(f"the hybrid batch launched {counts()}")
+    same(hybrid, fused, "hybrid batch")
+    del hybrid
+    log(f"[13] fused BatchConverter.convert_many([A, B, C]): launches {launches} over {n_layers} "
+        f"layers (K1 and K2 once per layer, K3 and K4 never); == the hybrid batch (no launch) "
+        f"and the fan-out-1 batch (launches {serial_launches}) in every image's bootstrap, "
+        f"blob_digests, layer_blobs and new_dict_chunks. Wall: fused median {fused_wall:.3f} s "
+        f"= {total_in / 2**30 / fused_wall:.3f} GiB/s (runs, wall / host CPU s: " + ", ".join(
+            f"{w:.3f} / {c:.3f}" for w, c in zip(fused_walls, cpu_s["fused"]))
+        + f"; checked run {fused_first:.3f} s), fan-out 1 {serial_wall:.3f} s = "
+        f"{total_in / 2**30 / serial_wall:.3f} GiB/s (host CPU {cpu_s['fanout1'][0]:.3f} s), "
+        f"hybrid {hybrid_wall:.3f} s = {total_in / 2**30 / hybrid_wall:.3f} GiB/s (host CPU "
+        f"{cpu_s['hybrid'][0]:.3f} s); fan-out gain {serial_wall / fused_wall:.2f}x")
+
+    # -- per image: dedup, Unpack against the source trees -------------------
+    parsed: dict[int, list] = {}
+    blobs: dict[str, bytes] = {}
+    per_image = {}
+    for (name, tars), res, m_ms in zip(images, fused, merge_ms):
+        own = {bid: blob_data_from_layer_blob(b) for bid, b in res.layer_blobs.items()}
+        blobs.update(own)
+        bs = Bootstrap.from_bytes(res.bootstrap)
+        sizes = np.fromiter((c.uncompressed_size for c in bs.chunks), dtype=np.int64)
+        earlier = np.fromiter((bs.blobs[c.blob_index].blob_id not in own for c in bs.chunks),
+                              dtype=bool)
+        ratio = float(sizes[earlier].sum() / max(int(sizes.sum()), 1))
+        t0 = time.perf_counter()
+        out = Unpack(res.bootstrap, blobs)
+        unpack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_tree: list = []
+        for t in tars:
+            if id(t) not in parsed:
+                parsed[id(t)] = fstree.tree_from_tar(t)
+            want_tree = fstree.apply_overlay(want_tree, parsed[id(t)])
+        got_files, got_dirs = tree_of(fstree.tree_from_tar(out))
+        want_files, want_dirs = tree_of(want_tree)
+        if got_files != want_files or not want_dirs <= got_dirs:
+            missing = sorted(set(want_files) ^ set(got_files))[:5]
+            raise AssertionError(f"image {name}: Unpack differs from the overlay of its layer "
+                                 f"trees (paths in one only: {missing})")
+        if name == "B" and (any(g in got_files for g in corpus["gone"]) or any(
+                p.startswith(corpus["opaque"] + "/") for p in got_files)):
+            raise AssertionError("image B: a whiteout or the opaque marker was not applied")
+        check_s = time.perf_counter() - t0
+        stored = sum(len(v) for v in own.values())
+        per_image[name] = {"input_bytes": in_bytes[name], "stored_blob_bytes": stored,
+                           "dedup_ratio": ratio, "new_dict_chunks": res.new_dict_chunks,
+                           "merge_ms": m_ms, "unpack_s": unpack_s, "check_s": check_s,
+                           "files": len(got_files)}
+        log(f"[13] image {name}: {in_bytes[name]} bytes in, {stored} bytes of blob stored "
+            f"({len(own)} new blobs, {len(res.blob_digests)} referenced), dedup ratio {ratio:.4f} "
+            f"(chunk bytes on earlier images' blobs / all), {res.new_dict_chunks} new dict chunks, "
+            f"Merge {m_ms:.1f} ms, Unpack {unpack_s:.3f} s: {len(got_files)} files == the overlay "
+            f"of its layer trees (modes, sizes, link targets, bytes; whiteouts applied; checked in "
+            f"{check_s:.3f} s)")
+        del out, want_tree, got_files, want_files
+    del parsed
+
+    # -- real formats ----------------------------------------------------------
+    def records(bs, uoffs: bool = True) -> list:
+        # RAFS v6 puts each chunk's uncompressed offset on its 4 KiB block
+        # grid (the reference's nydus_real_write._v6_realign_uoffs)
+        return [(c.digest, bs.blobs[c.blob_index].blob_id, c.flags,
+                 c.uncompressed_offset if uoffs else None, c.compressed_offset,
+                 c.uncompressed_size, c.compressed_size) for c in bs.chunks]
+
+    def hits(layer_blob: bytes, own_id: str) -> set:
+        bs = bootstrap_from_layer_blob(layer_blob)
+        return {c.digest for c in bs.chunks if bs.blobs[c.blob_index].blob_id != own_id}
+
+    a_res = fused[0]
+    a_blobs = [a_res.layer_blobs[bid] for bid in a_res.blob_digests]
+    real = {}
+    t0 = time.perf_counter()
+    v5 = Merge(a_blobs, MergeOption(bootstrap_format="rafs-v5")).bootstrap
+    real["v5_emit_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    v5_back = load_any_bootstrap(v5)
+    real["v5_load_ms"] = 1e3 * (time.perf_counter() - t0)
+    if records(v5_back) != records(Bootstrap.from_bytes(a_res.bootstrap)):
+        raise AssertionError("image A's rafs-v5 bootstrap reads back with other chunk records")
+    c_tars = images[2][1][3:]
+    big = max(c_tars, key=len)
+    with tempfile.TemporaryDirectory() as tmp:
+        v5_path, native_path = Path(tmp) / "a.v5.boot", Path(tmp) / "a.boot"
+        v5_path.write_bytes(v5)
+        native_path.write_bytes(a_res.bootstrap)
+        zero()
+        t0 = time.perf_counter()
+        f_blob, f_res = pack_layer(big, PackOption(backend="fused", chunk_dict_path=f"bootstrap={v5_path}"),
+                                   device=dev)
+        real["v5_dict_pack_s"] = time.perf_counter() - t0
+        v5_launches = counts()
+        h_blob, h_res = pack_layer(big, PackOption(backend="hybrid", chunk_dict_path=f"bootstrap={v5_path}"))
+        n_blob, n_res = pack_layer(big, PackOption(backend="fused", chunk_dict_path=f"bootstrap={native_path}"),
+                                   device=dev)
+    if (f_blob, f_res.bootstrap, f_res.blob_id) != (h_blob, h_res.bootstrap, h_res.blob_id):
+        raise AssertionError("the fused pack against A's rafs-v5 dict differs from its hybrid twin")
+    v5_hits = hits(f_blob, f_res.blob_id)
+    if not v5_hits or v5_hits != hits(n_blob, n_res.blob_id):
+        raise AssertionError("the rafs-v5 dict's hit set differs from the native bootstrap's")
+    a_top = images[0][1][5]
+    fixed_blob, _fixed_res = pack_layer(a_top, PackOption(backend="fused", chunking="fixed"), device=dev)
+    t0 = time.perf_counter()
+    v6 = Merge([fixed_blob], MergeOption(bootstrap_format="rafs-v6")).bootstrap
+    real["v6_emit_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    v6_back = load_any_bootstrap(v6)
+    real["v6_load_ms"] = 1e3 * (time.perf_counter() - t0)
+    if records(v6_back, uoffs=False) != records(
+            Bootstrap.from_bytes(Merge([fixed_blob], MergeOption()).bootstrap), uoffs=False):
+        raise AssertionError("the rafs-v6 emit of A's top layer reads back with other chunk records")
+    log(f"[13] real formats: A's image as rafs-v5 ({len(v5)} bytes) emitted in "
+        f"{real['v5_emit_ms']:.1f} ms, read back in {real['v5_load_ms']:.1f} ms with the same "
+        f"{len(v5_back.chunks)} chunk records; as chunk_dict_path of a fused pack of C's largest new "
+        f"layer ({len(big)} bytes, {real['v5_dict_pack_s']:.3f} s, launches {v5_launches}): == "
+        f"its hybrid twin, {len(v5_hits)} dict hits == those against A's native bootstrap; A's top "
+        f"layer at chunking='fixed' as rafs-v6 ({len(v6)} bytes) emitted in "
+        f"{real['v6_emit_ms']:.1f} ms, read back in {real['v6_load_ms']:.1f} ms with the same "
+        f"{len(v6_back.chunks)} chunk records (uncompressed offsets on v6's block grid)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[13] phase {phase_s:.1f} s; script so far {time.perf_counter() - t_start:.1f} s")
+    return {"launches": launches, "fanout1_launches": serial_launches, "layers": n_layers,
+            "input_bytes": total_in, "fused_wall_s": fused_wall, "fused_runs_s": fused_walls,
+            "fused_first_s": fused_first, "fanout1_wall_s": serial_wall,
+            "hybrid_wall_s": hybrid_wall, "host_cpu_s": cpu_s, "images": per_image, "real": real, "phase_s": phase_s}
 
 
 def main() -> int:
@@ -2556,6 +2898,9 @@ def main() -> int:
     # -- 12. the native engine's host arms: the hybrid engine and pack lanes --
     host_arms_phase(dev, files, res, windowed, b3, e2e_s, tar, comp, all_kernels)
 
+    # -- 13. images: BatchConverter, Merge, Unpack, real RAFS v5/v6 ------------
+    images = image_phase(dev, files, all_kernels, t_start)
+
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, n_launches=None, **extra):
         return {
@@ -2580,6 +2925,7 @@ def main() -> int:
             windowed_launches=windowed["launches"]["gear"],
             pack_jax_launches=lanes["jax"]["launches"]["gear"],
             pack_compressed_launches=comp_launches("gear"),
+            image_batch_launches=images["launches"]["gear"], image_batch_layers=images["layers"],
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -2592,6 +2938,7 @@ def main() -> int:
             windowed_launches=windowed["launches"]["sha"],
             pack_jax_launches=lanes["jax"]["launches"]["sha"],
             pack_compressed_launches=comp_launches("sha"),
+            image_batch_launches=images["launches"]["sha"], image_batch_layers=images["layers"],
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),

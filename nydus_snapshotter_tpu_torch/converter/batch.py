@@ -1,23 +1,45 @@
-"""A chunk dict that grows across conversions: ``GrowingChunkDict``.
+"""Batch conversion: many images, one growing cross-image chunk dict.
 
-Each converted image's new chunks join the dict before the next image
-converts, first-wins per digest, so every image after the first dedups
-against everything before it; ``save`` writes a dict-image bootstrap that
-``ChunkDict.from_path`` (and so ``PackOption.chunk_dict_path``) loads. The
-order in which ``add_bootstrap`` merges images is the ordering authority of
-the chunk-dict service (parallel/dict_service.py): a chunk's position in
-the dict's chunk table is its index there.
+The reference achieves cross-repo dedup by feeding ``nydus-image`` a chunk
+dict bootstrap per conversion (``--chunk-dict bootstrap=…``,
+tool/builder.go:122-123) that an operator refreshes out of band. Here, as
+in the reference package's ``converter/batch.py``, the dict is a growing
+object: each converted image's new chunks join the dict before the next
+image converts (first-wins per digest), so every image after the first
+dedups against everything before it, and ``save`` writes a dict-image
+bootstrap that ``ChunkDict.from_path`` (and so
+``PackOption.chunk_dict_path``) loads. The order in which ``add_bootstrap``
+merges images is also the ordering authority of the chunk-dict service
+(parallel/dict_service.py): a chunk's position in the dict's chunk table
+is its index there.
 
-The reference's ``BatchConverter`` and its HA replica path
-(``append_records``) are not part of this module yet.
+``BatchConverter`` packs each image's layers on a thread pool (every lane
+of converter/pack.py: on the card, the fused lane launches K1 and K2, or
+K4, once per layer, each layer on a CUDA stream of its own), merges them with converter/convert.Merge against the
+dict, and grows the dict. Images convert in caller order and the dict is
+read-only inside an image, so the result does not depend on the fan-out.
+
+Refused with ``ConvertError``: ``memory_budget_mib`` (the reference's
+stage-parallel pipeline and its ``MemoryBudget``, parallel/pipeline.py),
+a ``codec=`` argument or the adaptive codec setting (converter/codec.py),
+and the HA dict service (``service+ha://``, ``|`` failover groups) with
+``GrowingChunkDict.append_records``, its replica path.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import threading
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 from typing import Optional
 
-from nydus_snapshotter_tpu_torch.converter.types import ConvertError
+import torch
+
+from nydus_snapshotter_tpu_torch.converter.convert import Merge, Pack, PackResult
+from nydus_snapshotter_tpu_torch.converter.pack import ADAPTIVE_REFUSAL, adaptive_codec_requested
+from nydus_snapshotter_tpu_torch.converter.types import ConvertError, MergeOption, PackOption
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
     BatchRecord,
     Bootstrap,
@@ -25,6 +47,7 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     ChunkRecord,
     CipherRecord,
 )
+from nydus_snapshotter_tpu_torch.tensors import resolve_device
 
 
 class GrowingChunkDict:
@@ -135,3 +158,160 @@ class GrowingChunkDict:
     @classmethod
     def load(cls, path: str) -> "GrowingChunkDict":
         return cls(seed=ChunkDict.from_path(path).bootstrap)
+
+
+@dataclass
+class ImageResult:
+    """One converted image: merged bootstrap + referenced blobs + the layer
+    blobs this conversion actually produced (already-deduped content is
+    referenced, not re-stored)."""
+
+    name: str
+    bootstrap: bytes
+    blob_digests: list[str]
+    layer_blobs: dict[str, bytes] = field(default_factory=dict)  # blob_id -> packed blob
+    new_dict_chunks: int = 0
+
+
+class BatchConverter:
+    """Convert an ordered stream of images with cross-image dedup.
+
+    Layers inside one image pack in parallel (the dict is read-only during
+    an image); the dict grows between images, so image N dedups against
+    images 0..N-1 plus any seeded dict (``dict_path``) — the top-100 /
+    cross-repo shape of BASELINE configs #3 and #5. ``layer_fanout`` caps
+    the concurrently packing layers (0/None = ``max_workers``, then the
+    pool default). ``device`` is where the device lanes run (CUDA unless
+    ``"cpu"`` is asked for).
+
+    With a dict service configured (``dict_service=`` unix-socket address,
+    ``,``-separated shard addresses or a ``service://`` argument, or
+    ``NTPU_DICT_SERVICE``), the dict is a ``ServiceChunkDict`` mirror of
+    one registry-wide table instead of a private copy: probes stay local,
+    each converted image merges through one batched RPC, and the mirror
+    re-syncs from the service's record tail.
+    """
+
+    def __init__(
+        self,
+        opt: PackOption,
+        dict_path: Optional[str] = None,
+        max_workers: Optional[int] = None,
+        memory_budget_mib: Optional[int] = None,
+        layer_fanout: Optional[int] = None,
+        dict_service: Optional[str] = None,
+        namespace: Optional[str] = None,
+        codec=None,
+        device=None,
+    ):
+        if opt.chunk_dict_path:
+            raise ConvertError(
+                "BatchConverter owns the chunk dict; use dict_path= instead "
+                "of PackOption.chunk_dict_path"
+            )
+        if memory_budget_mib:
+            raise ConvertError(
+                "memory_budget_mib: the stage-parallel pipeline and its MemoryBudget "
+                "(the reference's parallel/pipeline.py, ROADMAP.md 'Next' item 1) are not ported"
+            )
+        if codec is not None or adaptive_codec_requested(opt):
+            raise ConvertError(f"BatchConverter: {ADAPTIVE_REFUSAL}")
+        from nydus_snapshotter_tpu_torch.parallel import dict_service as dict_service_mod
+
+        self.opt = opt
+        self.device = device
+        self.max_workers = max_workers
+        self.layer_fanout = layer_fanout
+        dcfg = dict_service_mod.resolve_dict_config()
+        service = dict_service if dict_service is not None else dcfg.service
+        self.namespace = namespace or dcfg.namespace
+        if service:
+            if dict_path:
+                raise ConvertError(
+                    "dict_path seeds a private dict; a service-backed batch "
+                    "seeds through the service (merge the seed bootstrap "
+                    "into the namespace instead)"
+                )
+            if service.startswith("service+ha://") or "|" in service:
+                raise ConvertError(
+                    f"dict service {service!r}: the HA dict service (service+ha://, '|' "
+                    "failover groups; ROADMAP.md 'Next' item 4) is not ported"
+                )
+            # Comma-separated addresses = a rendezvous-sharded namespace
+            # (one DictService process per shard); one address keeps the
+            # single-service path byte-for-byte.
+            if service.startswith("service://"):
+                arg = service if "#" in service else service + "#" + self.namespace
+                self.dict = dict_service_mod.open_chunk_dict(arg)
+            else:
+                self.dict = dict_service_mod.ServiceChunkDict(
+                    [
+                        dict_service_mod.DictClient(s.strip())
+                        for s in service.split(",")
+                        if s.strip()
+                    ],
+                    self.namespace,
+                )
+        else:
+            self.dict = GrowingChunkDict.load(dict_path) if dict_path else GrowingChunkDict()
+
+    def _layer_stream(self):
+        """A CUDA stream of its own for one layer's pack, on the lanes that
+        use the card. Threads share the default stream otherwise, and one
+        layer's host sync (pass 1's candidate download, a digest batch's
+        event) would wait for every other layer's copies and kernels."""
+        opt = self.opt
+        if opt.backend in ("fused", "jax") or opt.digest_backend == "jax":
+            dev = resolve_device(self.device)
+            if dev.type == "cuda":
+                return torch.cuda.stream(torch.cuda.Stream(dev))
+        return contextlib.nullcontext()
+
+    def convert_image(self, name: str, layer_tars: list[bytes]) -> ImageResult:
+        if not layer_tars:
+            raise ConvertError(f"image {name}: no layers")
+        chunk_dict = self.dict if len(self.dict) else None
+
+        def pack_one(tar: bytes) -> tuple[bytes, PackResult]:
+            out = io.BytesIO()
+            with self._layer_stream():
+                res = Pack(out, tar, self.opt, chunk_dict=chunk_dict, device=self.device)
+            return out.getvalue(), res
+
+        if len(layer_tars) > 1:
+            fanout = self.layer_fanout or self.max_workers
+            with ThreadPoolExecutor(max_workers=fanout) as pool:
+                packed = list(pool.map(pack_one, layer_tars))
+        else:
+            packed = [pack_one(layer_tars[0])]
+
+        merged = Merge(
+            [blob for blob, _ in packed],
+            MergeOption(fs_version=self.opt.fs_version),
+            chunk_dict=chunk_dict,
+        )
+        added = self.dict.add_bootstrap_bytes(merged.bootstrap)
+        layer_blobs = {res.blob_id: blob for blob, res in packed if res.blob_id}
+        return ImageResult(
+            name=name,
+            bootstrap=merged.bootstrap,
+            blob_digests=merged.blob_digests,
+            layer_blobs=layer_blobs,
+            new_dict_chunks=added,
+        )
+
+    def train_codec_dict(self):
+        """The reference trains the adaptive codec's zstd dictionary here;
+        without an active codec (always, in this package) it returns None."""
+        return None
+
+    def convert_many(self, images: list[tuple[str, list[bytes]]]) -> list[ImageResult]:
+        """Caller order IS the dedup order; results come back in it too."""
+        return [self.convert_image(name, layers) for name, layers in images]
+
+    def save_dict(self, path: str) -> None:
+        self.dict.save(path)
+
+    def save_trained_dict(self, path: str) -> bool:
+        """False: no codec dictionary is ever trained in this package."""
+        return False

@@ -67,10 +67,13 @@ reference package's ``Pack``/``pack_layer`` for the same options:
 - RAFS v5 or v6.
 
 Refused with :class:`ConvertError`: ``encrypt=True`` (the blob cipher is
-not ported) and the HA chunk-dict service (``service+ha://``, ``|``
-failover groups). A real
-nydus v5/v6 bootstrap as ``chunk_dict_path`` raises ``BootstrapError``
-(models/bootstrap.ChunkDict.from_path).
+not ported), the HA chunk-dict service (``service+ha://``, ``|``
+failover groups), and zstd under ``NTPU_COMPRESS_ADAPTIVE`` where the
+system libzstd is bound (the reference then packs through its adaptive
+codec, converter/codec.py, whose frames differ; see
+:func:`adaptive_codec_requested`). A ``chunk_dict_path`` bootstrap may be
+in this package's layout or the real nydus v5/v6 layouts
+(models/nydus_real.load_any_bootstrap).
 
 A file-like ``src_tar`` streams: each member is read in 4 MiB segments
 through :class:`IncrementalChunker`, whose carry is bounded by the largest
@@ -396,9 +399,32 @@ def match_prefetch_paths(inodes, patterns: str) -> list[str]:
     return wanted
 
 
+def adaptive_codec_requested(opt: PackOption) -> bool:
+    """True where the reference's ``codec.resolve_codec`` would return an
+    ``AdaptiveCodec`` (converter/codec.py:271-283) from what this package
+    can read: compressor zstd, ``NTPU_COMPRESS_ADAPTIVE`` truthy (its
+    ``_env_bool``) and the system libzstd bound. The reference's
+    ``[compression] adaptive`` config arm has no counterpart here (no
+    config plane)."""
+    v = os.environ.get("NTPU_COMPRESS_ADAPTIVE", "")
+    return (
+        opt.compressor == "zstd"
+        and v not in ("", "0", "off", "false", "no")
+        and zstd_native.available()
+    )
+
+
+ADAPTIVE_REFUSAL = (
+    "the adaptive codec (NTPU_COMPRESS_ADAPTIVE with zstd; the reference's "
+    "converter/codec.py, ROADMAP.md 'What is left of pack' item 3) is not ported"
+)
+
+
 def _check_options(opt: PackOption) -> None:
     opt.validate()
     refused = []
+    if adaptive_codec_requested(opt):
+        refused.append(ADAPTIVE_REFUSAL)
     if opt.backend not in ("fused", "jax", "hybrid", "numpy"):
         refused.append(f"backend={opt.backend!r}")
     if opt.encrypt:

@@ -1,12 +1,14 @@
-"""Converter option surface — semantic parity with reference types.go:58-90.
+"""Converter option surface — semantic parity with reference types.go:58-145.
 
-A copy of the reference package's ``PackOption`` and ``ConvertError``, with
-its defaults; converter/pack.py states which option values this package's
-``Pack`` refuses."""
+A copy of the reference package's ``PackOption``, ``MergeOption``,
+``UnpackOption`` and ``ConvertError``, with their defaults;
+converter/pack.py states which option values this package's ``Pack``
+refuses."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 from nydus_snapshotter_tpu_torch import constants
 from nydus_snapshotter_tpu_torch.models import layout
@@ -92,3 +94,38 @@ class PackOption:
                 f"batch size must be zero or a power of two in "
                 f"[{constants.CHUNK_SIZE_MIN:#x}, {constants.CHUNK_SIZE_MAX:#x}]"
             )
+
+
+@dataclass
+class MergeOption:
+    """Options for merging layer bootstraps into an image bootstrap
+    (reference types.go:92-133)."""
+
+    work_dir: str = ""
+    # Empty = inherit the version of the top layer (explicit value overrides).
+    fs_version: str = ""
+    chunk_dict_path: str = ""
+    parent_bootstrap_path: str = ""
+    prefetch_patterns: str = ""
+    with_tar: bool = False
+    oci: bool = False
+    oci_ref: bool = False
+    with_referrer: bool = False
+    timeout: Optional[float] = None
+    # "native" (this package's format), or the reference toolchain's
+    # real on-disk layouts: "rafs-v5" / "rafs-v6" (models/nydus_real_write).
+    bootstrap_format: str = "native"
+    # Inode-digest algorithm when emitting a real layout ("blake3" is the
+    # toolchain default; use the same algorithm the layers' CHUNK digests
+    # were packed with — PackOption.digester — for a coherent image).
+    digester: str = "sha256"
+
+
+@dataclass
+class UnpackOption:
+    """Options for unpacking a nydus blob back to an OCI tar
+    (reference types.go:135-145)."""
+
+    work_dir: str = ""
+    timeout: Optional[float] = None
+    stream: bool = False

@@ -715,20 +715,12 @@ class ChunkDict:
 
     @classmethod
     def from_path(cls, path: str) -> "ChunkDict":
-        # Native bootstrap layout only: the reader of the reference
-        # toolchain's real v5/v6 layouts (the reference's
-        # models/nydus_real.load_any_bootstrap) is not part of this package
-        # yet, so anything else raises BootstrapError, as the reference
-        # does for bytes that neither reader takes.
+        from nydus_snapshotter_tpu_torch.models.nydus_real import load_any_bootstrap
+
         with open(path, "rb") as f:
-            data = f.read()
-        try:
-            return cls(Bootstrap.from_bytes(data))
-        except (ValueError, struct.error, IndexError) as e:
-            raise BootstrapError(
-                f"{path}: not a bootstrap of this package's layout ({e}); real nydus "
-                "v5/v6 bootstraps are not read by this package yet"
-            ) from e
+            # `--chunk-dict bootstrap=…` accepts REAL nydus bootstraps
+            # too: dedup against images the reference toolchain built.
+            return cls(load_any_bootstrap(f.read()))
 
     def __len__(self) -> int:
         return len(self._by_digest)

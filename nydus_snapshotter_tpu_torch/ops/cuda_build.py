@@ -5,8 +5,14 @@ the CUDA stream in, ``cudaGetLastError()`` out. ``nvcc`` compiles it for
 ``sm_90a`` into a shared library under ``build/`` (git-ignored), named by a
 hash of the source and flags, so a fresh checkout builds on first call and
 an edited source never loads a stale library. The compile writes to a
-temporary name and renames into place: a failed or interrupted build leaves
-neither a lock nor a partial library behind.
+temporary name (keyed by process and thread) and renames into place: a
+failed or interrupted build leaves neither a lock nor a partial library
+behind.
+
+Safe under concurrent callers (layers packed on a thread pool reach their
+kernels first from several threads at once): one lock per source covers
+the exists-check, compile and rename, and each ``Kernel`` loads and counts
+its ``launches`` under its own lock.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this host has no ``nvcc``.
@@ -19,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -54,6 +61,15 @@ def _nvcc() -> str:
     return found
 
 
+_source_locks: dict[str, threading.Lock] = {}
+_source_locks_guard = threading.Lock()
+
+
+def _source_lock(source: str) -> threading.Lock:
+    with _source_locks_guard:
+        return _source_locks.setdefault(source, threading.Lock())
+
+
 def library_path(source: str) -> Path:
     src = (CSRC_DIR / source).read_bytes()
     key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -67,21 +83,22 @@ def build(source: str) -> tuple[Path, str]:
     fresh build, "" for a cached one.
     """
     out = library_path(source)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp.so")
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise BuildError(f"nvcc failed on {source}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        tmp.unlink(missing_ok=True)
+    with _source_lock(source):
+        if out.exists():
+            return out, ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f".{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+                capture_output=True,
+                text=True,
+            )
+            if proc.returncode != 0:
+                raise BuildError(f"nvcc failed on {source}:\n{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            tmp.unlink(missing_ok=True)
     return out, proc.stderr
 
 
@@ -100,23 +117,27 @@ class Kernel:
         self.build_log = ""
         self._lib = None
         self._fn = None
+        self._lock = threading.Lock()
 
     def load(self):
         if self._fn is None:
-            path, log = build(self.source)
-            self.build_log = log or self.build_log
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
+            with self._lock:
+                if self._fn is None:
+                    path, log = build(self.source)
+                    self.build_log = log or self.build_log
+                    lib = ctypes.CDLL(str(path))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    self._lib, self._fn = lib, fn
         return self._fn
 
     def launch(self, *args) -> None:
         err = self.load()(*args)
         if err != 0:
             raise KernelError(f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 def build_all(kernels: list[Kernel]) -> None:

@@ -15,6 +15,7 @@ import torch
 
 from nydus_snapshotter_tpu_torch import entry
 from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
+from nydus_snapshotter_tpu_torch.converter.batch import BatchConverter
 from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester
 from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
 from nydus_snapshotter_tpu_torch.parallel import dict_service, sharded_dict
@@ -87,6 +88,23 @@ _CHILD = textwrap.dedent(
             cli.close()
         finally:
             svc.stop()
+    # image-level conversion: Merge (native and real layouts), Unpack, the
+    # real-format reader and writers, BatchConverter
+    from nydus_snapshotter_tpu_torch.converter import Merge, MergeOption, Unpack
+    from nydus_snapshotter_tpu_torch.converter import batch, convert
+    from nydus_snapshotter_tpu_torch.models import nydus_real, nydus_real_write
+    blob, res = pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, chunking="fixed"),
+                           device="cpu")
+    for fmt in ("native", "rafs-v5", "rafs-v6"):
+        boot = Merge([blob], MergeOption(bootstrap_format=fmt)).bootstrap
+        out = Unpack(nydus_real.load_any_bootstrap(boot),
+                     {res.blob_id: convert.blob_data_from_layer_blob(blob)})
+        assert tarfile.open(fileobj=io.BytesIO(out)).extractfile("f").read() == b"abc"
+    real = nydus_real_write.real_from_bootstrap(convert.bootstrap_from_layer_blob(blob))
+    assert nydus_real.parse_real_v6(nydus_real_write.write_real_v6(real)).inodes
+    results = batch.BatchConverter(PackOption(chunk_size=0x1000), layer_fanout=2,
+                                   device="cpu").convert_many([("i", [buf.getvalue()] * 2)])
+    assert results[0].blob_digests == [res.blob_id]
     fwd, args = entry.entry(device="cpu")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
@@ -129,6 +147,12 @@ _HYBRID_CHILD = textwrap.dedent(
                 _b, res = pack_layer(buf.getvalue(), PackOption(
                     chunk_size=0x1000, backend="hybrid", compressor=compressor, digester=digester))
                 assert res.route["lane"] == ("pack_files" if threads == "1" else "per_file"), res.route
+    from nydus_snapshotter_tpu_torch.converter import Unpack
+    from nydus_snapshotter_tpu_torch.converter.batch import BatchConverter
+    from nydus_snapshotter_tpu_torch.converter.convert import blob_data_from_layer_blob
+    res = BatchConverter(PackOption(chunk_size=0x1000, backend="hybrid"), layer_fanout=2).convert_many(
+        [("i", [buf.getvalue(), buf.getvalue()])])[0]
+    Unpack(res.bootstrap, {k: blob_data_from_layer_blob(v) for k, v in res.layer_blobs.items()})
     assert not torch.cuda.is_initialized()
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
@@ -181,11 +205,14 @@ def test_main_path_imports_neither_jax_nor_reference():
         lambda: pack_layer(b"", PackOption(backend="jax", compressor="zstd")),
         lambda: sharded_dict.ShardedChunkDict.load("/nonexistent.dict"),
         lambda: dict_service.DictService(),
+        lambda: BatchConverter(PackOption()).convert_image("i", [b""]),
+        lambda: BatchConverter(PackOption()).convert_image("i", [b"", b""]),
     ],
     ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
          "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
          "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3",
-         "pack_layer_jax_zstd", "dict_load", "dict_service"],
+         "pack_layer_jax_zstd", "dict_load", "dict_service", "batch_one_layer",
+         "batch_fanout"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():

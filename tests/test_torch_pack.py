@@ -398,16 +398,21 @@ class TestCompressedPack:
         )
 
     def test_real_bootstrap_dict_raises(self, tmp_path, small_tar):
-        """A real nydus v6 bootstrap as the dict: the reference reads it,
-        the port does not yet and says so."""
+        """A real nydus v6 bootstrap as the dict: both packages read it
+        (models/nydus_real.load_any_bootstrap) and pack the same bytes
+        against it; bytes that neither reader takes raise BootstrapError."""
         # v6's fixed chunk grid: the real layout carries no CDC chunks
         _b, jres = j_pack_layer(small_tar, JPackOption(backend="numpy", chunking="fixed", **SMALL))
         path = tmp_path / "real.boot"
         path.write_bytes(write_real_v6(real_from_bootstrap(JBootstrap.from_bytes(jres.bootstrap))))
-        opt = dict(chunk_dict_path=f"bootstrap={path}", **SMALL)
-        j_pack_layer(small_tar, JPackOption(backend="numpy", **opt))
+        opt = dict(chunk_dict_path=f"bootstrap={path}", chunking="fixed", **SMALL)
+        _blob, res = _pack_both(small_tar, "numpy", **opt)
+        assert res.blob_id == "" and res.referenced_blob_ids == [jres.blob_id]
+        bad = tmp_path / "bad.boot"
+        bad.write_bytes(b"\0" * 9000)
         with pytest.raises(BootstrapError, match="real nydus"):
-            pack_layer(small_tar, PackOption(backend="numpy", **opt), device="cpu")
+            pack_layer(small_tar, PackOption(backend="numpy", chunk_dict_path=str(bad), **SMALL),
+                       device="cpu")
 
     def test_streaming_pack_zstd(self):
         """The file-like ``Pack`` compresses as the in-memory walk does."""
@@ -541,6 +546,35 @@ class TestPackOptions:
     def test_bad_tar_raises(self):
         with pytest.raises(ConvertError):
             pack_layer(b"not a tar", PackOption(compressor="none"), device="cpu")
+
+    @pytest.mark.skipif(not native_pack.zstd_native.available(),
+                        reason="the system libzstd is not bound")
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_adaptive_codec_setting_refused(self, monkeypatch, backend):
+        """Under NTPU_COMPRESS_ADAPTIVE=1 the reference packs zstd through its
+        adaptive codec (converter/codec.resolve_codec), whose blob differs
+        from its fixed-level one; the port has no such codec and refuses the
+        setting instead of packing the fixed-level bytes. lz4_block is not
+        the codec's: both pack as usual."""
+        rng = np.random.default_rng(11)
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w") as tf:
+            for i in range(6):
+                data = (b"the quick brown fox jumps over the lazy dog %d " % i) * 3000 if i % 2 \
+                    else rng.integers(0, 256, 100_000, dtype=np.uint8).tobytes()
+                ti = tarfile.TarInfo(f"a/f{i}")
+                ti.size = len(data)
+                tf.addfile(ti, io.BytesIO(data))
+        tar = buf.getvalue()
+        opt = dict(compressor="zstd", **SMALL)
+        monkeypatch.setenv("NTPU_COMPRESS_ADAPTIVE", "0")
+        fixed_blob, _r = _pack_both(tar, backend, **opt)
+        monkeypatch.setenv("NTPU_COMPRESS_ADAPTIVE", "1")
+        adaptive_blob, _jr = j_pack_layer(tar, JPackOption(backend=backend, **opt))
+        assert adaptive_blob != fixed_blob
+        with pytest.raises(ConvertError, match="adaptive codec"):
+            pack_layer(tar, PackOption(backend=backend, **opt), device="cpu")
+        _pack_both(tar, backend, compressor="lz4_block", **SMALL)
 
 
 def _file_like_pair(tar, backend, **kw) -> bool:
