@@ -36,7 +36,13 @@ Phases (any failure exits non-zero; nothing is caught):
 4. pack — ``pack_layer`` over a ~256 MiB node:21-shaped tar, fused backend
    against the numpy (host) backend: blob, bootstrap and blob id identical;
    each wall time the median of 3 runs after that checked one, every run
-   printed with its host CPU seconds and minor page faults;
+   printed with its host CPU seconds and minor page faults, and the fused
+   runs' ``stats`` (``scan`` is the fast tar header walk). Then the tar's
+   header walk alone, the fast walk beside ``tarfile``'s (median of 3 in
+   turns), and one fused
+   ``Pack`` with the ``fused.dispatch`` failpoint armed with an error: it
+   raises, writes nothing, launches nothing, the site fires once; cleared,
+   the pack gives phase 4's blob and bootstrap;
 5. timings — each kernel alone (``kernel_ms``: many launches of its C entry
    with pointers prepared in advance, between two CUDA events; K3's after
    an L2 flush before each launch, as the main path meets it) and through
@@ -153,7 +159,10 @@ Phases (any failure exits non-zero; nothing is caught):
    positions; median of 3 after a checked RPC), and ``pack_layer(fused,
    chunk_dict_path="service://<sock>#ns")`` equal, byte for byte, to the
    pack with ``chunk_dict=GrowingChunkDict(seed=<that bootstrap>)`` (median
-   of 3 after the checked run). (c) phase 2's dict grown by the digests of
+   of 3 after the checked run). A probe RPC inside a client ``convert``
+   span: the service's ``dict.rpc.probe`` span (K3 inside it) joins the
+   client's trace id; ``GET /metrics`` and ``GET /api/v1/traces`` answer
+   on the socket. (c) phase 2's dict grown by the digests of
    another third of the layer's files, then ``process_many`` with it: K3
    once, every answer equal to the host probe of the grown table, every
    inserted digest answering its assigned index;
@@ -167,8 +176,8 @@ Phases (any failure exits non-zero; nothing is caught):
    phase 4's tar (lz4_block) at ``NTPU_PACK_THREADS=1``: the whole-layer
    ``pack_files`` lane at SHA-256 and at BLAKE3, and the
    ``chunk_digest_multi`` lane with phase 10's dict bootstrap as
-   ``chunk_dict_path``; (c) at the default thread count, the serial
-   per-file lane. Each equal to its fused twin (blob, bootstrap, blob id),
+   ``chunk_dict_path``; (c) at the default thread count, the per-file lane
+   on the stage-parallel pipeline (route lane ``pipeline``). Each equal to its fused twin (blob, bootstrap, blob id),
    its lane and route printed, no launch, the median of 3 after the checked
    run with its ``stats``.
 13. images — image-level conversion, BASELINE configs #2 and #3 at the
@@ -197,7 +206,13 @@ Phases (any failure exits non-zero; nothing is caught):
    (median of 3 after the checked run), the fan-out-1 and hybrid batches
    (their checked runs); per image input bytes, stored blob bytes, dedup
    ratio, new dict chunks, Merge ms and Unpack s; each real-format emit and
-   load; the phase's seconds. Files go to a temporary directory, removed.
+   load; the phase's seconds; the checked fused batch's ``convert`` trace
+   span seconds per image and its ``ntpu_fused_convert_stage_seconds`` by
+   stage (pass 1 / host / pass 2, summed over the layers). The fan-out-1
+   batch runs with ``memory_budget_mib=256``; the hybrid batch takes the
+   pipelined lane (every layer's route lane ``pipeline``) and prints its
+   ``ntpu_convert_pipeline_*`` stage busy seconds. Files go to a temporary
+   directory, removed.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -1952,6 +1967,7 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
 
             for i in range(1 + SERVICE_REPS):
                 probes.append(probe_rpc("ns", want))
+            observed = service_planes(svc, probe_rpc, want)
             # A service's traffic: one merge and one probe per converted
             # image. Each merge grows the namespace's table, so the first
             # probe after it restages the padded device copy.
@@ -2014,7 +2030,8 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
            "probe_after_merge_runs_ms": [c[1] * 1e3 for c in cycles],
            "probe_second_after_merge_ms": float(np.median([c[2] for c in cycles])) * 1e3,
            "pack_s": float(np.median(packs)), "pack_runs_s": packs, "pack_first_s": first_s,
-           "private_pack_s": float(np.median(privs)), "private_pack_runs_s": privs}
+           "private_pack_s": float(np.median(privs)), "private_pack_runs_s": privs,
+           "planes": observed}
     log(f"[11] service: DictService on {dev} over a unix socket; merge of a {len(private)}-chunk "
         f"bootstrap (fused SHA-256 pack of every third file of phase 4's tar) median "
         f"{out['merge_ms']:.1f} ms (runs " + ", ".join(f"{x * 1e3:.1f}" for x in merges)
@@ -2034,6 +2051,57 @@ def service_phase(dev, tar, blob_f, res_f, kernels) -> dict:
         f"median of {SERVICE_REPS} {out['pack_s']:.3f} s (runs " + ", ".join(f"{x:.3f}" for x in packs)
         + f" s) against {out['private_pack_s']:.3f} s (runs " + ", ".join(f"{x:.3f}" for x in privs)
         + " s)")
+    return out
+
+
+def uds_get(sock_path: str, path: str) -> tuple[int, bytes]:
+    import http.client
+    import socket
+
+    class Conn(http.client.HTTPConnection):
+        def connect(self):
+            self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            self.sock.connect(sock_path)
+
+    conn = Conn("localhost", timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def service_planes(svc, probe_rpc, want) -> dict:
+    """Phase 11c: a probe RPC inside a client span: the service's
+    ``dict.rpc.probe`` span (K3 inside it) joins the client's trace; then
+    ``GET /metrics`` and ``GET /api/v1/traces`` on the service."""
+    from nydus_snapshotter_tpu_torch import trace
+
+    trace.configure(enabled=True, ring_capacity=1 << 16, slow_op_threshold_ms=0)
+    with trace.span("convert", image="chip_smoke") as root:
+        took = probe_rpc("ns", want)
+    rpc = [sp for sp in trace.snapshot_spans() if sp.name == "dict.rpc.probe"]
+    if len(rpc) != 1 or (rpc[0].trace_id, rpc[0].parent_id) != (root.trace_id, root.span_id):
+        raise AssertionError(f"the dict.rpc.probe spans {[(sp.trace_id, sp.parent_id) for sp in rpc]}"
+                             f" do not join the client's trace {root.trace_id} / {root.span_id}")
+    got = {}
+    for path, needle in (("/metrics", b"# TYPE ntpu_trace_spans_total counter"),
+                         ("/api/v1/traces", b'"dict.rpc.probe"')):
+        status, body = uds_get(svc.sock_path, path)
+        if status != 200 or needle not in body:
+            raise AssertionError(f"GET {path} on the dict service: {status}, {body[:200]!r}")
+        got[path] = len(body)
+    from nydus_snapshotter_tpu_torch.parallel import dict_service
+
+    out = {"rpc_span_ms": rpc[0].duration_ms, "rpc_wall_ms": took * 1e3,
+           "trace_id": f"{root.trace_id:x}", "metrics_bytes": got["/metrics"],
+           "traces_bytes": got["/api/v1/traces"],
+           "rpc_total_probe": dict_service._RPC_TOTAL.value("probe")}
+    log(f"[11] service planes: a probe RPC in a client span: the service's dict.rpc.probe span "
+        f"(K3 inside it, {out['rpc_span_ms']:.2f} ms of the RPC's {out['rpc_wall_ms']:.2f} ms) "
+        f"joins trace {out['trace_id']}; GET /metrics {got['/metrics']} bytes, GET /api/v1/traces "
+        f"{got['/api/v1/traces']} bytes; {out['rpc_total_probe']:.0f} probe RPCs counted")
     return out
 
 
@@ -2171,12 +2239,68 @@ def host_arms_phase(dev, files, res_sha, windowed, b3, e2e_s, tar, comp, kernels
             (f"{codec} BLAKE3, phase 10's dict file", "1", "chunk_digest_multi",
              {"digester": "blake3", "chunk_dict_path": f"bootstrap={path}"}),
             (f"{codec} SHA-256, no dict", None,
-             "per_file" if _pack_threads() > 1 else "pack_files", {}),
+             "pipeline" if _pack_threads() > 1 else "pack_files", {}),
         ):
             out["packs"][f"{lane}_{kw.get('digester', 'sha256')}_{threads or 'default'}"] = lane_case(
                 name, threads, lane, **kw)
     log(f"[12] phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def failpoint_check(dev, tar, blob_f, res_f, opt, kernels) -> dict:
+    """Phase 4b: the tar header walks of phase 4's tar, and one fused pack
+    of it with ``fused.dispatch`` armed with an error: it must raise before
+    any output or launch, the site counted once; disarmed, the pack gives
+    phase 4's blob."""
+    from nydus_snapshotter_tpu_torch import failpoint
+    from nydus_snapshotter_tpu_torch.converter import Pack, PackOption
+    from nydus_snapshotter_tpu_torch.converter.pack import _fast_tar_members
+
+    runs: dict[str, list] = {"fast walk": [], "tarfile": []}
+    found = {}
+    for _ in range(3):  # in turns, so neither side always meets a cold heap
+        for name, walk in (("fast walk", lambda: _fast_tar_members(memoryview(tar))),
+                           ("tarfile", lambda: tarfile.open(fileobj=io.BytesIO(tar),
+                                                            mode="r:").getmembers())):
+            t0 = time.perf_counter()
+            found[name] = len(walk())
+            runs[name].append(time.perf_counter() - t0)
+    walks = {name: (float(np.median(r)), found[name]) for name, r in runs.items()}
+    if found["fast walk"] != found["tarfile"]:
+        raise AssertionError(f"the fast tar walk found {found['fast walk']} members, tarfile "
+                             f"{found['tarfile']}")
+    for k in kernels.values():
+        k.launches = 0
+    failpoint.clear()
+    failpoint.inject("fused.dispatch", "error(RuntimeError:chip_smoke fault)")
+    dest = io.BytesIO()
+    try:
+        Pack(dest, tar, PackOption(backend="fused", **opt), device=dev)
+    except RuntimeError as e:
+        if "chip_smoke fault" not in str(e):
+            raise
+    else:
+        raise AssertionError("the fused pack with fused.dispatch armed did not raise")
+    finally:
+        fired = failpoint.counts().get("fused.dispatch", 0)
+        failpoint.clear()
+    launched = {key: k.launches for key, k in kernels.items()}
+    if fired != 1 or dest.getvalue() or any(launched.values()):
+        raise AssertionError(f"fused.dispatch fired {fired} times, the pack wrote "
+                             f"{len(dest.getvalue())} bytes and launched {launched}; want once, "
+                             "nothing, nothing")
+    dest = io.BytesIO()
+    res = Pack(dest, tar, PackOption(backend="fused", **opt), device=dev)
+    if dest.getvalue() != blob_f or res.bootstrap != res_f.bootstrap:
+        raise AssertionError("the fused pack after the failpoint was cleared differs from phase 4's")
+    log(f"[4] tar header walks of phase 4's tar ({walks['tarfile'][1]} members), median of 3 in "
+        f"turns: the fast walk {walks['fast walk'][0]:.3f} s, tarfile {walks['tarfile'][0]:.3f} s "
+        "(runs " + "; ".join(f"{k} " + ", ".join(f"{x:.3f}" for x in r) for k, r in runs.items())
+        + "); fused pack with "
+        "fused.dispatch armed: raised at the device batch boundary, site fired once, no output, "
+        "no launch; disarmed: == phase 4's blob and bootstrap")
+    return {"walk_s": {k: v[0] for k, v in walks.items()}, "walk_runs_s": runs,
+            "members": found["tarfile"]}
 
 
 def split_by_weight(files: list[np.ndarray], weights) -> list[list[np.ndarray]]:
@@ -2276,9 +2400,13 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
     from nydus_snapshotter_tpu_torch.converter.convert import (
         blob_data_from_layer_blob, bootstrap_from_layer_blob,
     )
+    from nydus_snapshotter_tpu_torch import trace
+    from nydus_snapshotter_tpu_torch.converter.pack import _pack_threads
+    from nydus_snapshotter_tpu_torch.metrics import registry
     from nydus_snapshotter_tpu_torch.models import fstree
     from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
     from nydus_snapshotter_tpu_torch.models.nydus_real import load_any_bootstrap
+    from nydus_snapshotter_tpu_torch.parallel import pipeline
 
     t_phase = time.perf_counter()
     corpus = image_corpus(files)
@@ -2327,6 +2455,12 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
         merge_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
+    # the fused engine's stage counters (ops/fused_convert._record_dispatch)
+    fused_stage = registry.default_registry.register(registry.Counter(
+        "ntpu_fused_convert_stage_seconds", "Wall seconds per fused-convert stage", ("stage",)))
+    stages = ("pass1_gear", "host_resolve", "pass2_digest")
+    trace.configure(enabled=True, ring_capacity=1 << 16, slow_op_threshold_ms=0)
+    stage_before = {k: fused_stage.value(k) for k in stages}
     batch.Merge = timed_merge
     try:
         zero()
@@ -2334,6 +2468,11 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
         launches = counts()
     finally:
         batch.Merge = real_merge
+    stage_s = {k: fused_stage.value(k) - stage_before[k] for k in stages}
+    convert_s = {sp.attrs["image"]: sp.duration_ms / 1e3 for sp in trace.snapshot_spans()
+                 if sp.name == "convert"}
+    if sorted(convert_s) != sorted(name for name, _t in images):
+        raise AssertionError(f"convert spans for {sorted(convert_s)}; want one per image")
     want = {"gear": n_layers, "sha": n_layers, "probe": 0, "b3_leaves": 0, "b3_parents": 0}
     if launches != want:
         raise AssertionError(f"the fused batch launched {launches}; want {want} (K1 and K2 once "
@@ -2346,18 +2485,40 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
     del again
     fused_wall = float(np.median(fused_walls))
     zero()
-    serial, serial_wall = run("fused", "fanout1", layer_fanout=1)
+    serial, serial_wall = run("fused", "fanout1", layer_fanout=1, memory_budget_mib=256)
     serial_launches = counts()
-    same(serial, fused, "fan-out-1 batch")
+    same(serial, fused, "fan-out-1 batch (memory_budget_mib=256)")
     if serial_launches != want:
         raise AssertionError(f"the fan-out-1 batch launched {serial_launches}; want {want}")
     del serial
     zero()
-    hybrid, hybrid_wall = run("hybrid", "hybrid")
+    routes = []
+    real_pack = batch.Pack
+
+    def routed_pack(*a, **k):
+        res = real_pack(*a, **k)
+        routes.append(res.route)
+        return res
+
+    pipe_before = pipeline.snapshot_counters()
+    batch.Pack = routed_pack
+    try:
+        hybrid, hybrid_wall = run("hybrid", "hybrid")
+    finally:
+        batch.Pack = real_pack
+    pipe_after = pipeline.snapshot_counters()
     if any(counts().values()):
         raise AssertionError(f"the hybrid batch launched {counts()}")
     same(hybrid, fused, "hybrid batch")
     del hybrid
+    lanes = sorted({r["lane"] for r in routes})
+    if _pack_threads() > 1 and lanes != ["pipeline"]:
+        raise AssertionError(f"the hybrid batch's layers took {lanes}; want the pipeline")
+    busy = {k: pipe_after["stage_busy_s"][k] - pipe_before["stage_busy_s"][k]
+            for k in ("chunk", "compress")}
+    pipe = {"runs": pipe_after["runs"] - pipe_before["runs"], "stage_busy_s": busy,
+            "chunk_items": pipe_after["stage_items"]["chunk"] - pipe_before["stage_items"]["chunk"],
+            "lanes": lanes, "route": routes[0]}
     log(f"[13] fused BatchConverter.convert_many([A, B, C]): launches {launches} over {n_layers} "
         f"layers (K1 and K2 once per layer, K3 and K4 never); == the hybrid batch (no launch) "
         f"and the fan-out-1 batch (launches {serial_launches}) in every image's bootstrap, "
@@ -2368,6 +2529,14 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
         f"{total_in / 2**30 / serial_wall:.3f} GiB/s (host CPU {cpu_s['fanout1'][0]:.3f} s), "
         f"hybrid {hybrid_wall:.3f} s = {total_in / 2**30 / hybrid_wall:.3f} GiB/s (host CPU "
         f"{cpu_s['hybrid'][0]:.3f} s); fan-out gain {serial_wall / fused_wall:.2f}x")
+    log(f"[13] fused batch (checked run): convert span s per image " + ", ".join(
+        f"{k} {v:.3f}" for k, v in convert_s.items()) + "; ntpu_fused_convert_stage_seconds over "
+        f"its {n_layers} layers: " + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items())
+        + f"; the fan-out-1 batch ran with memory_budget_mib=256")
+    log(f"[13] hybrid batch: {len(routes)} layers, lanes {lanes}, route {routes[0]}; pipeline runs "
+        f"{pipe['runs']:.0f}, files chunked {pipe['chunk_items']:.0f}, ntpu_convert_pipeline_stage_"
+        f"busy_seconds chunk {busy['chunk']:.3f}, compress {busy['compress']:.3f} (the deferred "
+        "writer compresses in its native pass)")
 
     # -- per image: dedup, Unpack against the source trees -------------------
     parsed: dict[int, list] = {}
@@ -2481,7 +2650,9 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
     return {"launches": launches, "fanout1_launches": serial_launches, "layers": n_layers,
             "input_bytes": total_in, "fused_wall_s": fused_wall, "fused_runs_s": fused_walls,
             "fused_first_s": fused_first, "fanout1_wall_s": serial_wall,
-            "hybrid_wall_s": hybrid_wall, "host_cpu_s": cpu_s, "images": per_image, "real": real, "phase_s": phase_s}
+            "hybrid_wall_s": hybrid_wall, "host_cpu_s": cpu_s, "images": per_image, "real": real,
+            "phase_s": phase_s, "convert_span_s": convert_s, "fused_stage_s": stage_s,
+            "hybrid_pipeline": pipe}
 
 
 def main() -> int:
@@ -2771,6 +2942,8 @@ def main() -> int:
         + "; fused runs' stats s: " + ", ".join(
             " + ".join(f"{k} {st[k]:.3f}" for k in ("scan", "chunk_digest", "dedup", "assemble",
                                                       "bootstrap")) for st in fused_stats))
+
+    failpoint_check(dev, tar, blob_f, res_f, opt, kernels)
 
     # -- 5. timings --------------------------------------------------------
     sm_hz = max_sm_mhz * 1e6

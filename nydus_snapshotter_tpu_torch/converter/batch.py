@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from nydus_snapshotter_tpu_torch import trace
 from nydus_snapshotter_tpu_torch.converter.convert import Merge, Pack, PackResult
 from nydus_snapshotter_tpu_torch.converter.pack import ADAPTIVE_REFUSAL, adaptive_codec_requested
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, MergeOption, PackOption
@@ -184,6 +185,14 @@ class BatchConverter:
     pool default). ``device`` is where the device lanes run (CUDA unless
     ``"cpu"`` is asked for).
 
+    The fan-out runs under one aggregate memory budget: every layer's
+    stage-parallel pipeline (parallel/pipeline.py) draws its speculative
+    compression bytes from the same ``MemoryBudget``, so batch memory is
+    bounded however many layers are in flight. ``memory_budget_mib`` sizes
+    a converter-private budget instead of the process-shared one. Each
+    image is one ``convert`` trace span; its layers' spans join it from the
+    pool's threads.
+
     With a dict service configured (``dict_service=`` unix-socket address,
     ``,``-separated shard addresses or a ``service://`` argument, or
     ``NTPU_DICT_SERVICE``), the dict is a ``ServiceChunkDict`` mirror of
@@ -209,19 +218,20 @@ class BatchConverter:
                 "BatchConverter owns the chunk dict; use dict_path= instead "
                 "of PackOption.chunk_dict_path"
             )
-        if memory_budget_mib:
-            raise ConvertError(
-                "memory_budget_mib: the stage-parallel pipeline and its MemoryBudget "
-                "(the reference's parallel/pipeline.py, ROADMAP.md 'Next' item 1) are not ported"
-            )
         if codec is not None or adaptive_codec_requested(opt):
             raise ConvertError(f"BatchConverter: {ADAPTIVE_REFUSAL}")
         from nydus_snapshotter_tpu_torch.parallel import dict_service as dict_service_mod
+        from nydus_snapshotter_tpu_torch.parallel import pipeline as pipeline_mod
 
         self.opt = opt
         self.device = device
         self.max_workers = max_workers
         self.layer_fanout = layer_fanout
+        self.budget = (
+            pipeline_mod.MemoryBudget(memory_budget_mib << 20)
+            if memory_budget_mib
+            else pipeline_mod.shared_budget()
+        )
         dcfg = dict_service_mod.resolve_dict_config()
         service = dict_service if dict_service is not None else dcfg.service
         self.namespace = namespace or dcfg.namespace
@@ -235,7 +245,7 @@ class BatchConverter:
             if service.startswith("service+ha://") or "|" in service:
                 raise ConvertError(
                     f"dict service {service!r}: the HA dict service (service+ha://, '|' "
-                    "failover groups; ROADMAP.md 'Next' item 4) is not ported"
+                    "failover groups; ROADMAP.md Queue A item 6) is not ported"
                 )
             # Comma-separated addresses = a rendezvous-sharded namespace
             # (one DictService process per shard); one address keeps the
@@ -272,25 +282,28 @@ class BatchConverter:
             raise ConvertError(f"image {name}: no layers")
         chunk_dict = self.dict if len(self.dict) else None
 
-        def pack_one(tar: bytes) -> tuple[bytes, PackResult]:
-            out = io.BytesIO()
-            with self._layer_stream():
-                res = Pack(out, tar, self.opt, chunk_dict=chunk_dict, device=self.device)
-            return out.getvalue(), res
+        def pack_one(tar: bytes, ctx) -> tuple[bytes, PackResult]:
+            with trace.with_context(ctx), self._layer_stream():
+                out = io.BytesIO()
+                res = Pack(out, tar, self.opt, chunk_dict=chunk_dict, device=self.device,
+                           budget=self.budget)
+                return out.getvalue(), res
 
-        if len(layer_tars) > 1:
-            fanout = self.layer_fanout or self.max_workers
-            with ThreadPoolExecutor(max_workers=fanout) as pool:
-                packed = list(pool.map(pack_one, layer_tars))
-        else:
-            packed = [pack_one(layer_tars[0])]
+        with trace.span("convert", image=name, layers=len(layer_tars)):
+            ctx = trace.capture()  # contextvars do not cross the pool: carry the span
+            if len(layer_tars) > 1:
+                fanout = self.layer_fanout or self.max_workers
+                with ThreadPoolExecutor(max_workers=fanout) as pool:
+                    packed = list(pool.map(lambda t: pack_one(t, ctx), layer_tars))
+            else:
+                packed = [pack_one(layer_tars[0], ctx)]
 
-        merged = Merge(
-            [blob for blob, _ in packed],
-            MergeOption(fs_version=self.opt.fs_version),
-            chunk_dict=chunk_dict,
-        )
-        added = self.dict.add_bootstrap_bytes(merged.bootstrap)
+            merged = Merge(
+                [blob for blob, _ in packed],
+                MergeOption(fs_version=self.opt.fs_version),
+                chunk_dict=chunk_dict,
+            )
+            added = self.dict.add_bootstrap_bytes(merged.bootstrap)
         layer_blobs = {res.blob_id: blob for blob, res in packed if res.blob_id}
         return ImageResult(
             name=name,

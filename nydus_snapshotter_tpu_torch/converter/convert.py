@@ -44,6 +44,7 @@ from nydus_snapshotter_tpu_torch import constants
 from nydus_snapshotter_tpu_torch.converter.pack import (  # noqa: F401  (re-exported)
     Pack,
     PackResult,
+    _make_compressor,
     match_prefetch_paths,
     pack_layer,
 )
@@ -70,6 +71,52 @@ CHUNK_FLAG_ZSTD_STREAM = 0x800
 # Chunk-frame header of the reference's trained-dictionary zstd frames
 # (converter/codec.py TRAINED_FRAME_MAGIC).
 TRAINED_FRAME_MAGIC = b"nZD1"
+
+
+class ThreadSafeCompressor:
+    """Per-thread codec contexts for parallel speculative compression (the
+    pipeline's ``compress_fn``).
+
+    A zstd context is not safe for concurrent calls; the output is still
+    deterministic across contexts (same level, single-threaded contexts),
+    so racing threads produce identical bytes.
+    """
+
+    def __init__(self, compressor: str, lz4_accel: int = 1):
+        self._kind = compressor
+        self._lz4_accel = lz4_accel
+        self._tls = threading.local()
+
+    def __call__(self, data):
+        fn = getattr(self._tls, "fn", None)
+        if fn is None:
+            fn = self._tls.fn = _make_compressor(self._kind, self._lz4_accel)
+        return fn(data)
+
+    def encode_many(self, views, n_threads: int = 1):
+        """Batch counterpart of ``__call__``: ``[(payload, flag)]``
+        byte-identical to ``[self(v) for v in views]``. With the system
+        libzstd, zstd runs as one GIL-free native batch at the fixed level
+        (``ntpu_encode_batch`` is one-shot ``ZSTD_compressCCtx`` like
+        ``compress_block``, so the frames match); everything else loops per
+        chunk."""
+        if self._kind == "zstd" and views:
+            from nydus_snapshotter_tpu_torch.ops import native_cdc
+            from nydus_snapshotter_tpu_torch.utils import zstd as zstd_native
+
+            if zstd_native.available() and native_cdc.encode_batch_available():
+                buf, ext = native_cdc.concat_extents(views)
+                res = native_cdc.encode_batch_native(buf, ext, constants.ZSTD_LEVEL, n_threads)
+                if res is not None:
+                    payloads, comp, _digests = res
+                    return [
+                        (
+                            payloads[int(comp[k, 0]) : int(comp[k, 0]) + int(comp[k, 1])].tobytes(),
+                            constants.COMPRESSOR_ZSTD,
+                        )
+                        for k in range(len(views))
+                    ]
+        return [self(v) for v in views]
 
 
 @dataclass

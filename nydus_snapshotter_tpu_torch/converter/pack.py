@@ -24,10 +24,15 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   compress, assemble and hash) when there is no chunk dict and the
   deferred section writer is in use, else ``chunk_digest_multi`` (cuts and
   digests) before the dedup lane. With more threads each file takes one
-  fused chunk+digest call in tar order (the reference's serial per-file
-  lane; its threaded pipeline, parallel/pipeline.py, is not ported) and
-  files no larger than the minimum chunk are digested in one batch.
-- ``backend="numpy"``: the host oracle, numpy CDC and host digests.
+  fused chunk+digest call, and files no larger than the minimum chunk are
+  digested in one batch. With more than one such file the calls run on
+  the stage-parallel pipeline (parallel/pipeline.py: a chunk+digest pool,
+  a speculative compress pool for the serial section writer, the ordered
+  dedup and assembly on the caller's thread), else in tar order on one
+  thread; the bytes are the same.
+- ``backend="numpy"``: the host oracle, numpy CDC and host digests; at more
+  than one thread on the same pipeline, each worker digesting its file's
+  chunks on the host.
 - ``digest_backend``: ``"jax"`` digests every lane's batches on the card;
   ``"host"`` digests the ``numpy`` and ``fused`` lanes' batches on the host
   (the ``jax`` lane digests on the card whatever it says, as the
@@ -68,14 +73,16 @@ reference package's ``Pack``/``pack_layer`` for the same options:
 
 Refused with :class:`ConvertError`: ``encrypt=True`` (the blob cipher is
 not ported), the HA chunk-dict service (``service+ha://``, ``|``
-failover groups), and zstd under ``NTPU_COMPRESS_ADAPTIVE`` where the
-system libzstd is bound (the reference then packs through its adaptive
-codec, converter/codec.py, whose frames differ; see
-:func:`adaptive_codec_requested`). A ``chunk_dict_path`` bootstrap may be
-in this package's layout or the real nydus v5/v6 layouts
-(models/nydus_real.load_any_bootstrap).
+failover groups), and zstd under ``NTPU_COMPRESS_ADAPTIVE`` or the global
+config's ``[compression] adaptive`` where the system libzstd is bound (the
+reference then packs through its adaptive codec, converter/codec.py, whose
+frames differ; see :func:`adaptive_codec_requested`). A
+``chunk_dict_path`` bootstrap may be in this package's layout or the real
+nydus v5/v6 layouts (models/nydus_real.load_any_bootstrap).
 
-A file-like ``src_tar`` streams: each member is read in 4 MiB segments
+An in-memory tar's headers are read by :func:`_fast_tar_members` (the
+reference's header walk; ``tarfile`` where it bails). A file-like
+``src_tar`` streams: each member is read in 4 MiB segments
 through :class:`IncrementalChunker`, whose carry is bounded by the largest
 chunk. Sparse members take the same chunker. Blob bytes go to ``dest`` as
 chunks are stored; only metadata accumulates. Dedup, blob assembly and
@@ -85,8 +92,10 @@ order, first occurrence stored, later ones referenced.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
+import math
 import os
 import stat
 import tarfile
@@ -97,7 +106,8 @@ from typing import BinaryIO, Optional
 import numpy as np
 import torch
 
-from nydus_snapshotter_tpu_torch import constants
+from nydus_snapshotter_tpu_torch import constants, failpoint
+from nydus_snapshotter_tpu_torch.config.config import global_section
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, PackOption
 from nydus_snapshotter_tpu_torch.models import fstree, layout, nydus_tar, toc
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
@@ -232,9 +242,11 @@ class _SectionWriter:
         self._pending = []
         self._pending_bytes = 0
 
-    def add(self, uniq_idx: int, data, uoff: int) -> None:
+    def add(self, uniq_idx: int, data, uoff: int, precomp=None) -> None:
         """Store unique chunk ``uniq_idx`` (uncompressed offset ``uoff``);
-        unique chunks arrive in index order."""
+        unique chunks arrive in index order. ``precomp``: the chunk's
+        ``(frame, flag)`` compressed off-thread by the pipeline (the same
+        deterministic codec, so the same bytes)."""
         assert uniq_idx == len(self.extents)
         self.extents.append(None)
         if self.batch_size and len(data) < self.batch_size:
@@ -244,7 +256,7 @@ class _SectionWriter:
             self._pending_bytes += len(data)
         else:
             self._flush_batch()
-            comp, cflag = self.compress(data)
+            comp, cflag = precomp if precomp is not None else self.compress(data)
             self.extents[uniq_idx] = (self._emit(comp), len(comp), cflag)
 
     def finish(self) -> None:
@@ -302,7 +314,7 @@ class _DeferredSectionWriter:
         self.native: Optional[bool] = None  # set by finish: native pass, or replay
         self.threads = 0
 
-    def add(self, uniq_idx: int, data, uoff: int) -> None:
+    def add(self, uniq_idx: int, data, uoff: int, precomp=None) -> None:
         assert uniq_idx == len(self._items)
         size = len(data)
         if isinstance(data, memoryview):
@@ -401,22 +413,22 @@ def match_prefetch_paths(inodes, patterns: str) -> list[str]:
 
 def adaptive_codec_requested(opt: PackOption) -> bool:
     """True where the reference's ``codec.resolve_codec`` would return an
-    ``AdaptiveCodec`` (converter/codec.py:271-283) from what this package
-    can read: compressor zstd, ``NTPU_COMPRESS_ADAPTIVE`` truthy (its
-    ``_env_bool``) and the system libzstd bound. The reference's
-    ``[compression] adaptive`` config arm has no counterpart here (no
-    config plane)."""
+    ``AdaptiveCodec`` (converter/codec.py:271-283): compressor zstd, the
+    ``adaptive`` knob on (``NTPU_COMPRESS_ADAPTIVE`` as its ``_env_bool``
+    reads it, else the global config's ``[compression] adaptive``) and the
+    system libzstd bound."""
+    if opt.compressor != "zstd":
+        return False
+    adaptive = bool(getattr(global_section("compression"), "adaptive", False))
     v = os.environ.get("NTPU_COMPRESS_ADAPTIVE", "")
-    return (
-        opt.compressor == "zstd"
-        and v not in ("", "0", "off", "false", "no")
-        and zstd_native.available()
-    )
+    if v:
+        adaptive = v not in ("0", "off", "false", "no")
+    return adaptive and zstd_native.available()
 
 
 ADAPTIVE_REFUSAL = (
-    "the adaptive codec (NTPU_COMPRESS_ADAPTIVE with zstd; the reference's "
-    "converter/codec.py, ROADMAP.md 'What is left of pack' item 3) is not ported"
+    "the adaptive codec (NTPU_COMPRESS_ADAPTIVE or [compression] adaptive with zstd; "
+    "the reference's converter/codec.py, ROADMAP.md Queue A item 4) is not ported"
 )
 
 
@@ -437,6 +449,204 @@ def _check_options(opt: PackOption) -> None:
         )
     if refused:
         raise ConvertError(f"Pack does not support {'; '.join(refused)}")
+
+
+def _tar_num(field: memoryview) -> int:
+    """Tar numeric field: octal decoded inline (the ~100% case — int(_, 8)
+    over the NUL-terminated, space-stripped text, exactly tarfile.nti's
+    octal branch), GNU base-256 (lead byte 0x80/0xFF, e.g. >8 GiB sizes or
+    pre-epoch mtimes) delegated to tarfile's decoder — one source of truth
+    for the exotic branch; malformed fields raise ValueError so the fast
+    scanner bails to tarfile."""
+    b = bytes(field)
+    if b and b[0] in (0x80, 0xFF):
+        try:
+            return tarfile.nti(b)
+        except tarfile.InvalidHeaderError as e:
+            raise ValueError(str(e)) from e
+    end = b.find(0)
+    s = (b if end < 0 else b[:end]).strip()
+    if not s:
+        return 0
+    return int(s, 8)  # ValueError on garbage, as tarfile.nti raises
+
+
+_TAR_PLAIN_TYPES = (b"0", b"\x00", b"1", b"2", b"3", b"4", b"5", b"6", b"7")
+
+
+def _parse_pax_records(data: bytes) -> "dict[str, str] | None":
+    """Decode a pax extended header block ("%d key=value\\n" records);
+    None on malformed framing. Values decode utf-8/surrogateescape — the
+    same round-trip tarfile uses, so binary xattrs survive."""
+    out: dict[str, str] = {}
+    pos = 0
+    n = len(data)
+    while pos < n:
+        if data[pos] == 0:
+            break  # zero padding after the last record
+        sp = data.find(b" ", pos, pos + 20)
+        if sp < 0:
+            return None
+        try:
+            length = int(data[pos:sp])
+        except ValueError:
+            return None
+        end = pos + length
+        if length < sp - pos + 3 or end > n or data[end - 1] != 0x0A:
+            return None
+        eq = data.find(b"=", sp + 1, end)
+        if eq < 0:
+            return None
+        key = data[sp + 1 : eq].decode("utf-8", "surrogateescape")
+        out[key] = data[eq + 1 : end - 1].decode("utf-8", "surrogateescape")
+        pos = end
+    return out
+
+
+def _fast_tar_members(raw: memoryview):
+    """Header walk over an in-memory tar: [(TarInfo, data_offset)], or
+    None when the archive needs tarfile's full machinery.
+
+    tarfile.TarInfo.frombuf costs ~30 µs/member (field-by-field parse,
+    encoding fallbacks) — ~20% of full-path convert on a node_modules-
+    shaped layer. This scanner handles plain ustar/GNU members plus pax
+    ``x`` extended headers (Go's archive/tar — the writer behind real
+    docker layers — emits pax for xattrs/long names/big files) with
+    checksum verification, and bails to tarfile for anything else: pax
+    globals (g), GNU longname/longlink (L/K), sparse (S), non-ustar
+    magic, truncated data, or a non-regular member carrying data. A None
+    return loses nothing but the speedup.
+    """
+    out: list[tuple[tarfile.TarInfo, int]] = []
+    pos = 0
+    n = len(raw)
+    saw_end = False
+    pending_pax: "dict[str, str] | None" = None
+    while pos + 512 <= n:
+        hdr = raw[pos : pos + 512]
+        hb = bytes(hdr)
+        if hb[0] == 0:
+            if hb.count(0) == 512:
+                saw_end = True
+                break  # end-of-archive
+            return None
+        if hb[257:263] not in (b"ustar\x00", b"ustar "):
+            return None
+        typ = hb[156:157]
+        if typ not in _TAR_PLAIN_TYPES and typ != b"x":
+            return None
+        try:
+            mode = _tar_num(hdr[100:108])
+            uid = _tar_num(hdr[108:116])
+            gid = _tar_num(hdr[116:124])
+            size = _tar_num(hdr[124:136])
+            mtime = _tar_num(hdr[136:148])
+            chksum = _tar_num(hdr[148:156])
+        except ValueError:
+            return None
+        if size < 0:
+            # GNU base-256 can encode negative values; a negative size
+            # would make the scan position stop advancing (infinite loop)
+            # — bail and let tarfile reject the archive.
+            return None
+        if chksum != sum(hb) - sum(hb[148:156]) + 8 * 0x20:
+            return None
+        if typ == b"x":
+            # pax extended header: records apply to the NEXT member.
+            end = pos + 512 + size
+            if end > n:
+                return None
+            pax = _parse_pax_records(bytes(raw[pos + 512 : end]))
+            if pax is None:
+                return None
+            if any(k.startswith("GNU.sparse") for k in pax):
+                # pax-sparse members need tarfile's sparse-map handling
+                # (_proc_gnusparse_*): the data region is a packed map +
+                # holes, not the file bytes.
+                return None
+            pending_pax = pax
+            pos = pos + 512 + 512 * ((size + 511) // 512)
+            continue
+        if typ not in (b"0", b"\x00", b"7"):
+            if size != 0:
+                return None  # non-regular member carrying data: exotic
+            data_size = 0
+        else:
+            data_size = size
+        name = hb[:100].split(b"\x00", 1)[0].decode("utf-8", "surrogateescape")
+        if hb[257:263] == b"ustar\x00":
+            prefix = hb[345:500].split(b"\x00", 1)[0]
+            if prefix:
+                name = prefix.decode("utf-8", "surrogateescape") + "/" + name
+        # tarfile semantics: a trailing slash marks a directory (even with
+        # a regular typeflag) and is stripped from the stored name.
+        if name.endswith("/"):
+            if typ in (b"0", b"\x00"):
+                typ = b"5"
+            name = name.rstrip("/")
+        ti = tarfile.TarInfo(name)
+        ti.mode = mode
+        ti.uid = uid
+        ti.gid = gid
+        ti.size = size
+        ti.mtime = mtime
+        ti.type = typ
+        ti.linkname = hb[157:257].split(b"\x00", 1)[0].decode(
+            "utf-8", "surrogateescape"
+        )
+        if typ in (b"3", b"4"):
+            try:
+                ti.devmajor = _tar_num(hdr[329:337])
+                ti.devminor = _tar_num(hdr[337:345])
+            except ValueError:
+                return None  # malformed device numbers: let tarfile decide
+        if pending_pax is not None:
+            # Apply overrides exactly as tarfile._apply_pax_info does for
+            # the fields this pipeline consumes.
+            p = pending_pax
+            try:
+                if "path" in p:
+                    # tarfile._apply_pax_info only rstrips; it never
+                    # retypes on a trailing slash (that V7 rule applies to
+                    # base-header names only).
+                    ti.name = p["path"].rstrip("/")
+                if "linkpath" in p:
+                    ti.linkname = p["linkpath"]
+                if "size" in p:
+                    ti.size = int(p["size"])
+                    if ti.size < 0:
+                        # Bailing to tarfile is NOT safe here: tarfile
+                        # walks backwards off the member and silently
+                        # yields nothing more — a data-losing "valid"
+                        # image. Reject outright.
+                        raise ConvertError(
+                            f"bad layer tar: negative pax size for {ti.name!r}"
+                        )
+                    if typ in (b"0", b"\x00", b"7"):
+                        data_size = ti.size
+                if "mtime" in p:
+                    ti.mtime = float(p["mtime"])
+                    if not math.isfinite(ti.mtime):
+                        # nan/inf would escape later as a bare ValueError
+                        # from int(mtime); bail to tarfile instead.
+                        return None
+                if "uid" in p:
+                    ti.uid = int(p["uid"])
+                if "gid" in p:
+                    ti.gid = int(p["gid"])
+            except ValueError:
+                return None
+            ti.pax_headers = p
+            pending_pax = None
+        data_off = pos + 512
+        pos = data_off + 512 * ((data_size + 511) // 512)
+        if pos > n:
+            return None  # truncated member data: let tarfile raise
+        out.append((ti, data_off))
+    # Without the end-of-archive zero block the input is truncated or not
+    # a tar at all (e.g. a few garbage bytes) — bail so tarfile raises the
+    # proper error instead of silently converting to an empty image.
+    return out if saw_end else None
 
 
 class IncrementalChunker:
@@ -517,6 +727,69 @@ class IncrementalChunker:
         return out
 
 
+def _pipeline_for(plan, raw, arr_all, n_threads, opt, shared, section, chunk_dict, budget, stats):
+    """The stage-parallel pipeline for the per-file lane, or None where the
+    reference's ``pack_stream`` walks serially (converter/stream.py:1109-1183):
+    the host backends (``hybrid``, ``numpy``) without device digests, more
+    than one thread and more than one file above the minimum chunk, and the
+    pipeline enabled (``NTPU_PIPELINE`` / ``[convert] pipeline``)."""
+    from nydus_snapshotter_tpu_torch.parallel import pipeline as pipeline_mod
+
+    file_idxs = [i for i, (tag, *_r) in enumerate(plan) if tag == "file"]
+    if not (
+        n_threads > 1
+        and len(file_idxs) > 1
+        and opt.backend in ("hybrid", "numpy")
+        and opt.digest_backend != "jax"
+    ):
+        return None
+    pcfg = pipeline_mod.resolve_config(n_threads)
+    if not pcfg.enabled:
+        return None
+    # Engines that cut without digesting: the worker digests its file's
+    # chunks on the host (the same digests the batched dispatch makes), so
+    # dedup and speculative compression can run ahead of the ordered walk.
+    digest_fn = None if shared.fused else host_digests_for(opt.digester)
+
+    def chunk_one(i: int):
+        _tag, _meta, off, size = plan[i]
+        chunks = shared.chunk_whole(raw[off : off + size])
+        if digest_fn is not None and chunks:
+            items, s = [], off
+            for view, _d in chunks:
+                items.append((arr_all, s, len(view)))
+                s += len(view)
+            chunks = [(v, d) for (v, _d), d in zip(chunks, digest_fn(items))]
+        return chunks
+
+    compress_fn = compress_eligible = None
+    if opt.compressor in ("lz4_block", "zstd") and not isinstance(section, _DeferredSectionWriter):
+        # The deferred writer compresses in its own native pass; speculating
+        # here would do the work twice. Per-thread codec contexts, both
+        # codecs deterministic.
+        from nydus_snapshotter_tpu_torch.converter.convert import ThreadSafeCompressor
+
+        compress_fn = ThreadSafeCompressor(opt.compressor, opt.lz4_acceleration)
+        batch_limit = opt.batch_size
+
+        def compress_eligible(digest, view):
+            if batch_limit and len(view) < batch_limit:
+                return False  # batch-packed: compressed jointly
+            if chunk_dict is not None and chunk_dict.get(digest):
+                return False  # a dict hit is never stored
+            return True
+
+    return pipeline_mod.ConvertPipeline(
+        items=[(i, plan[i][3]) for i in file_idxs],
+        chunk_fn=chunk_one,
+        compress_fn=compress_fn,
+        compress_eligible=compress_eligible,
+        config=pcfg,
+        budget=budget,
+        stats=stats,
+    )
+
+
 def Pack(
     dest: BinaryIO,
     src_tar: "BinaryIO | bytes",
@@ -524,6 +797,7 @@ def Pack(
     chunk_dict=None,
     device: "str | torch.device | None" = None,
     stats: "Optional[dict]" = None,
+    budget=None,
 ) -> PackResult:
     """Stream one OCI layer tar into a nydus blob written to ``dest``.
 
@@ -545,8 +819,17 @@ def Pack(
     once), ``dedup`` (the rest of the chunk lane: dedup, dict lookups,
     bookkeeping) and ``bootstrap`` (tables, serialization, TOC). Chunk-digest
     and assemble seconds are timed where they are spent, during the walk
-    too. ``PackResult.route`` says which lane and section writer ran.
+    too. ``PackResult.route`` says which lane and section writer ran. A
+    pipelined pack adds the pipeline's keys (``pipeline_chunk_busy``,
+    ``pipeline_compress_busy``, ``pipeline_assemble_wait``,
+    ``pipeline_runs``).
+
+    ``budget``: a :class:`parallel.pipeline.MemoryBudget` bounding this
+    pack's speculative-compression bytes in flight on the pipelined lane
+    (``BatchConverter`` passes one budget for every layer it packs at
+    once); None draws from the process-wide ``shared_budget()``.
     """
+    failpoint.hit("converter.pack")
     _check_options(opt)
     opened = None
     if chunk_dict is None and opt.chunk_dict_path:
@@ -554,13 +837,13 @@ def Pack(
 
         chunk_dict = opened = open_chunk_dict(opt.chunk_dict_path)
     try:
-        return _pack(dest, src_tar, opt, chunk_dict, device, stats)
+        return _pack(dest, src_tar, opt, chunk_dict, device, stats, budget)
     finally:
         if hasattr(opened, "close"):  # a service mirror's connections
             opened.close()
 
 
-def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResult:
+def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats, budget) -> PackResult:
     shared = IncrementalChunker(opt, device=device)
     engine = shared._engine
     # Device digests (K2, or K4 for BLAKE3) for the jax lane whatever
@@ -611,7 +894,7 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
     in_flight = None
     t_chunk = t_asm = t_fused = 0.0  # stage seconds timed at their call sites
 
-    def _process(batch: list[tuple[_Meta, memoryview]], digests: list[bytes]) -> None:
+    def _process(batch: list[tuple[_Meta, memoryview]], digests: list[bytes], comp_cache=None) -> None:
         nonlocal uoff, t_asm
         for (meta, data), digest in zip(batch, digests):
             ref = _ChunkRef(digest=digest, size=len(data))
@@ -631,7 +914,10 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
                     own_chunks[digest] = idx
                     uncomp_offsets.append(uoff)
                     t0 = perf_counter()
-                    section.add(idx, data, uoff)
+                    # pop: each unique digest reaches here once, so the
+                    # pipeline's speculative frame is released as it is used
+                    section.add(idx, data, uoff,
+                                precomp=comp_cache.pop(digest, None) if comp_cache else None)
                     t_asm += perf_counter() - t0
                     uoff += len(data)
                 ref.uniq_idx = idx
@@ -664,7 +950,7 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
         if pending_bytes >= DIGEST_BATCH_BYTES:
             _dispatch()
 
-    def walk_member(tf: tarfile.TarFile, info: tarfile.TarInfo) -> None:
+    def walk_member(tf: "tarfile.TarFile | None", info: tarfile.TarInfo, data_off) -> None:
         nonlocal t_chunk
         path = fstree.norm_path(info.name)
         special = fstree.classify_special(path)
@@ -684,10 +970,10 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
         if not (entry.is_regular and info.size > 0):
             return
         meta.size = info.size
-        if raw is not None and not info.sparse:
+        if data_off is not None and not getattr(info, "sparse", None):
             # zero-copy: the member's bytes are a slice of the caller's buffer
             tag = "small" if defer_small and info.size <= small_max else "file"
-            plan.append((tag, meta, info.offset_data, info.size))
+            plan.append((tag, meta, data_off, info.size))
             return
         # streaming input, or a sparse member (its data is stored compacted)
         f = tf.extractfile(info)
@@ -710,17 +996,22 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
             _add_chunk(meta, chunk, digest)
 
     t_walk = perf_counter()
-    try:
-        # random access for in-memory layers, one pass for a stream
-        tf = tarfile.open(fileobj=src_tar, mode="r:" if raw is not None else "r|")
-    except tarfile.TarError as e:
-        raise ConvertError(f"bad layer tar: {e}") from e
-    with tf:
+    members = _fast_tar_members(raw) if raw is not None else None
+    if members is not None:
+        for info, data_off in members:
+            walk_member(None, info, data_off)  # the data is read through raw
+    else:
         try:
-            for info in tf:
-                walk_member(tf, info)
+            # random access for in-memory layers, one pass for a stream
+            tf = tarfile.open(fileobj=src_tar, mode="r:" if raw is not None else "r|")
         except tarfile.TarError as e:
             raise ConvertError(f"bad layer tar: {e}") from e
+        with tf:
+            try:
+                for info in tf:
+                    walk_member(tf, info, info.offset_data if raw is not None else None)
+            except tarfile.TarError as e:
+                raise ConvertError(f"bad layer tar: {e}") from e
     t_lane = perf_counter()
     walk_chunk, walk_asm = t_chunk, t_asm
     lane = "per_file" if raw is not None else "stream"
@@ -819,21 +1110,31 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats) -> PackResu
         t0 = perf_counter()
         small_digests = iter(host_digests_for(opt.digester)(small))
         t_chunk += perf_counter() - t0
-    # The serial per-file lane (the reference's lane when its threaded
-    # pipeline is off): files in tar order.
-    for tag, meta, off, size in plan:
-        view = raw[off : off + size]
-        if tag == "small":
-            _process([(meta, view)], [next(small_digests)])
-            continue
-        t0 = perf_counter()
-        chunks = shared.chunk_whole(view)
-        t_chunk += perf_counter() - t0
-        if chunks and chunks[0][1] is not None:
-            _process([(meta, c) for c, _d in chunks], [d for _c, d in chunks])
-        else:
-            for chunk, _d in chunks:
-                _add_chunk(meta, chunk)
+    pipe = _pipeline_for(plan, raw, arr_all, n_threads, opt, shared, section, chunk_dict, budget, stats)
+    if pipe is not None:
+        # Walk-time chunks (sparse members) wait in the digest batches and
+        # the serial lane stores them before the plan's: store them now, as
+        # the pipelined lane stores each file at once.
+        _dispatch()
+        _dispatch()
+        lane = "pipeline"
+    comp_cache = pipe.comp if pipe is not None and pipe.compress_fn is not None else None
+    # The per-file lane, files in tar order: their chunks from the pipeline's
+    # workers, or cut here on one thread.
+    with pipe if pipe is not None else contextlib.nullcontext():
+        for i, (tag, meta, off, size) in enumerate(plan):
+            view = raw[off : off + size]
+            if tag == "small":
+                _process([(meta, view)], [next(small_digests)])
+                continue
+            t0 = perf_counter()
+            chunks = pipe.chunks_for(i) if pipe is not None else shared.chunk_whole(view)
+            t_chunk += perf_counter() - t0
+            if chunks and chunks[0][1] is not None:
+                _process([(meta, c) for c, _d in chunks], [d for _c, d in chunks], comp_cache)
+            else:
+                for chunk, _d in chunks:
+                    _add_chunk(meta, chunk)
     _dispatch()  # collects the batch in flight, submits the rest
     _dispatch()  # collects the rest
     t0 = perf_counter()
@@ -1009,8 +1310,9 @@ def pack_layer(
     chunk_dict=None,
     device: "str | torch.device | None" = None,
     stats: "Optional[dict]" = None,
+    budget=None,
 ) -> tuple[bytes, PackResult]:
     """Pack to bytes -> (framed layer blob, PackResult)."""
     dest = io.BytesIO()
-    res = Pack(dest, src_tar, opt, chunk_dict=chunk_dict, device=device, stats=stats)
+    res = Pack(dest, src_tar, opt, chunk_dict=chunk_dict, device=device, stats=stats, budget=budget)
     return dest.getvalue(), res

@@ -53,6 +53,41 @@ class FusedOverflow(RuntimeError):
     the work on the host under the device backend's name."""
 
 
+def _record_dispatch(n_bytes: int, pass1_s: float, host_s: float, pass2_s: float) -> None:
+    """Fused-convert stage counters next to the pipeline's
+    (ntpu_convert_pipeline_*): pass1 = layout, upload and K1 with the
+    candidate compaction, host = cut resolution and chunk extents (the
+    host arm between the passes), pass2 = digests (K2 or K4), the probe
+    (K3) and the download."""
+    from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
+
+    reg = _metrics.default_registry
+    disp = reg.register(
+        _metrics.Counter(
+            "ntpu_fused_convert_dispatches",
+            "Fused device convert batches dispatched",
+        )
+    )
+    by_bytes = reg.register(
+        _metrics.Counter(
+            "ntpu_fused_convert_bytes",
+            "Bytes processed by fused device convert batches",
+        )
+    )
+    busy = reg.register(
+        _metrics.Counter(
+            "ntpu_fused_convert_stage_seconds",
+            "Wall seconds per fused-convert stage",
+            ("stage",),
+        )
+    )
+    disp.inc()
+    by_bytes.inc(n_bytes)
+    busy.labels("pass1_gear").inc(pass1_s)
+    busy.labels("host_resolve").inc(host_s)
+    busy.labels("pass2_digest").inc(pass2_s)
+
+
 def chunk_digests(
     digester: str, buffer: torch.Tensor, offs: torch.Tensor, sizes: torch.Tensor
 ) -> torch.Tensor:
@@ -376,6 +411,11 @@ class FusedDeviceEngine:
         streams: list[bytes | np.ndarray],
         chunk_dict: "ShardedChunkDict | None" = None,
     ) -> FusedResult:
+        from nydus_snapshotter_tpu_torch import failpoint
+
+        # The device batch boundary: an injected error propagates out of
+        # Pack (only FusedOverflow falls back to the windowed lane).
+        failpoint.hit("fused.dispatch")
         arrs = [
             np.frombuffer(s, dtype=np.uint8) if isinstance(s, (bytes, bytearray)) else s
             for s in streams
@@ -404,6 +444,7 @@ class FusedDeviceEngine:
         self.stats["pass1_s"] += t1 - t0
         self.stats["host_s"] += t2 - t1
         self.stats["pass2_s"] += t3 - t2
+        _record_dispatch(n, t1 - t0, t2 - t1, t3 - t2)
 
         out_digests: list[list[bytes]] = []
         pos = 0

@@ -285,14 +285,24 @@ def chunk_data_vec_native(data, params: cdc.CDCParams) -> np.ndarray:
     """Cut offsets by the vectorized table scan: whole-stream candidate
     bitmaps resolved with the shared region discipline, cut-identical to
     :func:`chunk_data_native` and cdc.chunk_sequential_reference."""
-    return _cuts(load().ntpu_cdc_chunk_vec, data, params)
+    from nydus_snapshotter_tpu_torch import failpoint
+
+    lib = load()
+    failpoint.hit("chunk.vec")
+    return _cuts(lib.ntpu_cdc_chunk_vec, data, params)
 
 
 def vectorized_mode() -> str:
-    """``NTPU_COMPRESS_VECTORIZED``: "auto" (the vectorized scan when
-    built, the default), "on" (require it) or "off" (always sequential)."""
+    """The ``[compression] vectorized`` knob: ``NTPU_COMPRESS_VECTORIZED``
+    env > global config > "auto". "auto" = the vectorized scan when built,
+    "on" = require it, "off" = always sequential."""
     v = os.environ.get("NTPU_COMPRESS_VECTORIZED", "").strip().lower()
-    return v if v in ("auto", "on", "off") else "auto"
+    if v in ("auto", "on", "off"):
+        return v
+    from nydus_snapshotter_tpu_torch.config.config import global_section
+
+    mode = getattr(global_section("compression"), "vectorized", "auto")
+    return mode if mode in ("auto", "on", "off") else "auto"
 
 
 def chunk_data_best(data, params: cdc.CDCParams) -> np.ndarray:

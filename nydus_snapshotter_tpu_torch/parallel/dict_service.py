@@ -49,12 +49,16 @@ import socketserver
 import struct
 import threading
 from http.server import BaseHTTPRequestHandler
+from time import perf_counter
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
+from nydus_snapshotter_tpu_torch import failpoint, trace
+from nydus_snapshotter_tpu_torch.analysis import runtime as _an
+from nydus_snapshotter_tpu_torch.config.config import global_section
 from nydus_snapshotter_tpu_torch.converter.batch import GrowingChunkDict
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
@@ -66,6 +70,7 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     CipherRecord,
     parse_chunk_dict_arg,
 )
+from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
 from nydus_snapshotter_tpu_torch.parallel.sharded_dict import DictEpochError, ShardedChunkDict
 from nydus_snapshotter_tpu_torch.tensors import resolve_device
 
@@ -92,6 +97,22 @@ _CIPHER_DT = np.dtype([("algo", "<u4"), ("key", "u1", 32), ("iv", "u1", 16)])
 # Delta header: n_chunks, n_blobs, n_batches, n_ciphers, epoch,
 # rebuild_epoch, chunk_size, total_chunks.
 _DELTA_HDR_FIELDS = 8
+_RPC_TOTAL = _metrics.Counter(
+    "ntpu_dict_rpc_total", "Chunk-dict service RPCs served", ("op",)
+)
+_RPC_ERRORS = _metrics.Counter(
+    "ntpu_dict_rpc_errors_total", "Chunk-dict service RPCs that failed", ("op",)
+)
+_RPC_MS = _metrics.Histogram(
+    "ntpu_dict_rpc_duration_milliseconds",
+    "Chunk-dict service RPC handler latency",
+    ("op",),
+)
+_SHARD_BATCHES = _metrics.Counter(
+    "ntpu_dict_shard_batches_total",
+    "Per-shard batches the sharded client routed, by op (merge / sync)",
+    ("op",),
+)
 # since-RPC header: n_entries, epoch, rebuild_epoch, reserved.
 _SINCE_HDR_FIELDS = 4
 
@@ -168,7 +189,7 @@ def partition_digests(digests: list[bytes], addrs: list[str]) -> list[list[int]]
 
 
 # ---------------------------------------------------------------------------
-# Config resolution (env > defaults)
+# Config resolution (env > [chunk_dict] config > defaults)
 # ---------------------------------------------------------------------------
 
 
@@ -180,7 +201,7 @@ def _env_float(name: str, default: float) -> float:
 
 
 class DictRuntimeConfig:
-    """Resolved chunk-dict knobs for this process."""
+    """Resolved ``[chunk_dict]`` knobs for this process."""
 
     __slots__ = ("load_factor", "headroom", "service", "namespace", "backend")
 
@@ -193,14 +214,18 @@ class DictRuntimeConfig:
 
 
 def resolve_dict_config() -> DictRuntimeConfig:
-    """``NTPU_DICT_*`` environment overrides over the reference's defaults
-    (the overrides are how the knobs reach spawned converter processes)."""
+    """env (``NTPU_DICT*``) > ``[chunk_dict]`` global config > defaults.
+    Env overrides are also how the section reaches spawned converter
+    processes, which have no global config."""
+    cd = global_section("chunk_dict")
     return DictRuntimeConfig(
-        load_factor=_env_float("NTPU_DICT_LOAD_FACTOR", 0.85),
-        headroom=_env_float("NTPU_DICT_HEADROOM", 2.0),
-        service=os.environ.get("NTPU_DICT_SERVICE", ""),
-        namespace=os.environ.get("NTPU_DICT_NAMESPACE", DEFAULT_NAMESPACE),
-        backend=os.environ.get("NTPU_DICT_BACKEND", "auto"),
+        load_factor=_env_float("NTPU_DICT_LOAD_FACTOR", getattr(cd, "load_factor", 0.85)),
+        headroom=_env_float("NTPU_DICT_HEADROOM", getattr(cd, "headroom", 2.0)),
+        service=os.environ.get("NTPU_DICT_SERVICE", getattr(cd, "service", "")),
+        namespace=os.environ.get(
+            "NTPU_DICT_NAMESPACE", getattr(cd, "namespace", DEFAULT_NAMESPACE)
+        ),
+        backend=os.environ.get("NTPU_DICT_BACKEND", getattr(cd, "service_backend", "auto")),
     )
 
 
@@ -263,7 +288,7 @@ class ServiceDict:
             probe_backend=cfg.backend,
             load_factor=cfg.load_factor,
         )
-        self._mu = threading.Lock()
+        self._mu = _an.make_lock("dict_service.namespace")
         # The namespace's trained zstd dictionary blob, adopted whole;
         # the highest epoch wins.
         self._zdict: Optional[bytes] = None
@@ -466,7 +491,7 @@ class DictService:
         self.device = resolve_device(device)
         self.cfg = cfg or resolve_dict_config()
         self._dicts: dict[str, ServiceDict] = {}
-        self._mu = threading.Lock()
+        self._mu = _an.make_lock("dict_service.registry")
         self._httpd: Optional[_UnixHTTPServer] = None
         self.sock_path = ""
 
@@ -480,8 +505,19 @@ class DictService:
             return sd
 
     def handle(self, method: str, path: str, headers, body: bytes) -> tuple[int, str, bytes]:
-        """(method, path?query, headers, body) -> (status, ctype, payload)."""
+        """(method, path?query, headers, body) -> (status, ctype, payload).
+        Adopts the caller's trace context from the ``x-ntpu-*`` headers so
+        the server-side span joins the converter's ``convert`` root."""
         parsed = urlparse(path)
+        if parsed.path == "/api/v1/traces" and method == "GET":
+            # the span ring (dict.rpc.* spans) as a Chrome trace document
+            return 200, "application/json", trace.chrome_trace_bytes()
+        if parsed.path in ("/metrics", "/v1/metrics") and method == "GET":
+            return (
+                200,
+                "text/plain; version=0.0.4",
+                _metrics.default_registry.render().encode(),
+            )
         m = _DICT_ROUTE.match(parsed.path)
         if not m:
             return 404, "application/json", b'{"message": "no such endpoint"}'
@@ -491,14 +527,28 @@ class DictService:
         elif op is None:
             op = "stats"
         try:
-            payload = self._dispatch(method, op, ns, parsed.query, body)
+            tid = int(headers.get("x-ntpu-trace-id", "0"), 16)
+            pid = int(headers.get("x-ntpu-parent-id", "0"), 16)
+        except ValueError:
+            tid = pid = 0
+        t0 = perf_counter()
+        try:
+            with trace.with_context(trace.remote_context(tid, pid)):
+                with trace.span(f"dict.rpc.{op}", namespace=ns or "*"):
+                    failpoint.hit("dict.rpc")
+                    payload = self._dispatch(method, op, ns, parsed.query, body)
+            _RPC_TOTAL.labels(op).inc()
+            _RPC_MS.labels(op).observe((perf_counter() - t0) * 1000.0)
         except (ValueError, KeyError) as e:
+            _RPC_ERRORS.labels(op).inc()
             return 400, "application/json", json.dumps({"message": str(e)}).encode()
         except DictEpochError as e:
+            _RPC_ERRORS.labels(op).inc()
             # A journal tail compacted away: the caller must resync from a
             # full snapshot, not silently miss entries.
             return 409, "application/json", json.dumps({"message": str(e)}).encode()
         except Exception as e:  # noqa: BLE001 - the server keeps serving; mapped to 500
+            _RPC_ERRORS.labels(op).inc()
             logger.exception("dict service %s %s", method, path)
             return 500, "application/json", json.dumps({"message": str(e)}).encode()
         if isinstance(payload, bytes):
@@ -632,6 +682,10 @@ class DictClient:
 
     def _request(self, method: str, path: str, body: bytes = b"") -> tuple[str, bytes]:
         headers = {"Content-Length": str(len(body))}
+        ctx = trace.capture()
+        if ctx is not None and ctx.sampled:
+            headers["x-ntpu-trace-id"] = f"{ctx.trace_id:x}"
+            headers["x-ntpu-parent-id"] = f"{ctx.span_id:x}"
         for attempt in (0, 1):
             if self._conn is None:
                 self._conn = _UDSHTTPConnection(self.sock_path, self.timeout)
@@ -933,7 +987,12 @@ class ServiceChunkDict:
     def sync(self) -> int:
         """Replay every shard's tail into the mirror; returns how many
         chunk records arrived."""
-        got = sum(self._sync_shard(shard) for shard in self._shards)
+        got = 0
+        for shard in self._shards:
+            if len(self._shards) > 1:
+                failpoint.hit("dict.shard")
+                _SHARD_BATCHES.labels("sync").inc()
+            got += self._sync_shard(shard)
         self.epoch = sum(s.epoch for s in self._shards)
         return got
 
@@ -995,8 +1054,11 @@ class ServiceChunkDict:
         else:
             added = 0
             for shard, sub in zip(self._shards, self._partition_bootstrap(data)):
-                if sub is not None:
-                    added += int(shard.client.merge(sub, self.namespace).get("added", 0))
+                if sub is None:
+                    continue
+                failpoint.hit("dict.shard")
+                _SHARD_BATCHES.labels("merge").inc()
+                added += int(shard.client.merge(sub, self.namespace).get("added", 0))
         self.sync()
         return added
 

@@ -44,12 +44,14 @@ The single-shard subset of the reference's parallel/sharded_dict.py:
 from __future__ import annotations
 
 import os
-import threading
 import warnings
 
 import numpy as np
 import torch
 
+from nydus_snapshotter_tpu_torch import failpoint
+from nydus_snapshotter_tpu_torch.analysis import runtime as _an
+from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
 from nydus_snapshotter_tpu_torch.ops import native_cdc, probe_cuda
 from nydus_snapshotter_tpu_torch.tensors import from_u32, resolve_device
 
@@ -77,6 +79,20 @@ DEFAULT_LOAD_FACTOR = 0.85
 DEFAULT_HEADROOM = 2.0
 
 PROBE_BACKENDS = ("auto", "device", "host", "pallas")
+
+
+_INSERT_BATCHES = _metrics.Counter(
+    "ntpu_dict_insert_batches_total",
+    "Incremental chunk-dict insert batches (epoch bumps)",
+)
+_INSERT_ENTRIES = _metrics.Counter(
+    "ntpu_dict_insert_entries_total",
+    "New entries inserted incrementally into chunk-dict tables",
+)
+_REBUILDS = _metrics.Counter(
+    "ntpu_dict_rebuilds_total",
+    "Chunk-dict full rebuilds (load-factor breach or chain overflow)",
+)
 
 
 class DictBuildError(RuntimeError):
@@ -265,7 +281,7 @@ class ShardedChunkDict:
         self._n_unique: "int | None" = None  # occupied slots (lazy for v4 loads)
         # Serializes mutation and device restaging. Reentrant:
         # save_incremental's full rewrite calls save while holding it.
-        self._mu = threading.RLock()
+        self._mu = _an.make_rlock("dict.mutate")
         self._staged = None  # (snapshot, keys_pad, vals_pad) on self.device
         self.restages = 0
 
@@ -310,6 +326,7 @@ class ShardedChunkDict:
         n = len(digests_u32)
         if n == 0:
             return np.zeros(0, dtype=np.int64)
+        failpoint.hit("dict.insert")
         with self._mu:
             base = self.n_entries
             if base + n + 1 >= 1 << 31:
@@ -331,6 +348,7 @@ class ShardedChunkDict:
             new_mask = existing < 0
             assigned = np.where(new_mask, base + first, existing)
             self.epoch += 1
+            _INSERT_BATCHES.inc()
             if new_mask.any():
                 ins_rows = np.sort(first[new_mask])
                 ins_digests = np.ascontiguousarray(digests_u32[ins_rows])
@@ -338,6 +356,7 @@ class ShardedChunkDict:
                 rebuilt = self._insert_entries(ins_digests, ins_values)
                 if not rebuilt:
                     self._journal.append((self.epoch, ins_digests, ins_values))
+                _INSERT_ENTRIES.inc(len(ins_rows))
             self.n_entries = base + n
             return assigned[inverse.reshape(-1)].astype(np.int64)
 
@@ -371,11 +390,13 @@ class ShardedChunkDict:
             return None
         depth, n_new, assigned = res
         self.epoch += 1
+        _INSERT_BATCHES.inc()
         if n_new:
             new_mask = assigned == (base + np.arange(n, dtype=np.int64))
             ins_digests = np.ascontiguousarray(digests_u32[new_mask])
             ins_values = assigned[new_mask] + 1  # stored (+1) form
             self._journal.append((self.epoch, ins_digests, ins_values))
+            _INSERT_ENTRIES.inc(n_new)
             self._n_unique = self._ensure_unique_count() + n_new
             self.max_depth = max(self.max_depth, depth)
             self._publish()
@@ -428,6 +449,8 @@ class ShardedChunkDict:
         Compaction point: the journal resets and ``rebuild_epoch`` advances
         to the current epoch.
         """
+        failpoint.hit("dict.rebuild")
+        _REBUILDS.inc()
         occ = self._values != 0
         digs = self._keys[occ]
         vals = self._values[occ].astype(np.int64)

@@ -105,6 +105,31 @@ _CHILD = textwrap.dedent(
     results = batch.BatchConverter(PackOption(chunk_size=0x1000), layer_fanout=2,
                                    device="cpu").convert_many([("i", [buf.getvalue()] * 2)])
     assert results[0].blob_digests == [res.blob_id]
+    # the planes and the stage-parallel pipeline
+    from nydus_snapshotter_tpu_torch import analysis, failpoint, metrics, trace
+    from nydus_snapshotter_tpu_torch.analysis import runtime
+    from nydus_snapshotter_tpu_torch.config import config as cfg_mod
+    from nydus_snapshotter_tpu_torch.metrics import registry
+    from nydus_snapshotter_tpu_torch.parallel import pipeline
+    from nydus_snapshotter_tpu_torch.trace import export, ring
+    cfg_mod.set_global_config(cfg_mod.load_config(overrides={"convert": {"pipeline": "on"}}))
+    many = io.BytesIO()
+    with tarfile.open(fileobj=many, mode="w") as tf:
+        for i in range(3):
+            ti = tarfile.TarInfo(f"m{i}"); ti.size = len(data); tf.addfile(ti, io.BytesIO(data))
+    os.environ["NTPU_PACK_THREADS"] = "4"; os.environ["NTPU_PACK_THREADS_FORCE"] = "1"
+    with trace.span("convert"):
+        _b, res = pack_layer(many.getvalue(), PackOption(chunk_size=0x2000, backend="hybrid",
+                                                          batch_size=0x1000))
+    assert res.route["lane"] == "pipeline", res.route
+    assert any(s.name == "convert.chunk.worker" for s in trace.snapshot_spans())
+    assert "ntpu_convert_pipeline_runs" in metrics.default_registry.render()
+    failpoint.inject("converter.pack", "error(OSError:x)*1")
+    try:
+        pack_layer(many.getvalue(), PackOption(chunk_size=0x1000, backend="hybrid"))
+        raise AssertionError("converter.pack did not fire")
+    except OSError:
+        pass
     fwd, args = entry.entry(device="cpu")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))

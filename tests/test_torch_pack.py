@@ -480,14 +480,15 @@ class TestPackOptions:
         """Options that test_unsupported_options_raise refused before they
         were ported (same ids): every lane packs the reference's bytes. The
         hybrid backend packs them at one thread (its whole-layer lane) and at
-        four (its per-file lane), and the file-like Pack too."""
+        four (its per-file lane on the stage-parallel pipeline), and the
+        file-like Pack too."""
         kw = {"compressor": "none", **SMALL, **kw}
         if "backend" not in kw:
             for backend in BACKENDS:
                 _pack_both(small_tar, backend, **kw)
             return
         monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
-        for threads, lane in (("1", "pack_files"), ("4", "per_file")):
+        for threads, lane in (("1", "pack_files"), ("4", "pipeline")):
             monkeypatch.setenv("NTPU_PACK_THREADS", threads)
             blob, res = _pack_both(small_tar, **kw)
             assert res.route["lane"] == lane
@@ -732,20 +733,28 @@ class TestHybridLanes:
         assert _file_like_pair(tar, "hybrid", **kw)
 
     def test_per_file_lane_digests_small_files_in_one_batch(self, monkeypatch, small_tar):
-        """At several threads each file takes one chunk+digest call, and
-        the files of at most the minimum chunk one batch digest."""
+        """At several threads each file takes one chunk+digest call (on the
+        pipeline's workers), and the files of at most the minimum chunk one
+        batch digest."""
+        import threading
+
         monkeypatch.setenv("NTPU_PACK_THREADS", "4")
         monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
         calls = {"file": 0, "batch": 0}
+        lock = threading.Lock()
+
+        def count(key):
+            with lock:  # the pipeline's workers call from several threads
+                calls[key] += 1
+
         real_cd = native_pack.native_cdc.chunk_digest_native
         real_b = native_pack.host_digests_for
         monkeypatch.setattr(native_pack.native_cdc, "chunk_digest_native",
-                            lambda *a, **k: calls.__setitem__("file", calls["file"] + 1) or real_cd(*a, **k))
+                            lambda *a, **k: count("file") or real_cd(*a, **k))
         monkeypatch.setattr(native_pack, "host_digests_for",
-                            lambda d: lambda items: calls.__setitem__("batch", calls["batch"] + 1)
-                            or real_b(d)(items))
+                            lambda d: lambda items: count("batch") or real_b(d)(items))
         blob, res = _pack_both(small_tar, "hybrid", compressor="lz4_block", **SMALL)
-        assert res.route["lane"] == "per_file" and res.route["threads"] == 4
+        assert res.route["lane"] == "pipeline" and res.route["threads"] == 4
         with tarfile.open(fileobj=io.BytesIO(small_tar)) as tf:
             sizes = [m.size for m in tf if m.isreg() and m.size]
         small = sum(1 for s in sizes if s <= SMALL["chunk_size"] // 4)
