@@ -213,6 +213,30 @@ Phases (any failure exits non-zero; nothing is caught):
    pipelined lane (every layer's route lane ``pipeline``) and prints its
    ``ntpu_convert_pipeline_*`` stage busy seconds. Files go to a temporary
    directory, removed.
+14. codec and cipher — the adaptive zstd codec and blob encryption (both
+   on the host, behind the serial section writer, with cuts and digests on
+   the card). (a) Phase 4's tar packed with zstd under
+   ``NTPU_COMPRESS_ADAPTIVE=1``: fused (one checked run, K1 and K2 once,
+   route ``fused``/``serial``; every chunk read back through ``BlobReader``
+   equals the tar's bytes; then 2 timed runs with an explicit codec), the
+   ``hybrid`` lane at ``NTPU_PACK_THREADS=8`` (no launch) and a fused
+   BLAKE3 pack (K1 once, K4's two entries once each), all the same data
+   section; printed: the class counts and bytes, the ratio beside phase
+   10's fixed-level zstd ratio. (b) A trained batch (``NTPU_COMPRESS_TRAIN=1``,
+   ``layer_fanout=1``): image A = phase 13's A's two smallest layers, image
+   B = A's fifth layer and B's top layer with its rewritten quarter drawn as
+   text; the dictionary trains after A (``train_codec_dict``), B carries
+   ``nZD1`` frames, ``Unpack`` of B equals the overlay of its layers, the
+   ``hybrid`` twin at one pack thread trains the same dictionary and
+   converts the same bytes, ``save_trained_dict`` round-trips, and a
+   ``DictService``'s ``put_zdict``/``get_zdict`` is adopted by a second
+   ``BatchConverter`` whose pack writes ``nZD1`` frames. (c) Whether the
+   ``cryptography`` package imports (its version); if it does, phase 4's
+   tar packed fused with zstd and ``encrypt=True`` (K1 and K2 once): its
+   data section decrypted equals phase 10's zstd section, every chunk of
+   300 random files read through ``BlobReader`` equals the tar's bytes, and
+   ``Unpack`` equals the tar's tree; if not, ``Pack(encrypt=True)`` raises
+   ``CryptoError`` and writes nothing.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -1629,8 +1653,8 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
             f"{t_s[1]:.3f} s [{fmt_stats(st_s)}]")
         res_c.update(one_thread=list(one), one_thread_stats=st1, file_like=list(t_s),
                      file_like_stats=st_s)
-        if codec == "lz4_block":
-            out["lz4_ref"] = ref
+        if codec == "zstd":  # phase 14 decrypts its encrypted twin against it
+            out["zstd_ref"] = ref
         out["codecs"][codec] = res_c
 
     # -- every new option at once: one fused pack against its numpy twin -----
@@ -2336,15 +2360,19 @@ def named_tar(members: list, extra: tuple = ()) -> bytes:
     return buf.getvalue()
 
 
-def image_corpus(files: list[np.ndarray]) -> dict:
-    """Phase 13's images A, B and C (see the module docstring) from phase
-    2's ``files``: their layer tars and what B whites out."""
+def image_members(files: list[np.ndarray]) -> list[list[tuple[str, np.ndarray]]]:
+    """Image A's six layers as ``(name, array)`` members (phase 13)."""
     layers = split_by_weight(files, IMAGE_WEIGHTS)
-    members = [[(f"layer{li}/d{fi % 97}/f{fi}.bin", f) for fi, f in enumerate(g)]
-               for li, g in enumerate(layers)]
-    a = [named_tar(m) for m in members]
-    gen = FileGen(SEED + 13)
-    top = [(name, gen.file(f.size, "random") if fi % 4 == 0 else f)
+    return [[(f"layer{li}/d{fi % 97}/f{fi}.bin", f) for fi, f in enumerate(g)]
+            for li, g in enumerate(layers)]
+
+
+def image_b_top(members, gen: FileGen, kind: str) -> tuple[bytes, list[str], str]:
+    """Image B's top layer: A's top with every fourth file rewritten as a
+    fresh ``kind`` file of ``gen``, ``.wh.`` whiteouts for a tenth of A's
+    fifth layer and an opaque marker on a directory of its fourth ->
+    (tar, the whited-out paths, the opaque directory)."""
+    top = [(name, gen.file(f.size, kind) if fi % 4 == 0 else f)
            for fi, (name, f) in enumerate(members[5])]
     gone = [name for fi, (name, _f) in enumerate(members[4]) if fi % 10 == 0]
     opaque = members[3][0][0].rsplit("/", 1)[0]
@@ -2353,7 +2381,16 @@ def image_corpus(files: list[np.ndarray]) -> dict:
     # container engine's layer diff (a marker two levels below any entry of
     # its layer is refused by the reference's Pack, and so by this one's)
     dirs = (opaque.rsplit("/", 1)[0] + "/", opaque + "/")
-    b = a[:5] + [named_tar(top, whiteouts + dirs + (opaque + "/.wh..wh..opq",))]
+    return named_tar(top, whiteouts + dirs + (opaque + "/.wh..wh..opq",)), gone, opaque
+
+
+def image_corpus(files: list[np.ndarray]) -> dict:
+    """Phase 13's images A, B and C (see the module docstring) from phase
+    2's ``files``: their layer tars and what B whites out."""
+    members = image_members(files)
+    a = [named_tar(m) for m in members]
+    top, gone, opaque = image_b_top(members, FileGen(SEED + 13), "random")
+    b = a[:5] + [top]
     upper = [f for m in members[3:] for _n, f in m]
     fresh = FileGen(SEED + 17)
     c_new, k = [], 0
@@ -2653,6 +2690,312 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
             "hybrid_wall_s": hybrid_wall, "host_cpu_s": cpu_s, "images": per_image, "real": real,
             "phase_s": phase_s, "convert_span_s": convert_s, "fused_stage_s": stage_s,
             "hybrid_pipeline": pipe}
+
+
+@contextlib.contextmanager
+def environ(**values: str):
+    """Inside: the given environment variables set, restored after."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def codec_cipher_phase(dev, tar, files, comp, kernels) -> dict:
+    """Phase 14: the adaptive zstd codec and blob encryption on the card's
+    pack lanes, over phase 4's tar and two layers each of phase 13's
+    images A and B."""
+    import dataclasses as dc
+    import random
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch import constants
+    from nydus_snapshotter_tpu_torch.converter import Pack, PackOption, Unpack, batch, pack_layer
+    from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
+    from nydus_snapshotter_tpu_torch.converter import crypto
+    from nydus_snapshotter_tpu_torch.converter.convert import (
+        blob_data_from_layer_blob, bootstrap_from_layer_blob, make_bytes_reader,
+    )
+    from nydus_snapshotter_tpu_torch.models import fstree
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.parallel.dict_service import DictClient, DictService
+    from nydus_snapshotter_tpu_torch.utils import zstd
+
+    t_phase = time.perf_counter()
+    if zstd.library() is None or not zstd.dict_support():
+        raise AssertionError("the adaptive codec needs the system libzstd with its dictionary arms")
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        regs = [m for m in tf if m.isreg()]
+    members = {fstree.norm_path(m.name): (m.offset_data, m.size) for m in regs}
+    file_bytes = sum(m.size for m in regs)
+
+    def adaptive(**kw):
+        return codec_mod.AdaptiveCodec(dc.replace(codec_mod.resolve_codec_config(), adaptive=True, **kw))
+
+    def counts() -> dict:
+        return {key: k.launches for key, k in kernels.items()}
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, counts()
+
+    def launches_are(got: dict, what: str, **want):
+        full = {key: want.get(key, 0) for key in kernels}
+        if got != full:
+            raise AssertionError(f"{what} launched {got}; want {full}")
+
+    def frames_of(boot, section: bytes, own: int = 0) -> tuple[int, int, int]:
+        """(records, nZD1 frames, raw records) of the blob at ``own``."""
+        recs = [c for c in boot.chunks if c.blob_index == own]
+        trained = sum(1 for c in recs if codec_mod.is_trained_frame(
+            section[c.compressed_offset:c.compressed_offset + 8]))
+        raw = sum(1 for c in recs if c.flags & constants.COMPRESSOR_MASK == constants.COMPRESSOR_NONE)
+        return len(recs), trained, raw
+
+    def reads_back(res, section: bytes, paths=None) -> int:
+        """Every chunk of every regular file (or of ``paths``) read through
+        BlobReader equals the tar's bytes -> chunks read."""
+        boot = Bootstrap.from_bytes(res.bootstrap)
+        reader = make_bytes_reader(boot, 0, section)
+        n = 0
+        for ino in boot.inodes:
+            if not ino.chunk_count or (paths is not None and ino.path not in paths):
+                continue
+            off, size = members[ino.path]
+            pos = 0
+            for c in boot.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]:
+                if reader.chunk_data(c) != tar[off + pos:off + pos + c.uncompressed_size]:
+                    raise AssertionError(f"{ino.path}: the chunk at file offset {pos} reads back "
+                                         "other bytes")
+                pos += c.uncompressed_size
+                n += 1
+            if pos != size:
+                raise AssertionError(f"{ino.path}: chunks cover {pos} of {size} bytes")
+        return n
+
+    out: dict = {}
+    # -- (a) adaptive zstd packs of phase 4's tar ----------------------------
+    opt = dict(chunk_size=CHUNK_SIZE, compressor="zstd")
+    with environ(NTPU_COMPRESS_ADAPTIVE="1"):
+        (blob, res), first_s, launches = counted(
+            lambda: pack_layer(tar, PackOption(backend="fused", **opt), device=dev))
+    launches_are(launches, "the fused adaptive pack", gear=1, sha=1)
+    if res.route != {"lane": "fused", "writer": "serial"}:
+        raise AssertionError(f"the fused adaptive pack took {res.route}")
+    section = blob[:res.blob_size]
+    n_read = reads_back(res, section)
+    n_rec, n_trained, n_raw = frames_of(Bootstrap.from_bytes(res.bootstrap), section)
+    ratio = res.blob_size / file_bytes
+    fixed_ratio = comp["codecs"]["zstd"]["ratio"]
+    runs, stats = [], []
+    for _ in range(2):
+        c = adaptive()
+        st, got = {}, []
+        runs.append(host_timed(lambda: got.append(
+            pack_layer(tar, PackOption(backend="fused", **opt), device=dev, stats=st, codec=c)[0])))
+        stats.append(st)
+        if got[0] != blob:
+            raise AssertionError("a timed fused adaptive pack differs from the checked one")
+    cstats = c.stats()
+    wall = float(np.median([r[0] for r in runs]))
+    ch = adaptive()
+    with pack_threads("8"):
+        st_h = {}
+        (h_blob, h_res), hybrid_s, h_launches = counted(lambda: pack_layer(
+            tar, PackOption(backend="hybrid", **opt), stats=st_h, codec=ch))
+    launches_are(h_launches, "the hybrid adaptive pack")
+    if (h_blob, h_res.bootstrap) != (blob, res.bootstrap):
+        raise AssertionError("the hybrid adaptive pack at 8 threads differs from the fused one")
+    (b3_blob, b3_res), b3_s, b3_launches = counted(lambda: pack_layer(
+        tar, PackOption(backend="fused", digester="blake3", **opt), device=dev, codec=adaptive()))
+    launches_are(b3_launches, "the fused BLAKE3 adaptive pack", gear=1, b3_leaves=1, b3_parents=1)
+    if b3_res.blob_id != res.blob_id or b3_blob[:b3_res.blob_size] != section:
+        raise AssertionError("the BLAKE3 adaptive pack's data section differs from the SHA-256 one")
+    log(f"[14] adaptive zstd pack fused (NTPU_COMPRESS_ADAPTIVE=1) of phase 4's tar: route "
+        f"{res.route}, launches {launches}; all {n_read} chunks read back through BlobReader == the "
+        f"tar's bytes ({n_rec} records, {n_raw} stored raw); classes {cstats['counts']}, bytes "
+        f"{cstats['class_bytes']} (bypass {cstats['class_bytes']['bypass']} bytes); data section "
+        f"{res.blob_size} bytes = ratio {ratio:.4f} (fixed-level zstd, phase 10: {fixed_ratio:.4f}); "
+        f"checked run {first_s:.3f} s, 2 timed runs (wall / host CPU s / minor faults [stats s]): "
+        + ", ".join(f"{w:.3f} / {cpu:.3f} / {f} [{fmt_stats(x)}]" for (w, cpu, f), x in zip(runs, stats))
+        + f"; hybrid at {h_res.route.get('lane')} lane, NTPU_PACK_THREADS=8: == fused byte for "
+        f"byte, no launch, {hybrid_s:.3f} s [{fmt_stats(st_h)}]; fused BLAKE3: same data section "
+        f"and blob id, launches {b3_launches}, {b3_s:.3f} s")
+    out["adaptive"] = {"route": res.route, "launches": launches, "first_s": first_s, "wall_s": wall,
+                       "runs": [list(r) for r in runs], "stats": stats, "ratio": ratio,
+                       "fixed_ratio": fixed_ratio, "classes": cstats["counts"],
+                       "class_bytes": cstats["class_bytes"], "records": n_rec, "raw_records": n_raw,
+                       "hybrid_s": hybrid_s, "hybrid_stats": st_h, "hybrid_route": h_res.route,
+                       "blake3_s": b3_s, "blake3_launches": b3_launches}
+    del h_blob, b3_blob
+
+    # -- (b) a trained batch over two layers each of images A and B ---------
+    t_b = time.perf_counter()
+    img = image_members(files)
+    low = [named_tar(m) for m in img[4:6]]  # A's two smallest layers
+    # B's update rewrites text (phase 13's B rewrites with random bytes, which
+    # the codec stores raw and no dictionary compresses)
+    top, gone, _opaque = image_b_top(img, FileGen(SEED + 14), "text")
+    images = [("A", low), ("B", [low[0], top])]
+    in_bytes = sum(len(t) for _n, ts in images for t in ts)
+
+    def trained_batch(backend: str):
+        with environ(NTPU_COMPRESS_ADAPTIVE="1", NTPU_COMPRESS_TRAIN="1"):
+            bc = batch.BatchConverter(PackOption(backend=backend, **opt), layer_fanout=1, device=dev)
+        if bc.codec is None or bc.codec.trainer is None:
+            raise AssertionError("the batch resolved no training codec")
+        ra = bc.convert_image("A", images[0][1])
+        # between the images: trained already if A filled the sample
+        # reservoir, else trained now from what it holds
+        td = bc.codec.trained or bc.train_codec_dict()
+        if td is None:
+            raise AssertionError(f"training after image A failed ({bc.codec.trainer.stats()})")
+        rb = bc.convert_image("B", images[1][1])
+        return bc, td, [ra, rb]
+
+    (bc, td, fused), batch_s, b_launches = counted(lambda: trained_batch("fused"))
+    n_layers = sum(len(ts) for _n, ts in images)
+    launches_are(b_launches, "the trained fused batch", gear=n_layers, sha=n_layers)
+    with pack_threads("1"):  # the trainer samples chunks in tar order on one thread
+        (hbc, htd, hybrid), hbatch_s, hb_launches = counted(lambda: trained_batch("hybrid"))
+    launches_are(hb_launches, "the trained hybrid batch")
+    if htd.bytes != td.bytes:
+        raise AssertionError("the hybrid batch trained another dictionary")
+    for g, w in zip(hybrid, fused):
+        if (g.bootstrap, g.blob_digests, g.layer_blobs) != (w.bootstrap, w.blob_digests, w.layer_blobs):
+            raise AssertionError(f"image {g.name}: the trained hybrid batch differs from the fused one")
+    blobs = {}
+    for r in fused:
+        blobs.update({bid: blob_data_from_layer_blob(b) for bid, b in r.layer_blobs.items()})
+    b_frames = [frames_of(bootstrap_from_layer_blob(b), blobs[bid]) for bid, b in fused[1].layer_blobs.items()]
+    if not sum(t for _r, t, _w in b_frames):
+        raise AssertionError(f"image B carries no nZD1 frame ({b_frames})")
+    t0 = time.perf_counter()
+    got_b = Unpack(fused[1].bootstrap, blobs)
+    unpack_b_s = time.perf_counter() - t0
+    want_tree: list = []
+    for t in images[1][1]:
+        want_tree = fstree.apply_overlay(want_tree, fstree.tree_from_tar(t))
+    got_files, got_dirs = tree_of(fstree.tree_from_tar(got_b))
+    want_files, want_dirs = tree_of(want_tree)
+    if got_files != want_files or not want_dirs <= got_dirs or any(g in got_files for g in gone):
+        raise AssertionError("image B's Unpack differs from the overlay of its layer trees")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "zdict")
+        if not bc.save_trained_dict(path):
+            raise AssertionError("save_trained_dict saved nothing")
+        back = codec_mod.TrainedDict.load(path)
+        if (back.bytes, back.dict_id, back.epoch) != (td.bytes, td.dict_id, td.epoch):
+            raise AssertionError("the saved trained dictionary loads back different")
+        svc = DictService(device=dev)
+        svc.run(str(Path(tmp) / "dict.sock"))
+        try:
+            cli = DictClient(svc.sock_path)
+            put = cli.put_zdict(td.serialize(), "codec")
+            if cli.get_zdict("codec") != td.serialize() or put["zdict_id"] != td.dict_id:
+                raise AssertionError(f"the service's zdict round trip differs ({put})")
+            cli.close()
+            bc2 = batch.BatchConverter(PackOption(backend="fused", **opt), device=dev,
+                                       dict_service=svc.sock_path, namespace="codec", codec=adaptive())
+            try:
+                if bc2.codec.trained is None or bc2.codec.trained.dict_id != td.dict_id:
+                    raise AssertionError("the second BatchConverter did not adopt the service's "
+                                         "dictionary")
+                (r2,), _s, s_launches = counted(lambda: [bc2.convert_image("B-top", [top])])
+            finally:
+                bc2.dict.close()
+        finally:
+            svc.stop()
+    launches_are(s_launches, "the service-adopting batch", gear=1, sha=1)
+    s_frames = [frames_of(bootstrap_from_layer_blob(b), blob_data_from_layer_blob(b))
+                for b in r2.layer_blobs.values()]
+    if not sum(t for _r, t, _w in s_frames):
+        raise AssertionError("the service-adopting batch wrote no nZD1 frame")
+    train_s = time.perf_counter() - t_b
+    log(f"[14] trained batch (NTPU_COMPRESS_ADAPTIVE=1, NTPU_COMPRESS_TRAIN=1, layer_fanout=1): "
+        f"A = phase 13 A's two smallest layers, B = A's fifth layer + B's top layer with its "
+        f"rewritten quarter as text ({in_bytes} bytes of tar); dictionary trained after A from "
+        f"{bc.codec.trainer.stats()} -> id {td.dict_id}, {len(td.bytes)} bytes; fused batch "
+        f"{batch_s:.3f} s, launches {b_launches} ({n_layers} layers); B's new blobs: (records, nZD1 "
+        f"frames, raw) {b_frames}; Unpack of B ({unpack_b_s:.3f} s) == the overlay of its layer "
+        f"trees ({len(got_files)} files); hybrid twin at NTPU_PACK_THREADS=1: same dictionary "
+        f"bytes and images byte for byte, no launch, {hbatch_s:.3f} s; save_trained_dict -> "
+        f"TrainedDict.load round-trips; put_zdict/get_zdict on a DictService, adopted by a second "
+        f"BatchConverter whose pack of B's top layer writes {s_frames} (launches {s_launches}); "
+        f"{train_s:.1f} s")
+    out["trained_batch"] = {"input_bytes": in_bytes, "fused_s": batch_s, "hybrid_s": hbatch_s,
+                            "launches": b_launches, "dict_id": td.dict_id, "dict_bytes": len(td.bytes),
+                            "b_frames": b_frames, "service_frames": s_frames,
+                            "unpack_b_s": unpack_b_s, "phase_s": train_s}
+    del got_b, blobs, fused, hybrid
+
+    # -- (c) blob encryption ----------------------------------------------------
+    try:
+        import cryptography
+
+        crypto_version = cryptography.__version__
+    except ImportError:
+        crypto_version = None
+    log(f"[14] cryptography: {crypto_version or 'not importable on this machine'}")
+    out["cryptography"] = crypto_version
+    enc_opt = dict(opt, encrypt=True)
+    if crypto_version is None:
+        dest = io.BytesIO()
+        try:
+            Pack(dest, tar, PackOption(backend="fused", **enc_opt), device=dev)
+        except crypto.CryptoError as e:
+            if dest.getvalue():
+                raise AssertionError("Pack(encrypt=True) wrote bytes before its CryptoError")
+            log(f"[14] encryption: not run on the card (no cryptography package); "
+                f"Pack(encrypt=True) raises CryptoError ({e}) and writes nothing")
+        else:
+            raise AssertionError("Pack(encrypt=True) without cryptography did not raise")
+    else:
+        (e_blob, e_res), enc_s, e_launches = counted(
+            lambda: pack_layer(tar, PackOption(backend="fused", **enc_opt), device=dev))
+        launches_are(e_launches, "the fused encrypted pack", gear=1, sha=1)
+        boot = Bootstrap.from_bytes(e_res.bootstrap)
+        cipher = boot.cipher_for(0)
+        if cipher is None or cipher.algo != crypto.CIPHER_AES_256_CTR or e_res.route["writer"] != "serial":
+            raise AssertionError(f"the encrypted pack: cipher {cipher}, route {e_res.route}")
+        e_section = e_blob[:e_res.blob_size]
+        plain_blob, plain_res = comp["zstd_ref"]
+        t0 = time.perf_counter()
+        dec = crypto.decrypt_range(e_section, 0, cipher.key, cipher.iv)
+        dec_s = time.perf_counter() - t0
+        if dec != plain_blob[:plain_res.blob_size]:
+            raise AssertionError("the encrypted section, decrypted, differs from the plain zstd pack's")
+        paths = set(random.Random(SEED + 14).sample(sorted(members), min(300, len(members))))
+        n_enc = reads_back(e_res, e_section, paths)
+        t0 = time.perf_counter()
+        got = Unpack(e_res.bootstrap, {e_res.blob_id: e_section})
+        unpack_s = time.perf_counter() - t0
+        got_files, got_dirs = tree_of(fstree.tree_from_tar(got))
+        want_files, want_dirs = tree_of(fstree.tree_from_tar(tar))
+        if got_files != want_files or not want_dirs <= got_dirs:
+            raise AssertionError("the encrypted pack's Unpack differs from the tar's tree")
+        log(f"[14] encrypted fused zstd pack: {enc_s:.3f} s, launches {e_launches}, route "
+            f"{e_res.route}; its data section ({e_res.blob_size} bytes) decrypted with the "
+            f"bootstrap's AES-256-CTR context ({dec_s:.3f} s) == phase 10's zstd pack's; "
+            f"{n_enc} chunks of {len(paths)} random files read through BlobReader == the tar's "
+            f"bytes; Unpack ({unpack_s:.3f} s) == the tar's tree ({len(got_files)} files)")
+        out["encrypted"] = {"s": enc_s, "launches": e_launches, "decrypt_s": dec_s,
+                            "unpack_s": unpack_s, "reads": n_enc}
+        del e_blob, e_section, dec, got
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[14] phase {out['phase_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3074,6 +3417,9 @@ def main() -> int:
     # -- 13. images: BatchConverter, Merge, Unpack, real RAFS v5/v6 ------------
     images = image_phase(dev, files, all_kernels, t_start)
 
+    # -- 14. codec and cipher: the adaptive zstd codec, blob encryption ---------
+    cc = codec_cipher_phase(dev, tar, files, comp, all_kernels)
+
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, n_launches=None, **extra):
         return {
@@ -3085,6 +3431,12 @@ def main() -> int:
             "work": work, "kernel_ms": kern, "call_ms": call, "main_path_kernel_ms": main_kern,
             "main_path_call_ms": main_call, "main_path_bound_ms": main_bound[0], **extra,
         }
+
+    def cc_launches(key):  # phase 14: per fused pack or batch
+        return {"adaptive_fused": cc["adaptive"]["launches"][key],
+                "adaptive_fused_blake3": cc["adaptive"]["blake3_launches"][key],
+                "trained_batch": cc["trained_batch"]["launches"][key],
+                "encrypted_fused": cc.get("encrypted", {}).get("launches", {}).get(key)}
 
     def comp_launches(key):  # phase 10: per codec and lane
         return {c: {lane: r[lane]["launches"][key] for lane in ("fused", "jax")}
@@ -3099,6 +3451,7 @@ def main() -> int:
             pack_jax_launches=lanes["jax"]["launches"]["gear"],
             pack_compressed_launches=comp_launches("gear"),
             image_batch_launches=images["launches"]["gear"], image_batch_layers=images["layers"],
+            codec_cipher_launches=cc_launches("gear"),
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -3112,6 +3465,7 @@ def main() -> int:
             pack_jax_launches=lanes["jax"]["launches"]["sha"],
             pack_compressed_launches=comp_launches("sha"),
             image_batch_launches=images["launches"]["sha"], image_batch_layers=images["layers"],
+            codec_cipher_launches=cc_launches("sha"),
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -3143,6 +3497,8 @@ def main() -> int:
             + b3["pack_jax_launches"]["b3_parents"],
             pack_all_options_launches=comp["all_options"]["launches"]["b3_leaves"]
             + comp["all_options"]["launches"]["b3_parents"],
+            codec_cipher_launches=cc["adaptive"]["blake3_launches"]["b3_leaves"]
+            + cc["adaptive"]["blake3_launches"]["b3_parents"],
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

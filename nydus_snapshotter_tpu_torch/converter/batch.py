@@ -19,11 +19,16 @@ K4, once per layer, each layer on a CUDA stream of its own), merges them with co
 dict, and grows the dict. Images convert in caller order and the dict is
 read-only inside an image, so the result does not depend on the fan-out.
 
-Refused with ``ConvertError``: ``memory_budget_mib`` (the reference's
-stage-parallel pipeline and its ``MemoryBudget``, parallel/pipeline.py),
-a ``codec=`` argument or the adaptive codec setting (converter/codec.py),
-and the HA dict service (``service+ha://``, ``|`` failover groups) with
-``GrowingChunkDict.append_records``, its replica path.
+With the adaptive codec (``codec=``, or ``[compression] adaptive`` with
+zstd) one codec serves the whole batch: its trainer samples chunks across
+images, a dictionary trained between images (``[compression] train``)
+applies to every image after it, and a service-backed batch adopts the
+namespace's dictionary before its first image and publishes the one it
+trains.
+
+Refused with ``ConvertError``: the HA dict service (``service+ha://``,
+``|`` failover groups) with ``GrowingChunkDict.append_records``, its
+replica path.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ import torch
 
 from nydus_snapshotter_tpu_torch import trace
 from nydus_snapshotter_tpu_torch.converter.convert import Merge, Pack, PackResult
-from nydus_snapshotter_tpu_torch.converter.pack import ADAPTIVE_REFUSAL, adaptive_codec_requested
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, MergeOption, PackOption
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
     BatchRecord,
@@ -218,8 +222,7 @@ class BatchConverter:
                 "BatchConverter owns the chunk dict; use dict_path= instead "
                 "of PackOption.chunk_dict_path"
             )
-        if codec is not None or adaptive_codec_requested(opt):
-            raise ConvertError(f"BatchConverter: {ADAPTIVE_REFUSAL}")
+        from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
         from nydus_snapshotter_tpu_torch.parallel import dict_service as dict_service_mod
         from nydus_snapshotter_tpu_torch.parallel import pipeline as pipeline_mod
 
@@ -235,6 +238,10 @@ class BatchConverter:
         dcfg = dict_service_mod.resolve_dict_config()
         service = dict_service if dict_service is not None else dcfg.service
         self.namespace = namespace or dcfg.namespace
+        # Adaptive codec engine (off by default): one codec for the whole
+        # batch so the dict trainer samples across images and the trained
+        # dictionary applies to everything converted after it.
+        self.codec = codec if codec is not None else codec_mod.resolve_codec(opt)
         if service:
             if dict_path:
                 raise ConvertError(
@@ -262,6 +269,12 @@ class BatchConverter:
                     ],
                     self.namespace,
                 )
+            if self.codec is not None and self.codec.trained is None:
+                # Cross-host sharing: adopt the namespace's already-trained
+                # dictionary (epoch-stamped) before converting anything.
+                blob = self.dict.client.get_zdict(self.namespace)
+                if blob:
+                    self.codec.set_trained(codec_mod.TrainedDict.deserialize(blob))
         else:
             self.dict = GrowingChunkDict.load(dict_path) if dict_path else GrowingChunkDict()
 
@@ -286,7 +299,7 @@ class BatchConverter:
             with trace.with_context(ctx), self._layer_stream():
                 out = io.BytesIO()
                 res = Pack(out, tar, self.opt, chunk_dict=chunk_dict, device=self.device,
-                           budget=self.budget)
+                           budget=self.budget, codec=self.codec)
                 return out.getvalue(), res
 
         with trace.span("convert", image=name, layers=len(layer_tars)):
@@ -304,6 +317,7 @@ class BatchConverter:
                 chunk_dict=chunk_dict,
             )
             added = self.dict.add_bootstrap_bytes(merged.bootstrap)
+        self._maybe_train_codec()
         layer_blobs = {res.blob_id: blob for blob, res in packed if res.blob_id}
         return ImageResult(
             name=name,
@@ -313,10 +327,32 @@ class BatchConverter:
             new_dict_chunks=added,
         )
 
+    def _maybe_train_codec(self, force: bool = False):
+        """Between-images dictionary training: once the codec's sample
+        reservoir fills, train the namespace dictionary and (when
+        service-backed) publish it so converters on other hosts adopt it.
+        Training failure is not fatal: the batch continues untrained."""
+        if self.codec is None:
+            return None
+        td = self.codec.maybe_train(force=force)
+        if td is None:
+            return None
+        client = getattr(self.dict, "client", None)
+        if client is not None:
+            try:
+                client.put_zdict(td.serialize(), self.namespace)
+            except Exception:
+                # The dictionary still applies locally; sharing is
+                # best-effort (the service may predate the endpoint).
+                pass
+        return td
+
     def train_codec_dict(self):
-        """The reference trains the adaptive codec's zstd dictionary here;
-        without an active codec (always, in this package) it returns None."""
-        return None
+        """Force dictionary training now from whatever the sampler holds
+        (the between-images path waits for a full sample budget). Returns
+        the TrainedDict, or None (no codec, no samples, or training
+        failed: the batch continues untrained)."""
+        return self._maybe_train_codec(force=True)
 
     def convert_many(self, images: list[tuple[str, list[bytes]]]) -> list[ImageResult]:
         """Caller order IS the dedup order; results come back in it too."""
@@ -326,5 +362,9 @@ class BatchConverter:
         self.dict.save(path)
 
     def save_trained_dict(self, path: str) -> bool:
-        """False: no codec dictionary is ever trained in this package."""
-        return False
+        """Persist the codec's trained dictionary (epoch-stamped, beside the
+        chunk dict); False when none was trained."""
+        if self.codec is None or self.codec.trained is None:
+            return False
+        self.codec.trained.save(path)
+        return True

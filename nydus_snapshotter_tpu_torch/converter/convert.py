@@ -21,10 +21,13 @@ Merge and Unpack are host work (tables, overlay, decompression); the
 chunk lookups of merge-time dedup are host dict lookups, as in the
 reference. The output is byte-identical to the reference package's.
 
-Refused with :class:`ConvertError`: encrypted blobs (the blob cipher,
-converter/crypto.py), chunks of trained-dictionary zstd frames (the
-adaptive codec, converter/codec.py), and the OCIRef stream chunks and
-readers of the soci layer (``CHUNK_FLAG_GZIP_STREAM`` of
+:class:`BlobReader` decrypts encrypted blobs (seekable AES-256-CTR,
+converter/crypto.py) and decodes trained-dictionary ``nZD1`` zstd frames
+through the process-wide registry of converter/codec.py, which fails
+loudly, naming the dictionary id, when the dictionary is not registered.
+
+Refused with :class:`ConvertError`: the OCIRef stream chunks and readers
+of the soci layer (``CHUNK_FLAG_GZIP_STREAM`` of
 converter/zran.py, ``CHUNK_FLAG_ZSTD_STREAM`` of converter/zstd_ref.py,
 ``mount_gzip_stream`` / ``mount_zstd_stream``).
 """
@@ -41,6 +44,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from nydus_snapshotter_tpu_torch import constants
+from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
+from nydus_snapshotter_tpu_torch.converter import crypto
 from nydus_snapshotter_tpu_torch.converter.pack import (  # noqa: F401  (re-exported)
     Pack,
     PackResult,
@@ -68,9 +73,6 @@ from nydus_snapshotter_tpu_torch.utils import lz4
 # original .tar.gz / .tar.zst blob.
 CHUNK_FLAG_GZIP_STREAM = 0x400
 CHUNK_FLAG_ZSTD_STREAM = 0x800
-# Chunk-frame header of the reference's trained-dictionary zstd frames
-# (converter/codec.py TRAINED_FRAME_MAGIC).
-TRAINED_FRAME_MAGIC = b"nZD1"
 
 
 class ThreadSafeCompressor:
@@ -80,14 +82,21 @@ class ThreadSafeCompressor:
     A zstd context is not safe for concurrent calls; the output is still
     deterministic across contexts (same level, single-threaded contexts),
     so racing threads produce identical bytes.
+
+    With an adaptive ``codec`` the call routes straight to ``codec.encode``:
+    the codec keeps its own per-worker pinned contexts and is deterministic
+    in chunk content, so the same racing invariant holds.
     """
 
-    def __init__(self, compressor: str, lz4_accel: int = 1):
+    def __init__(self, compressor: str, lz4_accel: int = 1, codec=None):
         self._kind = compressor
         self._lz4_accel = lz4_accel
+        self._codec = codec if (codec is not None and compressor == "zstd") else None
         self._tls = threading.local()
 
     def __call__(self, data):
+        if self._codec is not None:
+            return self._codec.encode(data)
         fn = getattr(self._tls, "fn", None)
         if fn is None:
             fn = self._tls.fn = _make_compressor(self._kind, self._lz4_accel)
@@ -95,11 +104,14 @@ class ThreadSafeCompressor:
 
     def encode_many(self, views, n_threads: int = 1):
         """Batch counterpart of ``__call__``: ``[(payload, flag)]``
-        byte-identical to ``[self(v) for v in views]``. With the system
-        libzstd, zstd runs as one GIL-free native batch at the fixed level
+        byte-identical to ``[self(v) for v in views]``. The adaptive codec
+        takes its ``encode_batch``. Otherwise, with the system libzstd, zstd
+        runs as one GIL-free native batch at the fixed level
         (``ntpu_encode_batch`` is one-shot ``ZSTD_compressCCtx`` like
         ``compress_block``, so the frames match); everything else loops per
         chunk."""
+        if self._codec is not None:
+            return self._codec.encode_batch(views, n_threads=n_threads)
         if self._kind == "zstd" and views:
             from nydus_snapshotter_tpu_torch.ops import native_cdc
             from nydus_snapshotter_tpu_torch.utils import zstd as zstd_native
@@ -130,11 +142,14 @@ def _decompress_chunk(data: bytes, flags: int, expect_size: int) -> bytes:
     if comp == constants.COMPRESSOR_ZSTD:
         from nydus_snapshotter_tpu_torch.utils import zstdcompat
 
-        if len(data) >= 8 and bytes(data[:4]) == TRAINED_FRAME_MAGIC:
-            raise ConvertError(
-                "trained-dictionary zstd chunk frame: the adaptive codec "
-                "(converter/codec.py) is not ported"
-            )
+        if codec_mod.is_trained_frame(data):
+            # Versioned trained-dict frame (nZD1 header): decodes only with
+            # the dictionary it was trained with; a reader that lacks it
+            # fails loudly, never emits garbage bytes.
+            try:
+                return codec_mod.decode_trained_frame(data, expect_size)
+            except codec_mod.CodecError as e:
+                raise ConvertError(str(e)) from e
         try:
             return zstdcompat.decompress_block(data, max_output_size=max(expect_size, 1))
         except Exception:
@@ -173,9 +188,10 @@ class BlobReader:
     """Random-access chunk reads from one blob's data section.
 
     Resolves the storage transforms a chunk record can carry: per-chunk
-    compression and batch packing (``CHUNK_FLAG_BATCH``: several small
-    chunks share one compressed extent). ``read_at(offset, size)`` returns
-    raw blob bytes. An encrypted blob or an OCIRef stream chunk raises
+    compression, batch packing (``CHUNK_FLAG_BATCH``: several small chunks
+    share one compressed extent) and blob encryption (seekable AES-CTR,
+    converter/crypto.py). ``read_at(offset, size)`` returns raw
+    (still-encrypted) blob bytes. An OCIRef stream chunk raises
     :class:`ConvertError`.
     """
 
@@ -193,11 +209,9 @@ class BlobReader:
         self.bootstrap = bootstrap
         self.blob_index = blob_index
         self.read_at = read_at
-        if bootstrap.cipher_for(blob_index) is not None:
-            raise ConvertError(
-                f"blob {blob_index} is encrypted: the blob cipher (converter/crypto.py) "
-                "is not ported"
-            )
+        self.cipher = bootstrap.cipher_for(blob_index)
+        if self.cipher is not None and self.cipher.algo != crypto.CIPHER_AES_256_CTR:
+            raise ConvertError(f"unsupported blob cipher algo {self.cipher.algo}")
         # (blob_index, compressed_offset) -> (uncompressed_base, size), from
         # the bootstrap's batch table. Callers constructing several readers
         # can share one batch_map to avoid rebuilding it per blob.
@@ -219,6 +233,8 @@ class BlobReader:
                 f"blob {self.blob_index}: short read at {offset} "
                 f"({len(raw)} of {size} bytes)"
             )
+        if self.cipher is not None:
+            raw = crypto.decrypt_range(raw, offset, self.cipher.key, self.cipher.iv)
         return raw
 
     def chunk_data(self, rec: ChunkRecord) -> bytes:

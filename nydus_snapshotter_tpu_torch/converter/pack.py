@@ -48,19 +48,20 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   the bootstrap); ``aligned_chunk`` aligns each stored frame to 4096 bytes
   on RAFS v5. Which writer compresses is the reference's choice
   (converter/stream.py:771-790): an in-memory tar (``bytes``) packed with
-  ``none``, ``lz4_block`` or ``zstd`` and no ``batch_size`` or v5
-  alignment takes :class:`_DeferredSectionWriter` on every lane. It
-  records each unique chunk's extent (a zero-copy offset into the tar, or
-  loose bytes in a side buffer) and after the chunk lane compresses,
-  assembles and hashes the whole section in one GIL-free native call
+  ``none``, ``lz4_block`` or ``zstd``, with no ``batch_size``, v5
+  alignment, adaptive codec or ``encrypt``, takes
+  :class:`_DeferredSectionWriter` on every lane. It records each unique
+  chunk's extent (a zero-copy offset into the tar, or loose bytes in a
+  side buffer) and after the chunk lane compresses, assembles and hashes
+  the whole section in one GIL-free native call
   (``native_cdc.pack_section``) over ``_pack_threads()`` workers, by default
   the core count; the bytes do not depend on the count. Without the system
   codec library the engine can dlopen, the extents replay through the
   Python codec. Otherwise (a file-like ``src_tar``, ``batch_size``, v5
-  ``aligned_chunk``) :class:`_SectionWriter` compresses chunk by chunk in
-  the dedup lane, on one thread. Codecs are the system liblz4 and libzstd
-  (utils/lz4.py, utils/zstd.py, and the engine's own dlopen of the same
-  names), never a bundled build.
+  ``aligned_chunk``, the adaptive codec, ``encrypt``) :class:`_SectionWriter`
+  compresses chunk by chunk in the dedup lane, on one thread. Codecs are
+  the system liblz4 and libzstd (utils/lz4.py, utils/zstd.py, and the
+  engine's own dlopen of the same names), never a bundled build.
 - ``prefetch_patterns`` fill the bootstrap's prefetch table;
   ``chunk_dict_path`` opens a chunk dict when none is passed, through
   parallel/dict_service.open_chunk_dict: ``service://<uds>[,<uds>...]
@@ -70,15 +71,21 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   ``bootstrap`` interface: ``ChunkDict``, ``GrowingChunkDict``,
   ``ServiceChunkDict``.
 - RAFS v5 or v6.
+- ``compressor="zstd"`` under the adaptive codec (``NTPU_COMPRESS_ADAPTIVE``
+  or ``[compression] adaptive``, or a ``codec=`` passed in): per-chunk
+  probe, store-raw bypass, per-class levels and trained-dictionary
+  ``nZD1`` frames (converter/codec.py). ``encrypt=True``: the data section
+  as one AES-256-CTR stream under a fresh per-blob key, recorded in the
+  bootstrap's cipher table (converter/crypto.py). Either takes
+  :class:`_SectionWriter` on every lane, as in the reference
+  (converter/stream.py:775-788): cuts and digests stay where the lane puts
+  them (on the card for ``fused`` and ``jax``), and the codec and the
+  cipher run on the host.
 
-Refused with :class:`ConvertError`: ``encrypt=True`` (the blob cipher is
-not ported), the HA chunk-dict service (``service+ha://``, ``|``
-failover groups), and zstd under ``NTPU_COMPRESS_ADAPTIVE`` or the global
-config's ``[compression] adaptive`` where the system libzstd is bound (the
-reference then packs through its adaptive codec, converter/codec.py, whose
-frames differ; see :func:`adaptive_codec_requested`). A
-``chunk_dict_path`` bootstrap may be in this package's layout or the real
-nydus v5/v6 layouts (models/nydus_real.load_any_bootstrap).
+Refused with :class:`ConvertError`: the HA chunk-dict service
+(``service+ha://``, ``|`` failover groups). A ``chunk_dict_path``
+bootstrap may be in this package's layout or the real nydus v5/v6 layouts
+(models/nydus_real.load_any_bootstrap).
 
 An in-memory tar's headers are read by :func:`_fast_tar_members` (the
 reference's header walk; ``tarfile`` where it bails). A file-like
@@ -107,7 +114,8 @@ import numpy as np
 import torch
 
 from nydus_snapshotter_tpu_torch import constants, failpoint
-from nydus_snapshotter_tpu_torch.config.config import global_section
+from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
+from nydus_snapshotter_tpu_torch.converter import crypto
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, PackOption
 from nydus_snapshotter_tpu_torch.models import fstree, layout, nydus_tar, toc
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
@@ -181,11 +189,15 @@ class _CountingWriter:
         return self.pos
 
 
-def _make_compressor(compressor: str, lz4_accel: int = 1):
-    """One reusable codec per Pack: ``data -> (frame, chunk flag)``. The
-    reference's ``converter/convert._make_compressor`` without its adaptive
-    codec. zstd goes through the system libzstd when it is bound and
-    through the ``zstandard`` of utils/zstdcompat only when it is not."""
+def _make_compressor(compressor: str, lz4_accel: int = 1, codec=None):
+    """One reusable codec per Pack: ``data -> (frame, chunk flag)``, the
+    reference's ``converter/convert._make_compressor``. An adaptive
+    ``codec`` (converter/codec.AdaptiveCodec) takes over the zstd lane
+    (probe, bypass, per-class levels, trained dictionary). Otherwise zstd
+    goes through the system libzstd when it is bound and through the
+    ``zstandard`` of utils/zstdcompat only when it is not."""
+    if codec is not None and compressor == "zstd":
+        return codec.encode
     if compressor == "zstd":
         if zstd_native.available():
             return lambda data: (
@@ -203,8 +215,11 @@ def _make_compressor(compressor: str, lz4_accel: int = 1):
 
 class _SectionWriter:
     """Streams the image.blob data section: alignment, batch packing,
-    compression, hashing, extent accounting (the reference's
-    converter/stream.py:270-340, without encryption)."""
+    compression, encryption, hashing, extent accounting (the reference's
+    converter/stream.py:270-340). With ``opt.encrypt`` every section byte
+    goes through one AES-256-CTR stream keyed by a fresh
+    ``crypto.generate_context()``, recorded as ``cipher``; the section
+    digest is over the ciphertext."""
 
     def __init__(self, out: _CountingWriter, opt: PackOption, compress):
         self.out = out
@@ -212,6 +227,12 @@ class _SectionWriter:
         self.align = 4096 if (opt.aligned_chunk and opt.fs_version == layout.RAFS_V5) else 1
         self.batch_size = opt.batch_size
         self.hasher = hashlib.sha256()
+        self.cipher: Optional[CipherRecord] = None
+        self._encryptor = None
+        if opt.encrypt:
+            key, iv = crypto.generate_context()
+            self.cipher = CipherRecord(algo=crypto.CIPHER_AES_256_CTR, key=key, iv=iv)
+            self._encryptor = crypto.stream_encryptor(key, iv)
         self.coff = 0  # current offset within the data section
         self.extents: list[Optional[tuple[int, int, int]]] = []  # per unique chunk
         self.batches: list[tuple[int, int, int]] = []  # (coff, uncomp_base, usize)
@@ -219,6 +240,8 @@ class _SectionWriter:
         self._pending_bytes = 0
 
     def _write_raw(self, b) -> None:
+        if self._encryptor is not None:
+            b = self._encryptor.update(b)
         self.hasher.update(b)
         self.out.write(b)
         self.coff += len(b)
@@ -261,6 +284,12 @@ class _SectionWriter:
 
     def finish(self) -> None:
         self._flush_batch()
+        if self._encryptor is not None:
+            tail = self._encryptor.finalize()
+            if tail:
+                self.hasher.update(tail)
+                self.out.write(tail)
+                self.coff += len(tail)
 
 
 class _SectionDigest:
@@ -296,6 +325,7 @@ class _DeferredSectionWriter:
         self.out = out
         self.compress = compress  # the replay only
         self.hasher = _SectionDigest()
+        self.cipher = None  # never encrypted: encrypt=True takes _SectionWriter
         self.coff = 0
         self.extents: list[Optional[tuple[int, int, int]]] = []
         self.batches: list[tuple[int, int, int]] = []
@@ -411,36 +441,11 @@ def match_prefetch_paths(inodes, patterns: str) -> list[str]:
     return wanted
 
 
-def adaptive_codec_requested(opt: PackOption) -> bool:
-    """True where the reference's ``codec.resolve_codec`` would return an
-    ``AdaptiveCodec`` (converter/codec.py:271-283): compressor zstd, the
-    ``adaptive`` knob on (``NTPU_COMPRESS_ADAPTIVE`` as its ``_env_bool``
-    reads it, else the global config's ``[compression] adaptive``) and the
-    system libzstd bound."""
-    if opt.compressor != "zstd":
-        return False
-    adaptive = bool(getattr(global_section("compression"), "adaptive", False))
-    v = os.environ.get("NTPU_COMPRESS_ADAPTIVE", "")
-    if v:
-        adaptive = v not in ("0", "off", "false", "no")
-    return adaptive and zstd_native.available()
-
-
-ADAPTIVE_REFUSAL = (
-    "the adaptive codec (NTPU_COMPRESS_ADAPTIVE or [compression] adaptive with zstd; "
-    "the reference's converter/codec.py, ROADMAP.md Queue A item 4) is not ported"
-)
-
-
 def _check_options(opt: PackOption) -> None:
     opt.validate()
     refused = []
-    if adaptive_codec_requested(opt):
-        refused.append(ADAPTIVE_REFUSAL)
     if opt.backend not in ("fused", "jax", "hybrid", "numpy"):
         refused.append(f"backend={opt.backend!r}")
-    if opt.encrypt:
-        refused.append("encrypt=True (the blob cipher, converter/crypto.py, is not ported)")
     path = opt.chunk_dict_path
     if path.startswith("service+ha://") or (path.startswith("service://") and "|" in path):
         refused.append(
@@ -727,7 +732,7 @@ class IncrementalChunker:
         return out
 
 
-def _pipeline_for(plan, raw, arr_all, n_threads, opt, shared, section, chunk_dict, budget, stats):
+def _pipeline_for(plan, raw, arr_all, n_threads, opt, shared, section, chunk_dict, budget, stats, codec):
     """The stage-parallel pipeline for the per-file lane, or None where the
     reference's ``pack_stream`` walks serially (converter/stream.py:1109-1183):
     the host backends (``hybrid``, ``numpy``) without device digests, more
@@ -765,11 +770,11 @@ def _pipeline_for(plan, raw, arr_all, n_threads, opt, shared, section, chunk_dic
     compress_fn = compress_eligible = None
     if opt.compressor in ("lz4_block", "zstd") and not isinstance(section, _DeferredSectionWriter):
         # The deferred writer compresses in its own native pass; speculating
-        # here would do the work twice. Per-thread codec contexts, both
-        # codecs deterministic.
+        # here would do the work twice. Per-thread codec contexts, every
+        # codec deterministic in chunk content (the adaptive one too).
         from nydus_snapshotter_tpu_torch.converter.convert import ThreadSafeCompressor
 
-        compress_fn = ThreadSafeCompressor(opt.compressor, opt.lz4_acceleration)
+        compress_fn = ThreadSafeCompressor(opt.compressor, opt.lz4_acceleration, codec=codec)
         batch_limit = opt.batch_size
 
         def compress_eligible(digest, view):
@@ -798,6 +803,7 @@ def Pack(
     device: "str | torch.device | None" = None,
     stats: "Optional[dict]" = None,
     budget=None,
+    codec=None,
 ) -> PackResult:
     """Stream one OCI layer tar into a nydus blob written to ``dest``.
 
@@ -828,6 +834,11 @@ def Pack(
     pack's speculative-compression bytes in flight on the pipelined lane
     (``BatchConverter`` passes one budget for every layer it packs at
     once); None draws from the process-wide ``shared_budget()``.
+
+    ``codec``: an adaptive codec (converter/codec.AdaptiveCodec) for the
+    zstd lane; None resolves one from the ``[compression]`` settings as the
+    reference's ``pack_stream`` does (``codec.resolve_codec``: None unless
+    the adaptive engine is on and the compressor is zstd).
     """
     failpoint.hit("converter.pack")
     _check_options(opt)
@@ -837,13 +848,13 @@ def Pack(
 
         chunk_dict = opened = open_chunk_dict(opt.chunk_dict_path)
     try:
-        return _pack(dest, src_tar, opt, chunk_dict, device, stats, budget)
+        return _pack(dest, src_tar, opt, chunk_dict, device, stats, budget, codec)
     finally:
         if hasattr(opened, "close"):  # a service mirror's connections
             opened.close()
 
 
-def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats, budget) -> PackResult:
+def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats, budget, codec) -> PackResult:
     shared = IncrementalChunker(opt, device=device)
     engine = shared._engine
     # Device digests (K2, or K4 for BLAKE3) for the jax lane whatever
@@ -857,12 +868,19 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats, budget) -> 
     if isinstance(src_tar, (bytes, bytearray)):
         raw = memoryview(src_tar)
         src_tar = io.BytesIO(src_tar)
+    if codec is None:
+        codec = codec_mod.resolve_codec(opt)
     out = _CountingWriter(dest)
-    compress = _make_compressor(opt.compressor, opt.lz4_acceleration)
+    compress = _make_compressor(opt.compressor, opt.lz4_acceleration, codec=codec)
     align_needed = opt.aligned_chunk and opt.fs_version == layout.RAFS_V5
     if (
         raw is not None
         and opt.compressor in ("none", "lz4_block", "zstd")
+        # an active codec owns the per-chunk frame decisions and the cipher
+        # is a stream over the whole section: the native section pass does
+        # neither, so both take the serial writer on every lane
+        and codec is None
+        and not opt.encrypt
         and not opt.batch_size
         and not align_needed
         and native_cdc.pack_section_available()
@@ -1110,7 +1128,9 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats, budget) -> 
         t0 = perf_counter()
         small_digests = iter(host_digests_for(opt.digester)(small))
         t_chunk += perf_counter() - t0
-    pipe = _pipeline_for(plan, raw, arr_all, n_threads, opt, shared, section, chunk_dict, budget, stats)
+    pipe = _pipeline_for(
+        plan, raw, arr_all, n_threads, opt, shared, section, chunk_dict, budget, stats, codec
+    )
     if pipe is not None:
         # Walk-time chunks (sparse members) wait in the digest batches and
         # the serial lane stores them before the plan's: store them now, as
@@ -1177,7 +1197,7 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats, budget) -> 
                 chunk_count=len(uncomp_offsets),
             )
         )
-        cipher_table.append(CipherRecord())
+        cipher_table.append(section.cipher or CipherRecord())
         for coff_b, base_u, usize in section.batches:
             batch_table.append(BatchRecord(0, coff_b, base_u, usize))
     for bid in dict_blobs_used:
@@ -1311,8 +1331,12 @@ def pack_layer(
     device: "str | torch.device | None" = None,
     stats: "Optional[dict]" = None,
     budget=None,
+    codec=None,
 ) -> tuple[bytes, PackResult]:
     """Pack to bytes -> (framed layer blob, PackResult)."""
     dest = io.BytesIO()
-    res = Pack(dest, src_tar, opt, chunk_dict=chunk_dict, device=device, stats=stats, budget=budget)
+    res = Pack(
+        dest, src_tar, opt, chunk_dict=chunk_dict, device=device, stats=stats, budget=budget,
+        codec=codec,
+    )
     return dest.getvalue(), res

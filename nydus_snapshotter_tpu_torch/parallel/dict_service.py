@@ -46,7 +46,6 @@ import os
 import re
 import socket
 import socketserver
-import struct
 import threading
 from http.server import BaseHTTPRequestHandler
 from time import perf_counter
@@ -115,15 +114,6 @@ _SHARD_BATCHES = _metrics.Counter(
 )
 # since-RPC header: n_entries, epoch, rebuild_epoch, reserved.
 _SINCE_HDR_FIELDS = 4
-
-# The reference codec's epoch-stamped trained-dictionary blob
-# (converter/codec.TrainedDict.serialize): header, ZDICT bytes, and the
-# first 8 bytes of the SHA-256 of both.
-_ZDICT_FILE_MAGIC = b"NTPUZDCT"
-_ZDICT_FILE_VERSION = 1
-_ZDICT_HDR = struct.Struct("<8sIIQI")  # magic | version | dict_id | epoch | len
-_ZSTD_DICT_MAGIC = 0xEC30A437  # zstd's dictionary format: magic, then the LE32 id
-
 
 class DictServiceError(RuntimeError):
     """An RPC failed on the service side (the message carries the op)."""
@@ -229,35 +219,6 @@ def resolve_dict_config() -> DictRuntimeConfig:
     )
 
 
-def parse_trained_dict(blob: bytes) -> tuple[int, int]:
-    """Validate a serialized trained compression dictionary (the reference
-    codec's format) -> (dict_id, epoch). Raises ValueError when it is not
-    one."""
-    if len(blob) < _ZDICT_HDR.size + 8:
-        raise ValueError("trained-dict blob too short")
-    magic, version, dict_id, epoch, n = _ZDICT_HDR.unpack_from(blob)
-    if magic != _ZDICT_FILE_MAGIC:
-        raise ValueError("not a trained-dict blob (bad magic)")
-    if version != _ZDICT_FILE_VERSION:
-        raise ValueError(f"unsupported trained-dict format v{version}")
-    end = _ZDICT_HDR.size + n
-    if len(blob) < end + 8:
-        raise ValueError("trained-dict blob truncated")
-    if hashlib.sha256(blob[:end]).digest()[:8] != blob[end : end + 8]:
-        raise ValueError("trained-dict blob checksum mismatch (torn write?)")
-    payload = blob[_ZDICT_HDR.size : end]
-    payload_id = 0
-    if len(payload) >= 8 and int.from_bytes(payload[:4], "little") == _ZSTD_DICT_MAGIC:
-        payload_id = int.from_bytes(payload[4:8], "little")
-    if payload_id == 0:
-        raise ValueError("trained dictionary carries no ZDICT id")
-    if payload_id != dict_id:
-        raise ValueError(
-            f"trained-dict id skew: header says {dict_id}, payload says {payload_id}"
-        )
-    return dict_id, epoch
-
-
 # ---------------------------------------------------------------------------
 # ServiceDict: one namespace's table
 # ---------------------------------------------------------------------------
@@ -343,13 +304,16 @@ class ServiceDict:
             return self._stats_locked()
 
     def put_zdict(self, blob: bytes) -> dict:
-        """Adopt a serialized trained dictionary (validated); an older epoch
-        never replaces a newer one."""
-        dict_id, epoch = parse_trained_dict(blob)
+        """Adopt a serialized epoch-stamped trained dictionary
+        (converter/codec.TrainedDict wire format; validated, raising
+        ``CodecError``). An older epoch never replaces a newer one."""
+        from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
+
+        td = codec_mod.TrainedDict.deserialize(blob)
         with self._mu:
-            if self._zdict_meta is None or epoch >= self._zdict_meta[1]:
+            if self._zdict_meta is None or td.epoch >= self._zdict_meta[1]:
                 self._zdict = bytes(blob)
-                self._zdict_meta = (dict_id, epoch)
+                self._zdict_meta = (td.dict_id, td.epoch)
             dict_id, epoch = self._zdict_meta
             return {
                 "namespace": self.namespace,
@@ -596,7 +560,12 @@ class DictService:
         if op == "zdict" and method == "GET":
             return sd.get_zdict()
         if op == "zdict" and method == "POST":
-            return sd.put_zdict(body)
+            from nydus_snapshotter_tpu_torch.converter.codec import CodecError
+
+            try:
+                return sd.put_zdict(body)
+            except CodecError as e:
+                raise ValueError(str(e)) from e
         raise ValueError(f"no such dict op {method} {op!r}")
 
     def run(self, sock_path: str) -> None:

@@ -361,15 +361,12 @@ def resolve_config(n_threads: int) -> PipelineConfig:
 
 
 def resolve_batch_chunks() -> int:
-    """``[compression] batch_chunks`` as the reference's codec config
-    resolves it (converter/codec.resolve_codec_config):
-    ``NTPU_COMPRESS_BATCH_CHUNKS`` (0 allowed) > config > 16."""
-    default = getattr(global_section("compression"), "batch_chunks", 16)
-    try:
-        v = int(os.environ.get("NTPU_COMPRESS_BATCH_CHUNKS", ""))
-        return v if v >= 0 else default
-    except ValueError:
-        return default
+    """``[compression] batch_chunks``, as the codec config resolves it
+    (converter/codec.resolve_codec_config: ``NTPU_COMPRESS_BATCH_CHUNKS``,
+    0 allowed, > config > 16)."""
+    from nydus_snapshotter_tpu_torch.converter.codec import resolve_codec_config
+
+    return resolve_codec_config().batch_chunks
 
 
 _shared_budget: Optional[MemoryBudget] = None

@@ -10,9 +10,12 @@ its OWN libzstd, whose output can differ from the system library's
 
 The PyTorch port's own copy of the part of that module that chunk
 compression and decompression need: the loader, the CCtx/DCtx pools,
-:func:`available`, :func:`compress_block`, :func:`compress_with_ctx` and
-:func:`decompress_block`, with :func:`library` added. The trained
-dictionary, frame-walk and streaming surfaces are not carried.
+:func:`available`, :func:`compress_block`, :func:`compress_with_ctx`,
+:func:`decompress_block` (with :func:`dctx_stats`), the pinned-context pool the adaptive codec's
+workers take (:func:`cctx_acquire`/:func:`cctx_release`) and the trained
+dictionary arms (ZDICT training, digested :class:`CDict`/:class:`DDict`
+handles), with :func:`library` added. The frame-walk and streaming
+surfaces are not carried.
 
 When the system library is absent, callers fall back to
 ``utils/zstdcompat.zstandard``.
@@ -23,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import threading
+import weakref
 
 import numpy as np
 
@@ -67,7 +71,11 @@ class _Api:
         self._lock = threading.Lock()
         self._pool: list[int] = []
         self._dpool: list[int] = []
+        self.dctx_reuses = 0
+        self.dctx_creates = 0
         self.has_dctx = self._bind_dctx(lib)
+        self.has_dict = self._bind_dict(lib)
+        self.has_zdict = self._bind_zdict(lib)
 
     @staticmethod
     def _bind_dctx(lib) -> bool:
@@ -85,6 +93,56 @@ class _Api:
             lib.ZSTD_getFrameContentSize.argtypes = [
                 ctypes.c_void_p, ctypes.c_size_t,
             ]
+        except AttributeError:
+            return False
+        return True
+
+    @staticmethod
+    def _bind_dict(lib) -> bool:
+        """Digested-dictionary arms: CDict/DDict pre-process the trained
+        dictionary ONCE, so per-chunk dict compression costs no dict load."""
+        try:
+            lib.ZSTD_createCDict.restype = ctypes.c_void_p
+            lib.ZSTD_createCDict.argtypes = [
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+            ]
+            lib.ZSTD_freeCDict.restype = ctypes.c_size_t
+            lib.ZSTD_freeCDict.argtypes = [ctypes.c_void_p]
+            lib.ZSTD_compress_usingCDict.restype = ctypes.c_size_t
+            lib.ZSTD_compress_usingCDict.argtypes = [
+                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p,
+            ]
+            lib.ZSTD_createDDict.restype = ctypes.c_void_p
+            lib.ZSTD_createDDict.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+            lib.ZSTD_freeDDict.restype = ctypes.c_size_t
+            lib.ZSTD_freeDDict.argtypes = [ctypes.c_void_p]
+            lib.ZSTD_decompress_usingDDict.restype = ctypes.c_size_t
+            lib.ZSTD_decompress_usingDDict.argtypes = [
+                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p,
+            ]
+        except AttributeError:
+            return False
+        return True
+
+    @staticmethod
+    def _bind_zdict(lib) -> bool:
+        try:
+            lib.ZDICT_trainFromBuffer.restype = ctypes.c_size_t
+            lib.ZDICT_trainFromBuffer.argtypes = [
+                ctypes.c_void_p, ctypes.c_size_t,
+                ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_size_t), ctypes.c_uint,
+            ]
+            lib.ZDICT_isError.restype = ctypes.c_uint
+            lib.ZDICT_isError.argtypes = [ctypes.c_size_t]
+            lib.ZDICT_getDictID.restype = ctypes.c_uint
+            lib.ZDICT_getDictID.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
         except AttributeError:
             return False
         return True
@@ -110,7 +168,9 @@ class _Api:
     def acquire_d(self) -> int:
         with self._lock:
             if self._dpool:
+                self.dctx_reuses += 1
                 return self._dpool.pop()
+            self.dctx_creates += 1
         ctx = self.lib.ZSTD_createDCtx()
         if not ctx:
             raise ZstdError("ZSTD_createDCtx failed (out of memory)")
@@ -174,6 +234,19 @@ def compress_block(data: bytes | memoryview, level: int = LEVEL) -> bytes:
         _API.release(ctx)
 
 
+def cctx_acquire() -> int:
+    """Take a compression context out of the pool for exclusive, pinned
+    use (one per compress worker); return it with :func:`cctx_release`."""
+    if _API is None:
+        raise ZstdError("system libzstd not available")
+    return _API.acquire()
+
+
+def cctx_release(ctx: int) -> None:
+    if _API is not None:
+        _API.release(ctx)
+
+
 def compress_with_ctx(ctx: int, data: bytes | memoryview, level: int = LEVEL) -> bytes:
     """One zstd frame on a caller-owned CCtx: no context allocation, no
     pool lock. Output is byte-identical to :func:`compress_block` at the
@@ -190,8 +263,91 @@ def compress_with_ctx(ctx: int, data: bytes | memoryview, level: int = LEVEL) ->
     return buf[:w].tobytes()
 
 
+def dict_support() -> bool:
+    """True when the bound libzstd exposes the dictionary arms this
+    module needs (ZDICT training + CDict/DDict digested handles)."""
+    return _API is not None and _API.has_dict and _API.has_zdict and _API.has_dctx
+
+
+def train_dict(samples: "list[bytes]", capacity_bytes: int) -> bytes:
+    """ZDICT_trainFromBuffer over concatenated samples -> dictionary bytes.
+
+    Raises :class:`ZstdError` when training fails (too few / too uniform
+    samples: callers fall back to untrained compression)."""
+    if not dict_support():
+        raise ZstdError("system libzstd lacks ZDICT support")
+    if not samples:
+        raise ZstdError("cannot train a dictionary from zero samples")
+    joined = np.frombuffer(b"".join(samples), dtype=np.uint8)
+    sizes = (ctypes.c_size_t * len(samples))(*[len(s) for s in samples])
+    cap = max(1024, int(capacity_bytes))
+    out = np.empty(cap, dtype=np.uint8)
+    w = _API.lib.ZDICT_trainFromBuffer(out.ctypes.data, cap, joined.ctypes.data, sizes, len(samples))
+    if _API.lib.ZDICT_isError(w):
+        raise ZstdError(f"ZDICT training failed over {len(samples)} samples ({joined.size} bytes)")
+    return out[:w].tobytes()
+
+
+def dict_id_of(dict_bytes: bytes) -> int:
+    """The dictionary's embedded ZDICT id (0 = not a ZDICT dictionary)."""
+    if _API is None or not _API.has_zdict:
+        raise ZstdError("system libzstd lacks ZDICT support")
+    arr = np.frombuffer(dict_bytes, dtype=np.uint8)
+    return int(_API.lib.ZDICT_getDictID(arr.ctypes.data, arr.size))
+
+
+class CDict:
+    """A digested compression dictionary at one level: the dictionary is
+    pre-processed ONCE, so per-chunk dict compression pays no dict load."""
+
+    def __init__(self, dict_bytes: bytes, level: int = LEVEL):
+        if not dict_support():
+            raise ZstdError("system libzstd lacks dictionary support")
+        self._keep = np.frombuffer(dict_bytes, dtype=np.uint8)  # pin memory
+        self.level = level
+        self.handle = _API.lib.ZSTD_createCDict(self._keep.ctypes.data, self._keep.size, level)
+        if not self.handle:
+            raise ZstdError("ZSTD_createCDict failed")
+        self._fin = weakref.finalize(self, _API.lib.ZSTD_freeCDict, self.handle)
+
+
+class DDict:
+    """A digested decompression dictionary (level-independent)."""
+
+    def __init__(self, dict_bytes: bytes):
+        if not dict_support():
+            raise ZstdError("system libzstd lacks dictionary support")
+        self._keep = np.frombuffer(dict_bytes, dtype=np.uint8)
+        self.handle = _API.lib.ZSTD_createDDict(self._keep.ctypes.data, self._keep.size)
+        if not self.handle:
+            raise ZstdError("ZSTD_createDDict failed")
+        self._fin = weakref.finalize(self, _API.lib.ZSTD_freeDDict, self.handle)
+
+
+def compress_with_cdict(ctx: int, data: bytes | memoryview, cdict: CDict) -> bytes:
+    """One dict-trained zstd frame on a caller-owned CCtx. The frame
+    header carries the dictionary id, so decoding without the dictionary
+    fails instead of producing garbage."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    n = src.size
+    cap = _API.lib.ZSTD_compressBound(n)
+    buf = np.empty(cap, dtype=np.uint8)
+    w = _API.lib.ZSTD_compress_usingCDict(ctx, buf.ctypes.data, cap, src.ctypes.data, n, cdict.handle)
+    if _API.lib.ZSTD_isError(w):
+        raise ZstdError(f"zstd dict compress failed for {n}-byte input")
+    return buf[:w].tobytes()
+
+
 def dctx_available() -> bool:
     return _API is not None and _API.has_dctx
+
+
+def dctx_stats() -> dict:
+    """Pool accounting for the decompress path ({'reuses', 'creates'})."""
+    if _API is None:
+        return {"reuses": 0, "creates": 0}
+    with _API._lock:
+        return {"reuses": _API.dctx_reuses, "creates": _API.dctx_creates}
 
 
 def _frame_capacity(src, n: int, max_output_size: int) -> int:
@@ -228,4 +384,25 @@ def decompress_block(data: bytes | memoryview, max_output_size: int = 0) -> byte
         _API.release_d(ctx)
     if _API.lib.ZSTD_isError(w):
         raise ZstdError(f"zstd decompress failed for {n}-byte input")
+    return buf[:w].tobytes()
+
+
+def decompress_with_ddict(data: bytes | memoryview, ddict: DDict, max_output_size: int = 0) -> bytes:
+    """One dict-trained zstd frame -> bytes (pooled DCtx + digested
+    DDict). Raises when the frame needs a different dictionary."""
+    if not dict_support():
+        raise ZstdError("system libzstd lacks dictionary support")
+    src = np.frombuffer(data, dtype=np.uint8)
+    n = src.size
+    if n == 0:
+        raise ZstdError("empty zstd frame")
+    cap = _frame_capacity(src, n, max_output_size)
+    buf = np.empty(cap, dtype=np.uint8)
+    ctx = _API.acquire_d()
+    try:
+        w = _API.lib.ZSTD_decompress_usingDDict(ctx, buf.ctypes.data, cap, src.ctypes.data, n, ddict.handle)
+    finally:
+        _API.release_d(ctx)
+    if _API.lib.ZSTD_isError(w):
+        raise ZstdError(f"zstd dict decompress failed for {n}-byte input (wrong or missing dictionary?)")
     return buf[:w].tobytes()

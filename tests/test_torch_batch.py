@@ -232,7 +232,8 @@ class TestRefusals:
         [
             # accepted since the pipeline was ported: a private budget
             (dict(memory_budget_mib=64), None),
-            (dict(codec=object()), "adaptive codec"),
+            # accepted since the adaptive codec was ported: the batch's one codec
+            (dict(codec=object()), None),
             (dict(dict_service="service+ha://a|b"), "HA dict service"),
             (dict(dict_service="/tmp/a.sock|/tmp/b.sock"), "HA dict service"),
             (dict(dict_service="/tmp/a.sock", dict_path="/tmp/d.boot"), "dict_path"),
@@ -241,7 +242,11 @@ class TestRefusals:
     )
     def test_refused(self, kw, match):
         if match is None:
-            assert BatchConverter(PackOption(**OPT), device="cpu", **kw).budget.total == 64 << 20
+            bc = BatchConverter(PackOption(**OPT), device="cpu", **kw)
+            if "codec" in kw:
+                assert bc.codec is kw["codec"]
+            else:
+                assert bc.budget.total == 64 << 20
             return
         with pytest.raises(ConvertError, match=match):
             BatchConverter(PackOption(**OPT), device="cpu", **kw)
@@ -251,9 +256,29 @@ class TestRefusals:
             BatchConverter(PackOption(chunk_dict_path="/tmp/x.boot", **OPT), device="cpu")
 
     @pytest.mark.skipif(not zstd_native.available(), reason="the system libzstd is not bound")
-    def test_adaptive_codec_setting_refused(self, monkeypatch):
+    def test_adaptive_codec_setting_converts_reference_bytes(self, monkeypatch):
+        """Under ``NTPU_COMPRESS_ADAPTIVE=1`` both packages' batches resolve
+        one adaptive codec for zstd and convert the same images; lz4_block
+        is not the codec's and resolves none."""
         monkeypatch.setenv("NTPU_COMPRESS_ADAPTIVE", "1")
-        with pytest.raises(ConvertError, match="adaptive codec"):
-            BatchConverter(PackOption(compressor="zstd", **OPT), device="cpu")
-        # lz4_block is not the adaptive codec's: the reference packs as usual
-        BatchConverter(PackOption(compressor="lz4_block", **OPT), device="cpu")
+        monkeypatch.setenv("NTPU_PACK_THREADS", "1")
+        rng = np.random.default_rng(12)
+        layers = []
+        for k in range(2):
+            buf = io.BytesIO()
+            with tarfile.open(fileobj=buf, mode="w") as tf:
+                for i in range(4):
+                    data = (b"adaptive %d %d " % (k, i)) * 2000 if i % 2 else \
+                        rng.integers(0, 256, 40_000, dtype=np.uint8).tobytes()
+                    ti = tarfile.TarInfo(f"l{k}/f{i}")
+                    ti.size = len(data)
+                    tf.addfile(ti, io.BytesIO(data))
+            layers.append(buf.getvalue())
+        opt = dict(compressor="zstd", backend="numpy", **OPT)
+        bc = BatchConverter(PackOption(**opt), device="cpu")
+        jbc = JBatchConverter(JPackOption(**opt))
+        assert bc.codec is not None and jbc.codec is not None
+        got, want = bc.convert_many([("a", layers)]), jbc.convert_many([("a", layers)])
+        assert (got[0].bootstrap, got[0].layer_blobs) == (want[0].bootstrap, want[0].layer_blobs)
+        assert bc.codec.counts == jbc.codec.counts and bc.codec.counts["bypass"] > 0
+        assert BatchConverter(PackOption(compressor="lz4_block", **OPT), device="cpu").codec is None

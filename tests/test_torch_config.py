@@ -5,9 +5,8 @@ same bad files. Each resolver the port reads from the global config does
 so as the reference does (env > config section > default): the trace's
 ``[trace]``, the pipeline's ``[convert]`` (and ``[compression]
 batch_chunks``), the dict's ``[chunk_dict]``, the native chunker's
-``[compression] vectorized``, and ``[compression] adaptive``, which the
-port refuses with zstd as it refuses ``NTPU_COMPRESS_ADAPTIVE`` (the
-adaptive codec is not ported).
+``[compression] vectorized``, and ``[compression] adaptive``, under
+which both packages pack zstd through their adaptive codec.
 """
 
 import dataclasses
@@ -26,9 +25,9 @@ from nydus_snapshotter_tpu.parallel import dict_service as jds
 from nydus_snapshotter_tpu.parallel import pipeline as jpl
 from nydus_snapshotter_tpu_torch import trace as ttrace
 from nydus_snapshotter_tpu_torch.config import config as tcfg
-from nydus_snapshotter_tpu_torch.converter import ConvertError, PackOption, pack_layer
+from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
 from nydus_snapshotter_tpu_torch.converter.batch import BatchConverter
-from nydus_snapshotter_tpu_torch.converter.pack import adaptive_codec_requested
+from nydus_snapshotter_tpu_torch.converter import codec as tcodec
 from nydus_snapshotter_tpu_torch.ops import native_cdc as tnative
 from nydus_snapshotter_tpu_torch.parallel import dict_service as tds
 from nydus_snapshotter_tpu_torch.parallel import pipeline as tpl
@@ -189,23 +188,28 @@ def _tar() -> bytes:
 
 
 @pytest.mark.skipif(not zstd_native.available(), reason="the system libzstd is not bound")
-def test_adaptive_config_refused_as_env(toml, monkeypatch):
-    """``[compression] adaptive = true`` makes the reference pack zstd
-    through its adaptive codec; the port refuses it as it refuses
-    ``NTPU_COMPRESS_ADAPTIVE=1``, and the env var still wins."""
+def test_adaptive_config_packs_reference_bytes_env_wins(toml, monkeypatch):
+    """``[compression] adaptive = true`` makes both packages pack zstd
+    through their adaptive codec, to the same bytes as
+    ``NTPU_COMPRESS_ADAPTIVE=1``; the env var still wins when it says 0."""
     from nydus_snapshotter_tpu.converter import codec as jcodec
+    from nydus_snapshotter_tpu.converter.convert import pack_layer as j_pack_layer
 
+    monkeypatch.delenv("NTPU_COMPRESS_ADAPTIVE", raising=False)
     _both_global(toml)
-    opt = PackOption(compressor="zstd", chunk_size=0x4000, backend="hybrid")
+    kw = dict(compressor="zstd", chunk_size=0x4000, backend="hybrid")
+    opt = PackOption(**kw)
     assert jcodec.resolve_codec(JPackOption(compressor="zstd")) is not None
-    assert adaptive_codec_requested(opt)
-    with pytest.raises(ConvertError, match="adaptive codec"):
-        pack_layer(_tar(), opt, device="cpu")
-    with pytest.raises(ConvertError, match="adaptive codec"):
-        BatchConverter(opt, device="cpu")
+    assert tcodec.resolve_codec(opt) is not None
+    adaptive, res = pack_layer(_tar(), opt, device="cpu")
+    want, jres = j_pack_layer(_tar(), JPackOption(**kw))
+    assert adaptive == want and res.bootstrap == jres.bootstrap
+    monkeypatch.setenv("NTPU_DICT_SERVICE", "")  # the toml's service is not running
+    assert BatchConverter(opt, device="cpu").codec is not None
     pack_layer(_tar(), PackOption(compressor="lz4_block", chunk_size=0x4000, backend="hybrid"),
                device="cpu")
     monkeypatch.setenv("NTPU_COMPRESS_ADAPTIVE", "0")
-    assert not adaptive_codec_requested(opt)
+    assert tcodec.resolve_codec(opt) is None
     assert jcodec.resolve_codec(JPackOption(compressor="zstd")) is None
-    pack_layer(_tar(), opt, device="cpu")
+    fixed, _res = pack_layer(_tar(), opt, device="cpu")
+    assert fixed == j_pack_layer(_tar(), JPackOption(**kw))[0] and fixed != adaptive

@@ -498,13 +498,43 @@ class TestBlobReader:
             with pytest.raises(ConvertError, match="not ported"):
                 mount(object())
 
-    def test_encrypted_blob_refused(self):
-        with pytest.raises(ConvertError, match="encrypted"):
-            convert.make_bytes_reader(self._one_chunk_bootstrap(0, cipher=True), 0, b"")
+    def test_encrypted_blob_reads_back_as_reference(self):
+        """An AES-256-CTR blob: both readers decrypt the raw range before
+        decompressing, to the same bytes."""
+        from nydus_snapshotter_tpu.models.bootstrap import Bootstrap as JBootstrap
+        from nydus_snapshotter_tpu_torch.converter import crypto
 
-    def test_trained_zstd_frame_refused(self):
-        frame = convert.TRAINED_FRAME_MAGIC + b"\1\0\0\0" + b"\0" * 16
-        with pytest.raises(JConvertError):
+        bs = self._one_chunk_bootstrap(constants.COMPRESSOR_NONE, cipher=True)
+        blob = crypto.encrypt(b"abc" * 100, b"k" * 32, b"i" * 16)
+        assert blob != b"abc" * 100
+        got = convert.make_bytes_reader(bs, 0, blob).chunk_data(bs.chunks[0])
+        jbs = JBootstrap.from_bytes(bs.to_bytes())
+        assert got == b"abc" * 100 == jconv.make_bytes_reader(jbs, 0, blob).chunk_data(jbs.chunks[0])
+
+    def test_trained_zstd_frame_decodes_with_its_dict(self):
+        """An ``nZD1`` frame: without its dictionary both packages raise,
+        naming the id; once each has registered the dictionary both decode
+        a frame the port's codec made."""
+        from nydus_snapshotter_tpu.converter import codec as jcodec
+        from nydus_snapshotter_tpu_torch.converter import codec
+        from nydus_snapshotter_tpu_torch.utils import zstd
+
+        frame = codec.TRAINED_FRAME_MAGIC + b"\1\0\0\0" + b"\0" * 16
+        with pytest.raises(JConvertError, match="id=1 "):
             jconv._decompress_chunk(frame, constants.COMPRESSOR_ZSTD, 10)
-        with pytest.raises(ConvertError, match="adaptive codec"):
+        with pytest.raises(ConvertError, match="id=1 "):
             convert._decompress_chunk(frame, constants.COMPRESSOR_ZSTD, 10)
+        if not zstd.dict_support():
+            return
+        samples = [(b"word%d " % (i % 97)) * (40 + i % 13) for i in range(200)]
+        td = codec.TrainedDict(zstd.train_dict(samples, 8 << 10), epoch=1)
+        c = codec.AdaptiveCodec(codec.CodecConfig(adaptive=True), trained=td)
+        data = b"word7 word11 " * 600
+        payload, flag = c.encode(data)
+        try:
+            jcodec.register_trained_dict(jcodec.TrainedDict(td.bytes, epoch=1))
+            assert convert._decompress_chunk(payload, flag, len(data)) == data
+            assert jconv._decompress_chunk(payload, flag, len(data)) == data
+        finally:
+            codec.unregister_trained_dict(td.dict_id)
+            jcodec.unregister_trained_dict(td.dict_id)

@@ -22,6 +22,7 @@ from nydus_snapshotter_tpu.models.bootstrap import Bootstrap as JBootstrap
 from nydus_snapshotter_tpu.parallel import dict_service as jds
 from nydus_snapshotter_tpu.parallel.sharded_dict import DictEpochError as JDictEpochError
 from nydus_snapshotter_tpu.parallel.sharded_dict import ShardedChunkDict as JDict
+from nydus_snapshotter_tpu_torch.converter import codec
 from nydus_snapshotter_tpu_torch.converter import ConvertError, PackOption, pack_layer
 from nydus_snapshotter_tpu_torch.converter.batch import GrowingChunkDict
 from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap, ChunkDict
@@ -163,7 +164,8 @@ class TestServiceRPC:
         assert cli.get_zdict("z") is None
         zbytes = (0xEC30A437).to_bytes(4, "little") + (77).to_bytes(4, "little") + b"\x01" * 64
         blob = TrainedDict(zbytes, epoch=3).serialize()
-        assert pds.parse_trained_dict(blob) == (77, 3)
+        td = codec.TrainedDict.deserialize(blob)
+        assert (td.dict_id, td.epoch) == (77, 3)
         assert cli.put_zdict(blob, "z")["zdict_epoch"] == 3
         older = TrainedDict(zbytes, epoch=2).serialize()
         assert cli.put_zdict(older, "z")["zdict_epoch"] == 3  # highest epoch wins

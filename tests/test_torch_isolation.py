@@ -130,6 +130,43 @@ _CHILD = textwrap.dedent(
         raise AssertionError("converter.pack did not fire")
     except OSError:
         pass
+    failpoint.clear()
+    # the adaptive codec (a trained dictionary's nZD1 frames read back), the
+    # blob cipher, and the bootstrap-layer encryption with its content store
+    from nydus_snapshotter_tpu_torch.converter import codec, content, crypto
+    from nydus_snapshotter_tpu_torch.encryption import decrypt_layer, encrypt_layer
+    from nydus_snapshotter_tpu_torch.remote.registry import Descriptor
+    from nydus_snapshotter_tpu_torch.utils import zstd
+    text = b" ".join(b"w%d" % (i % 89) for i in range(20_000))
+    words = io.BytesIO()
+    with tarfile.open(fileobj=words, mode="w") as tf:
+        ti = tarfile.TarInfo("t"); ti.size = len(text); tf.addfile(ti, io.BytesIO(text))
+    td = codec.TrainedDict(zstd.train_dict([text[i:i + 2000] for i in range(0, len(text), 2000)],
+                                           8 << 10), epoch=1)
+    c = codec.AdaptiveCodec(codec.CodecConfig(adaptive=True), trained=td)
+    for opt in (PackOption(chunk_size=0x1000, compressor="zstd", backend="fused"),
+                PackOption(chunk_size=0x1000, compressor="zstd", backend="fused", encrypt=True)):
+        blob, res = pack_layer(words.getvalue(), opt, device="cpu", codec=c)
+        assert res.route["writer"] == "serial"
+        out = Unpack(res.bootstrap, {res.blob_id: convert.blob_data_from_layer_blob(blob)})
+        assert tarfile.open(fileobj=io.BytesIO(out)).extractfile("t").read() == text
+    assert c.stats()["counts"]["default"] > 0
+    from cryptography.hazmat.primitives import serialization
+    from cryptography.hazmat.primitives.asymmetric import rsa
+    key = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+    priv = key.private_bytes(serialization.Encoding.PEM, serialization.PrivateFormat.PKCS8,
+                             serialization.NoEncryption())
+    pub = key.public_key().public_bytes(serialization.Encoding.PEM,
+                                        serialization.PublicFormat.SubjectPublicKeyInfo)
+    with tempfile.TemporaryDirectory() as t:
+        cs = content.LocalContentStore(t)
+        info = cs.write_blob(blob)
+        desc = Descriptor(media_type="application/vnd.oci.image.layer.v1.tar", digest=info.digest,
+                          size=info.size)
+        enc_desc, ct = encrypt_layer(blob, desc, [pub])
+        assert decrypt_layer(ct, enc_desc, [priv])[1] == blob
+    assert crypto.decrypt_range(crypto.encrypt(text, b"k" * 32, b"i" * 16)[5:9], 5, b"k" * 32,
+                                b"i" * 16) == text[5:9]
     fwd, args = entry.entry(device="cpu")
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
@@ -211,6 +248,12 @@ def test_main_path_imports_neither_jax_nor_reference():
     assert "LEAKED []" in proc.stdout
 
 
+def _adaptive():
+    from nydus_snapshotter_tpu_torch.converter import codec
+
+    return codec.AdaptiveCodec(codec.CodecConfig(adaptive=True))
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -232,12 +275,15 @@ def test_main_path_imports_neither_jax_nor_reference():
         lambda: dict_service.DictService(),
         lambda: BatchConverter(PackOption()).convert_image("i", [b""]),
         lambda: BatchConverter(PackOption()).convert_image("i", [b"", b""]),
+        lambda: pack_layer(b"", PackOption(encrypt=True)),
+        lambda: pack_layer(b"", PackOption(compressor="zstd"), codec=_adaptive()),
+        lambda: BatchConverter(PackOption(compressor="zstd"), codec=_adaptive()).convert_image("i", [b""]),
     ],
     ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
          "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
          "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3",
          "pack_layer_jax_zstd", "dict_load", "dict_service", "batch_one_layer",
-         "batch_fanout"],
+         "batch_fanout", "pack_layer_encrypt", "pack_layer_adaptive", "batch_adaptive"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():

@@ -523,7 +523,6 @@ class TestPackOptions:
         "kw",
         [
             pytest.param({"digester": "md5"}, id="kw5"),
-            pytest.param({"encrypt": True}, id="kw7"),
             pytest.param({"chunk_dict_path": "/nonexistent"}, id="kw10"),
             pytest.param({"chunk_dict_path": "service+ha:///run/ctl.sock"}, id="service_ha"),
             pytest.param({"chunk_dict_path": "service:///run/a.sock|/run/b.sock#ns"},
@@ -551,12 +550,12 @@ class TestPackOptions:
     @pytest.mark.skipif(not native_pack.zstd_native.available(),
                         reason="the system libzstd is not bound")
     @pytest.mark.parametrize("backend", BACKENDS)
-    def test_adaptive_codec_setting_refused(self, monkeypatch, backend):
-        """Under NTPU_COMPRESS_ADAPTIVE=1 the reference packs zstd through its
-        adaptive codec (converter/codec.resolve_codec), whose blob differs
-        from its fixed-level one; the port has no such codec and refuses the
-        setting instead of packing the fixed-level bytes. lz4_block is not
-        the codec's: both pack as usual."""
+    def test_adaptive_codec_setting_packs_reference_bytes(self, monkeypatch, backend):
+        """Under NTPU_COMPRESS_ADAPTIVE=1 both packages pack zstd through
+        their adaptive codec (converter/codec.resolve_codec), whose blob
+        differs from the fixed-level one, on the serial section writer;
+        every lane gives the reference's bytes. lz4_block is not the codec's:
+        both pack as usual."""
         rng = np.random.default_rng(11)
         buf = io.BytesIO()
         with tarfile.open(fileobj=buf, mode="w") as tf:
@@ -571,10 +570,8 @@ class TestPackOptions:
         monkeypatch.setenv("NTPU_COMPRESS_ADAPTIVE", "0")
         fixed_blob, _r = _pack_both(tar, backend, **opt)
         monkeypatch.setenv("NTPU_COMPRESS_ADAPTIVE", "1")
-        adaptive_blob, _jr = j_pack_layer(tar, JPackOption(backend=backend, **opt))
-        assert adaptive_blob != fixed_blob
-        with pytest.raises(ConvertError, match="adaptive codec"):
-            pack_layer(tar, PackOption(backend=backend, **opt), device="cpu")
+        adaptive_blob, res = _pack_both(tar, backend, **opt)
+        assert adaptive_blob != fixed_blob and res.route["writer"] == "serial"
         _pack_both(tar, backend, compressor="lz4_block", **SMALL)
 
 

@@ -60,7 +60,8 @@ PKG = {
 PORTED_SITES = {
     "converter.pack", "pipeline.chunk", "pipeline.queue", "pipeline.compress",
     "pipeline.assemble", "fused.dispatch", "dict.insert", "dict.rebuild", "dict.rpc",
-    "dict.shard", "chunk.vec",
+    "dict.shard", "chunk.vec", "compress.probe", "compress.train", "compress.encode",
+    "compress.batch",
 }
 
 
@@ -219,7 +220,7 @@ def test_catalog_equal_and_ported_sites_wired():
     assert wired == PORTED_SITES
     assert PORTED_SITES <= set(tfp.KNOWN_SITES)
     not_ported = set(tfp.KNOWN_SITES) - PORTED_SITES
-    assert "transport.fetch_blob" in not_ported and "compress.encode" in not_ported
+    assert "transport.fetch_blob" in not_ported and "ha.replicate" in not_ported
 
 
 def _drive_pack(pkg):
@@ -282,6 +283,46 @@ def _drive_shard(pkg, tmp_path):
             s.stop()
 
 
+def _codec_mod(pkg):
+    from nydus_snapshotter_tpu.converter import codec as jcodec
+    from nydus_snapshotter_tpu_torch.converter import codec as tcodec
+
+    return tcodec if pkg == "port" else jcodec
+
+
+def _codec(pkg, **kw):
+    mod = _codec_mod(pkg)
+    return mod.AdaptiveCodec(mod.CodecConfig(adaptive=True, **kw))
+
+
+def _drive_probe(pkg):
+    c = _codec(pkg)
+    c.encode(np.random.default_rng(7).integers(0, 256, 32 << 10, dtype=np.uint8).tobytes())
+    if c.counts["fallback"]:  # the probe's failure degrades, it does not raise
+        raise OSError("site-chaos: the probe fell back to always-compress")
+
+
+def _drive_train(pkg):
+    c = _codec(pkg, train=True, train_sample_mib=1, train_dict_kib=16)
+    c.attach_trainer()
+    rng = np.random.default_rng(8)
+    words = [bytes(rng.integers(97, 123, 6, dtype=np.uint8)) for _ in range(300)]
+    for _ in range(60):
+        c.encode(b" ".join(words[int(k)] for k in rng.integers(0, 300, 3000)))
+    td = c.maybe_train(force=True)
+    if td is None:  # a failed training degrades, it does not raise
+        raise OSError("site-chaos: training fell back to untrained")
+    _codec_mod(pkg).unregister_trained_dict(td.dict_id)  # the registry is process-wide
+
+
+def _drive_encode(pkg):
+    return _codec(pkg).encode(b"x" * 8192)
+
+
+def _drive_batch(pkg):
+    return _codec(pkg).encode_batch([b"x" * 8192, b"y" * 9000])
+
+
 DRIVERS = {
     "converter.pack": _drive_pack,
     "pipeline.chunk": _drive_pack,
@@ -294,6 +335,10 @@ DRIVERS = {
     "dict.rebuild": _drive_rebuild,
     "dict.rpc": _drive_rpc,
     "dict.shard": _drive_shard,
+    "compress.probe": _drive_probe,
+    "compress.train": _drive_train,
+    "compress.encode": _drive_encode,
+    "compress.batch": _drive_batch,
 }
 
 
