@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, measure.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only   # phases 0-3 and 15 alone, on every visible card
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -237,6 +238,25 @@ Phases (any failure exits non-zero; nothing is caught):
    300 random files read through ``BlobReader`` equals the tar's bytes, and
    ``Unpack`` equals the tar's tree; if not, ``Pack(encrypt=True)`` raises
    ``CryptoError`` and writes nothing.
+15. mesh — the device mesh on 8 logical shards of the card
+   (``make_mesh(8, devices=["cuda:0"] * 8)``; shard-to-shard copies stay
+   on the card). Phase 2's 2^23 dict digests built into an 8-shard
+   ``ShardedChunkDict``, saved, and loaded back onto one shard (rebuilt),
+   where it answers phase 5's queries as phase 2's dict did (the twin the
+   mesh lookups are timed against: phase 11 grows phase 2's own dict).
+   Phase 5's queries through the routed ``lookup_u32`` (K3 once per shard,
+   answers equal phase 5's; median of 3 beside the one-shard twin's, and
+   the host dedup alone), the dense probe (K3 once per shard, equal), and
+   ``dryrun_multichip``'s skewed queries (the routed buckets overflow; the
+   dense fallback, K3 twice per shard in all, equals the host probe).
+   ``dryrun_multichip(8)`` on the logical shards. ``sharded_convert_step``
+   over phase 2's layer: the extent arm (checked: cuts and digests equal
+   phase 2's, K1 once and K2 once per capacity class per shard, no shard
+   above its byte shard plus halo; timed once with its stage split; the
+   card's busy ms under torch.profiler) and the replicated arm (checked,
+   the same bootstrap). Then the same checks on ``make_mesh()``, every
+   visible card (one on a one-card machine; K1 splits at the launch
+   grid's 65535 rows there).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -2998,9 +3018,213 @@ def codec_cipher_phase(dev, tar, files, comp, kernels) -> dict:
     return out
 
 
+MESH_SHARDS = 8  # phase 15's logical mesh: this many shards on the one card
+
+
+def mesh_phase(dev, files, res, digests, q_all, answers, kernels) -> dict:
+    """Phase 15: the device mesh. Phase 2's dict digests and layer over
+    ``MESH_SHARDS`` logical shards on the card, then over ``make_mesh()``
+    (every visible card). ``answers`` are phase 5's K3 answers (index + 1)
+    to ``q_all``, phase 2's chunk digests, from phase 2's dict before
+    phase 11 grew it."""
+    import tempfile
+
+    import torch
+
+    from nydus_snapshotter_tpu_torch import entry
+    from nydus_snapshotter_tpu_torch.parallel import mesh as mesh_lib
+    from nydus_snapshotter_tpu_torch.parallel import sharded_dict
+
+    t_phase = time.perf_counter()
+    n = MESH_SHARDS
+    logical = mesh_lib.make_mesh(n, devices=[dev] * n)
+    want = answers.astype(np.int64) - 1
+    out: dict = {"shards": n, "launches": {}}
+
+    def counted(key: str, fn):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"][key] = {name: k.launches for name, k in kernels.items()}
+        return got, wall
+
+    # -- the dict over the logical mesh: build, save, reload onto one shard --
+    t0 = time.perf_counter()
+    md = sharded_dict.ShardedChunkDict(digests, logical)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "mesh.dict")
+        t0 = time.perf_counter()
+        md.save(path)
+        save_s = time.perf_counter() - t0
+        file_mib = Path(path).stat().st_size / 2**20
+        t0 = time.perf_counter()
+        one = sharded_dict.ShardedChunkDict.load(path, device=dev)
+        load_s = time.perf_counter() - t0
+    # the one-shard twin: phase 2's dict as it was before phase 11 grew it
+    if not np.array_equal(one.lookup_u32(q_all), want):
+        raise AssertionError("the 8-shard file reloaded onto one shard answers unlike phase 2's dict")
+    keys1, values1, depth1, _e = one.fused_probe_tables()
+    log(f"[15] dict: phase 2's {len(digests)} digests on {n} logical shards of {dev}: capacity "
+        f"{md.capacity} a shard ({md.capacity * n * 36 / 2**30:.3f} GiB of tables), max chain "
+        f"{md.max_depth}, built in {build_s:.1f} s; saved ({file_mib:.0f} MiB) in {save_s:.2f} s; "
+        f"loaded onto one shard (rebuilt) in {load_s:.1f} s, answers == phase 5's")
+
+    # -- the routed probe: phase 5's queries, K3 once a shard -------------
+    _shards, _cap, _depth = md.device_shards()  # stage the 8 padded copies
+    got, routed_first = counted("routed_lookup", lambda: md.lookup_u32(q_all))
+    if not np.array_equal(got, want):
+        raise AssertionError("the routed lookup_u32 answers differ from phase 5's")
+    if out["launches"]["routed_lookup"]["probe"] != n:
+        raise AssertionError(f"routed lookup_u32 launched K3 {out['launches']['routed_lookup']} times")
+    routed, single = [], []
+    for _ in range(3):
+        routed.append(host_timed(lambda: md.lookup_u32(q_all))[0])
+        single.append(host_timed(lambda: one.lookup_u32(q_all))[0])
+    void = np.ascontiguousarray(q_all).view(np.dtype((np.void, 32)))[:, 0]
+    dedup = []  # the host dedup inside the routed lookup_u32, alone
+    for _ in range(3):
+        dedup.append(host_timed(lambda: np.unique(void, return_index=True, return_inverse=True))[0])
+    uniq = np.unique(void)
+    uq = entry._pad_rows(uniq.view(np.uint32).reshape(-1, 8), n)
+    shards, cap, depth = md.device_shards()
+    tk, tv = [k for k, _ in shards], [v for _, v in shards]
+    qs = mesh_lib.shard_rows(uq.view(np.int32), logical)
+    dense, _w = counted("dense", lambda: sharded_dict._probe_sharded(tk, tv, qs, n, logical, depth, cap))
+    if out["launches"]["dense"]["probe"] != n:
+        raise AssertionError("the dense probe must launch K3 once a shard")
+    routed_a, over = sharded_dict._probe_routed(tk, tv, qs, n, logical, depth, cap)
+    if over.any() or not torch.equal(dense, routed_a):
+        raise AssertionError("the dense probe differs from the routed probe")
+    want_u = one.lookup_u32(uq)
+    if not np.array_equal(dense.cpu().numpy().astype(np.int64) - 1, want_u):
+        raise AssertionError("the dense probe's answers differ from phase 2's dict")
+
+    # -- dryrun_multichip's skew: every query owned by shard 0 -------------
+    hits = digests[digests[:, 0] % np.uint32(n) == 0][:192]
+    misses = np.random.default_rng(SEED + 15).integers(0, 2**32, (384 - len(hits), 8), dtype=np.uint32)
+    misses[:, 0] -= misses[:, 0] % np.uint32(n)
+    skewed = np.concatenate([hits, misses])
+    _a, over = sharded_dict._probe_routed(
+        tk, tv, mesh_lib.shard_rows(skewed.view(np.int32), logical), n, logical, depth, cap)
+    if not over.any():
+        raise AssertionError("skewed queries did not overflow the routed buckets")
+    got, _w = counted("skewed_lookup", lambda: md.lookup_u32(skewed))
+    host, _rows = host_probe(keys1, values1, skewed, depth1)
+    if not np.array_equal(got, host.astype(np.int64) - 1):
+        raise AssertionError("the dense fallback's answers differ from the host probe")
+    if out["launches"]["skewed_lookup"]["probe"] != 2 * n:
+        raise AssertionError("the skewed lookup must route (K3 x shards) then rerun dense (x shards)")
+    log(f"[15] lookup_u32 of phase 5's {len(q_all)} queries ({len(uniq)} unique) routed over {n} "
+        f"shards: == phase 5's answers, K3 launched {n} times; wall median "
+        f"{np.median(routed) * 1e3:.3f} ms (runs " + ", ".join(f"{x * 1e3:.3f}" for x in routed)
+        + f"; the first, after staging, {routed_first * 1e3:.3f} ms) against the one-shard dict's "
+        f"{np.median(single) * 1e3:.3f} ms (" + ", ".join(f"{x * 1e3:.3f}" for x in single)
+        + f"; the reloaded one-shard twin): {np.median(routed) / np.median(single):.2f}x, of which "
+        f"the host dedup (np.unique of the 32-byte rows) {np.median(dedup) * 1e3:.3f} ms; dense probe ({n} K3 launches) == "
+        f"routed; {len(skewed)} skewed queries overflowed shard 0's buckets, the dense fallback "
+        f"== the host probe ({out['launches']['skewed_lookup']['probe']} K3 launches)")
+    del md, one, shards, tk, tv, qs, dense, routed_a
+    torch.cuda.empty_cache()
+
+    # -- the dry run on the card ---------------------------------------------
+    t0 = time.perf_counter()
+    _none, _w = counted("dryrun", lambda: entry.dryrun_multichip(n, devices=[dev] * n))
+    log(f"[15] dryrun_multichip({n}) on {n} logical shards: passed in {time.perf_counter() - t0:.1f} s; "
+        f"launches {out['launches']['dryrun']}")
+
+    # -- the convert step over phase 2's layer -------------------------------
+    blobs = [f.tobytes() for f in files]
+    want_cuts = res.cuts
+    want_digs = res.digests
+
+    def check(label, got):
+        cuts, digs, _boot = got
+        if not all(np.array_equal(a, b) for a, b in zip(cuts, want_cuts)) or digs != want_digs:
+            raise AssertionError(f"sharded_convert_step ({label}) differs from phase 2's process_many")
+
+    def step(mesh, pack, rep=None, st=None):
+        return entry.sharded_convert_step(blobs, CHUNK_SIZE, mesh.size, mesh, pack=pack,
+                                          report=rep, stats=st)
+
+    rep_e, st_e = {}, {}
+    got, wall_e = counted("convert_extent", lambda: step(logical, "extent", rep_e, st_e))
+    check("extent", got)
+    boot_e = got[2]
+    if rep_e["max_device_bytes"] > rep_e["bound_bytes"]:
+        raise AssertionError("an extent-packed shard holds more than its shard + halo")
+    la = out["launches"]["convert_extent"]
+    if la["gear"] != n or la["sha"] != rep_e["buckets"] * n:
+        raise AssertionError(f"convert step launches {la}: want K1 x {n}, K2 x classes x {n}")
+    st_t = {}
+    wall_t = host_timed(lambda: step(logical, "extent", st=st_t))[0]
+    busy_ms, by_name = device_busy(lambda: step(logical, "extent"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    rep_r = {}
+    got, wall_r = counted("convert_replicated", lambda: step(logical, "replicated", rep_r))
+    check("replicated", got)
+    if got[2] != boot_e:
+        raise AssertionError("the replicated arm's bootstrap differs from the extent arm's")
+    del got
+    torch.cuda.empty_cache()
+    log(f"[15] sharded_convert_step over phase 2's layer ({rep_e['corpus_bytes']} bytes, "
+        f"{sum(len(c) for c in want_cuts)} chunks) on {n} logical shards: cuts and digests == "
+        f"phase 2's, extent and replicated bootstraps equal; extent: {rep_e['buckets']} classes, "
+        f"launches K1 {la['gear']}, K2 {la['sha']}; max shard bytes {rep_e['max_device_bytes']} <= "
+        f"bound {rep_e['bound_bytes']} (shard {rep_e['shard_bytes']} + halo {rep_e['halo_bytes']}); "
+        f"replicated: max shard bytes {rep_r['max_device_bytes']}; walls: extent checked "
+        f"{wall_e:.2f} s, timed {wall_t:.2f} s (" + ", ".join(f"{k} {v:.3f}" for k, v in st_t.items())
+        + f"), replicated {wall_r:.2f} s; the card busy {busy_ms:.1f} ms of an extent step "
+        f"(torch.profiler: kernels and copies; top: "
+        + "; ".join(f"{k[:40]} {v:.1f} ms" for k, v in top) + ")")
+    out.update(build_s=build_s, save_s=save_s, load_s=load_s, file_mib=file_mib,
+               routed_ms=[x * 1e3 for x in routed], dedup_ms=[x * 1e3 for x in dedup],
+               convert_busy_ms=busy_ms, convert_busy_top_ms=dict(top),
+               single_ms=[x * 1e3 for x in single], routed_first_ms=routed_first * 1e3,
+               convert_s={"extent_checked": wall_e, "extent_timed": wall_t, "replicated": wall_r},
+               convert_stages_s=st_t, convert_report=rep_e)
+
+    # -- the real mesh: every visible card -----------------------------------
+    real = mesh_lib.make_mesh()
+    rd = sharded_dict.ShardedChunkDict(digests, real)
+    got, _w = counted("real_lookup", lambda: rd.lookup_u32(q_all))
+    if not np.array_equal(got, want):
+        raise AssertionError("lookup_u32 on make_mesh() differs from phase 5's answers")
+    real_lookup = [host_timed(lambda: rd.lookup_u32(q_all))[0] for _ in range(3)]
+    del rd
+    rep_x, st_x = {}, {}
+    got, wall_x = counted("real_convert", lambda: step(real, "extent", rep_x, st_x))
+    check("make_mesh(), extent", got)
+    if step(real, "replicated")[2] != got[2] or got[2] != boot_e:
+        raise AssertionError("the bootstraps on make_mesh() differ")
+    del got
+    torch.cuda.empty_cache()
+    out.update(real_devices=real.size, real_lookup_ms=[x * 1e3 for x in real_lookup],
+               real_convert_s=wall_x, real_convert_stages_s=st_x)
+    log(f"[15] make_mesh(): {real.size} device(s) {[str(d) for d in real.devices]}: lookup_u32 == "
+        f"phase 5's ({out['launches']['real_lookup']['probe']} K3 launch(es)), wall median "
+        f"{np.median(real_lookup) * 1e3:.3f} ms (" + ", ".join(f"{x * 1e3:.3f}" for x in real_lookup)
+        + f"); the convert step == phase 2's on both arms (launches K1 "
+        f"{out['launches']['real_convert']['gear']}, K2 {out['launches']['real_convert']['sha']}), "
+        f"extent checked run {wall_x:.2f} s (" + ", ".join(f"{k} {v:.3f}" for k, v in st_x.items())
+        + ")" + ("; cross-card copies: none on one card" if real.size == 1 else
+                 f"; shard-to-shard copies cross {real.size} cards"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[15] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    if args not in ([], ["--mesh-only"]):
+        print(f"usage: {sys.argv[0]} [--mesh-only]", file=sys.stderr)
+        return 2
+    mesh_only = args == ["--mesh-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3249,6 +3473,15 @@ def main() -> int:
         f"and {n_edge_q} queries on edge tables at depths {K3_EDGE_DEPTHS} (planted answers "
         f"as expected); {time.perf_counter() - t0:.1f} s")
 
+    if mesh_only:  # phases 0-3, then 15 (every visible card: e.g. a 4-card machine)
+        mesh = mesh_phase(dev, files, res, digests, to_u32(allq), to_u32(k3), kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--mesh-only: phases 0-3 and 15)")
+        print(smi, flush=True)
+        print(json.dumps({"mesh": mesh}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
     tar = layer_tar(FileGen(SEED + 3).pool(PACK_MIB))
@@ -3420,6 +3653,9 @@ def main() -> int:
     # -- 14. codec and cipher: the adaptive zstd codec, blob encryption ---------
     cc = codec_cipher_phase(dev, tar, files, comp, all_kernels)
 
+    # -- 15. the device mesh: the sharded dict and its probes, the sharded step --
+    mesh = mesh_phase(dev, files, res, digests, q_all, to_u32(k3), kernels)
+
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, n_launches=None, **extra):
         return {
@@ -3442,6 +3678,9 @@ def main() -> int:
         return {c: {lane: r[lane]["launches"][key] for lane in ("fused", "jax")}
                 for c, r in comp["codecs"].items()}
 
+    def mesh_launches(key):  # phase 15: per mesh path
+        return {path: counts[key] for path, counts in mesh["launches"].items()}
+
     pkg = "nydus_snapshotter_tpu_torch/csrc/"
     line = {"kernels": [
         row("gear", "gear_bitmaps", pkg + "gear_bitmaps.cu",
@@ -3451,7 +3690,7 @@ def main() -> int:
             pack_jax_launches=lanes["jax"]["launches"]["gear"],
             pack_compressed_launches=comp_launches("gear"),
             image_batch_launches=images["launches"]["gear"], image_batch_layers=images["layers"],
-            codec_cipher_launches=cc_launches("gear"),
+            codec_cipher_launches=cc_launches("gear"), mesh_launches=mesh_launches("gear"),
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -3465,7 +3704,7 @@ def main() -> int:
             pack_jax_launches=lanes["jax"]["launches"]["sha"],
             pack_compressed_launches=comp_launches("sha"),
             image_batch_launches=images["launches"]["sha"], image_batch_layers=images["layers"],
-            codec_cipher_launches=cc_launches("sha"),
+            codec_cipher_launches=cc_launches("sha"), mesh_launches=mesh_launches("sha"),
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -3476,7 +3715,9 @@ def main() -> int:
             growth_launches_per_lookup=growth["launches_per_lookup"],
             service_probe_launches=service["probe_launches"],
             fused_after_insert_launches=fused_grown["launches"]["probe"],
-            growth=growth, service=service, fused_after_insert=fused_grown),
+            mesh_launches=mesh_launches("probe"),
+            growth=growth, service=service, fused_after_insert=fused_grown,
+            mesh={k: v for k, v in mesh.items() if k != "launches"}),
         row(None, "blake3_chunks", pkg + "blake3.cu",
             "nydus_snapshotter_tpu/ops/blake3_jax.py:214", b3["max_abs_err"],
             b3["kernel_ms"], b3["call_ms"], b3["plain_ms"], b3["bound"], b3["kernel_ms"],

@@ -30,7 +30,7 @@ KERNEL = cuda_build.Kernel(
     ],
 )
 
-_MAX_ROWS = 65535  # grid.y limit
+MAX_ROWS = 65535  # grid.y limit
 
 
 def gear_bitmaps_plain(x: torch.Tensor, mask_s: int, mask_l: int, n: int):
@@ -54,8 +54,8 @@ def gear_bitmaps(x: torch.Tensor, mask_s: int, mask_l: int, n: int):
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     rows = x.shape[0]
-    if rows > _MAX_ROWS:
-        raise ValueError(f"{rows} rows exceed the launch grid ({_MAX_ROWS})")
+    if rows > MAX_ROWS:
+        raise ValueError(f"{rows} rows exceed the launch grid ({MAX_ROWS})")
     out_s = torch.empty((rows, n // 32), dtype=torch.int32, device=x.device)
     out_l = torch.empty((rows, n // 32), dtype=torch.int32, device=x.device)
     if rows and n:

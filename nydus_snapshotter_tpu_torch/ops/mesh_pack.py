@@ -1,0 +1,254 @@
+"""Extent-packed per-shard buffers for the sharded convert step.
+
+Port of the reference's ops/mesh_pack.py: the host-side planner that keeps
+pass 2 from handing every shard the whole corpus.
+
+- The corpus is split into ``n_devices`` contiguous **byte shards** of
+  ``shard_bytes = ceil(total / n)`` bytes; a chunk belongs to the shard
+  that owns its first byte.
+- Each shard's packed buffer is its byte shard plus a **halo**: a pass-2
+  digest reads ``cap_blocks * block_bytes`` bytes from each chunk start,
+  so a chunk cut right before a shard boundary reads into the next shard.
+  The halo is the engine's maximum read span, so no read ever leaves the
+  slab.
+- Every pass-2 bucket is re-partitioned so each shard's rows sit in one
+  contiguous block of the leading axis, padded per shard to a uniform
+  ``rows_per_device``. Offsets are rebased to the packed buffer
+  (``local``) with the absolute offset kept, so the replicated arm runs
+  the identical partition.
+
+Identity argument: a chunk's digest reads ``packed[d, off - d*S : off -
+d*S + size]``, which equals ``buf[off : off + size]`` by construction;
+bytes past ``size`` never reach a digest. Padding rows read from local
+offset 0 with size 0 and are discarded on assembly.
+
+The no-replication gate counts the operand's bytes per shard, keyed by
+shard position and device: a logical mesh that puts several shards on
+one card still reports each shard's bytes apart.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from nydus_snapshotter_tpu_torch.config.config import global_section
+
+BLOCK_BYTES = 64  # SHA-256 block: pass-2 read span = cap_blocks * 64
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+@dataclass(frozen=True)
+class ShardedBucket:
+    """One pass-2 capacity class re-partitioned into per-device blocks.
+
+    ``offsets_local``/``offsets_abs``/``sizes`` are ``i32[n_devices *
+    rows_per_device]``; device d owns rows ``[d*rows_per_device, (d+1)*
+    rows_per_device)`` with ``counts[d]`` live rows first (padding rows
+    have size 0, offset 0, and are discarded on assembly).
+    """
+
+    cap_blocks: int
+    offsets_local: np.ndarray  # i32[N] offsets into the per-device packed buffer
+    offsets_abs: np.ndarray  # i32[N] absolute offsets into the concat corpus
+    sizes: np.ndarray  # i32[N]
+    rows_per_device: int
+    counts: tuple[int, ...]  # live rows per device
+
+
+@dataclass(frozen=True)
+class MeshPackPlan:
+    """Host-side packing plan for one sharded convert batch."""
+
+    n_devices: int
+    total_bytes: int  # valid corpus bytes (pre-padding)
+    shard_bytes: int  # S: contiguous corpus bytes owned per device
+    halo_bytes: int  # read-span halo appended to every shard
+    pack_len: int  # uniform per-device packed buffer length (S + halo)
+    buckets: list[ShardedBucket]
+    order: list[tuple[int, int]] = field(default_factory=list)
+    # (cap_blocks, flat row) per chunk in stream order — scatter-back map
+
+    @property
+    def bound_bytes(self) -> int:
+        """The no-replication gate: per-device addressable corpus bytes
+        must not exceed corpus/devices + halo."""
+        return self.shard_bytes + self.halo_bytes
+
+    def device_of(self, offset: int) -> int:
+        return min(offset // self.shard_bytes, self.n_devices - 1)
+
+
+def max_read_span(params, block_bytes: int = BLOCK_BYTES) -> int:
+    """Largest pass-2 gather span for a CDC parameterization: the padded
+    block count of a max-size chunk times the digest block width."""
+    from nydus_snapshotter_tpu_torch.ops import sha256
+
+    return sha256.n_padded_blocks(params.max_size) * block_bytes
+
+
+def plan_mesh_pack(
+    buckets,
+    order,
+    total: int,
+    n_devices: int,
+    halo_bytes: int | None = None,
+    block_bytes: int = BLOCK_BYTES,
+) -> MeshPackPlan:
+    """Re-partition a ``FusedDeviceEngine.plan_buckets`` result onto an
+    ``n_devices`` byte-shard mesh.
+
+    ``buckets``/``order`` come straight from ``plan_buckets`` (absolute
+    offsets, pow2-padded live prefixes). ``halo_bytes`` defaults to the
+    largest read span any bucket in the batch can issue; passing the
+    engine-level ``max_read_span`` keeps the plan shape independent of
+    which classes a particular corpus happened to produce.
+    """
+    if n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    total = max(0, int(total))
+    shard = max(1, -(-total // n_devices)) if total else 1
+    max_span = max(
+        (b.cap_blocks * block_bytes for b in buckets), default=block_bytes
+    )
+    halo = max_span if halo_bytes is None else max(int(halo_bytes), max_span)
+    pack_len = shard + halo
+
+    sharded: list[ShardedBucket] = []
+    remap: dict[int, np.ndarray] = {}  # cap -> old live row -> new flat row
+    for b in buckets:
+        live = b.count
+        offs = np.asarray(b.offsets[:live], dtype=np.int64)
+        sizes = np.asarray(b.sizes[:live], dtype=np.int64)
+        dev = np.minimum(offs // shard, n_devices - 1).astype(np.int64)
+        if live and (np.diff(dev) < 0).any():
+            # plan_buckets appends rows in stream order, so offsets (and
+            # thus devices) ascend; a violation means the caller handed a
+            # reordered bucket and the contiguous-block layout below
+            # would silently scramble the per-shard partition.
+            raise ValueError("bucket rows are not offset-ordered")
+        counts = np.bincount(dev, minlength=n_devices).astype(np.int64)
+        m_dev = _pow2_ceil(int(counts.max())) if live else 1
+        n_rows = n_devices * m_dev
+        loc = np.zeros(n_rows, dtype=np.int32)
+        abso = np.zeros(n_rows, dtype=np.int32)
+        szs = np.zeros(n_rows, dtype=np.int32)
+        base = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        idx_in_dev = np.arange(live) - base[dev]
+        rows = dev * m_dev + idx_in_dev
+        local = offs - dev * shard
+        if live:
+            if local.min() < 0 or (local + b.cap_blocks * block_bytes).max() > pack_len:
+                raise AssertionError(
+                    "extent plan would clamp a gather: local offset span "
+                    f"[{local.min()}, {(local + b.cap_blocks * block_bytes).max()}] "
+                    f"outside pack_len {pack_len}"
+                )
+            loc[rows] = local
+            abso[rows] = offs
+            szs[rows] = sizes
+        sharded.append(
+            ShardedBucket(
+                cap_blocks=b.cap_blocks,
+                offsets_local=loc,
+                offsets_abs=abso,
+                sizes=szs,
+                rows_per_device=m_dev,
+                counts=tuple(int(c) for c in counts),
+            )
+        )
+        remap[b.cap_blocks] = np.asarray(rows, dtype=np.int64)
+
+    # old order rows index the live prefix of each bucket in append order
+    seen: dict[int, int] = {}
+    new_order: list[tuple[int, int]] = []
+    for cap, _old_row in order:
+        i = seen.get(cap, 0)
+        seen[cap] = i + 1
+        new_order.append((cap, int(remap[cap][i])))
+    return MeshPackPlan(
+        n_devices=n_devices,
+        total_bytes=total,
+        shard_bytes=shard,
+        halo_bytes=halo,
+        pack_len=pack_len,
+        buckets=sharded,
+        order=new_order,
+    )
+
+
+def pack_buffers(buf: np.ndarray, plan: MeshPackPlan) -> np.ndarray:
+    """``u8[n_devices, pack_len]``: each row is that device's byte shard
+    plus halo, zero-padded past the corpus tail."""
+    buf = np.asarray(buf, dtype=np.uint8).reshape(-1)
+    out = np.zeros((plan.n_devices, plan.pack_len), dtype=np.uint8)
+    for d in range(plan.n_devices):
+        lo = d * plan.shard_bytes
+        hi = min(lo + plan.pack_len, plan.total_bytes, buf.size)
+        if hi > lo:
+            out[d, : hi - lo] = buf[lo:hi]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# No-replication gate helpers
+# ---------------------------------------------------------------------------
+
+
+def addressable_bytes_per_device(parts) -> dict[str, int]:
+    """Bytes of a sharded operand (one tensor per shard) resident on each
+    shard, keyed ``"<shard>:<device>"``."""
+    return {
+        f"{i}:{t.device}": int(t.numel()) * t.element_size() for i, t in enumerate(parts)
+    }
+
+
+def assert_extent_packed(parts, plan: MeshPackPlan) -> dict[str, int]:
+    """The addressable-bytes gate: no shard may hold more corpus bytes
+    than its byte shard plus the halo. Returns the per-shard byte map so
+    harnesses can record the evidence they gated on."""
+    per_dev = addressable_bytes_per_device(parts)
+    for dev, nbytes in per_dev.items():
+        if nbytes > plan.bound_bytes:
+            raise AssertionError(
+                f"operand replicated: shard {dev} holds {nbytes} bytes "
+                f"> corpus/devices + halo = {plan.bound_bytes}"
+            )
+    return per_dev
+
+
+# ---------------------------------------------------------------------------
+# [mesh] config resolution
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshRuntimeConfig:
+    pack: str = "extent"  # extent | replicated
+    devices: int = 0  # 0 = every local device
+    halo_kib: int = 0  # 0 = auto (engine max read span)
+
+
+def resolve_mesh_config() -> MeshRuntimeConfig:
+    """``NTPU_MESH*`` env > ``[mesh]`` config > defaults (the same
+    precedence every other section uses)."""
+    mc = global_section("mesh")
+    pack = os.environ.get("NTPU_MESH_PACK", "") or getattr(mc, "pack", "") or "extent"
+    if pack not in ("extent", "replicated"):
+        pack = "extent"
+
+    def _env_int(name: str, fallback: int) -> int:
+        try:
+            v = int(os.environ.get(name, ""))
+            return v if v >= 0 else fallback
+        except ValueError:
+            return fallback
+
+    devices = _env_int("NTPU_MESH_DEVICES", int(getattr(mc, "devices", 0) or 0))
+    halo_kib = _env_int("NTPU_MESH_HALO_KIB", int(getattr(mc, "halo_kib", 0) or 0))
+    return MeshRuntimeConfig(pack=pack, devices=max(0, devices), halo_kib=max(0, halo_kib))

@@ -1,1 +1,1 @@
-"""Chunk-dict state (single shard in this slice)."""
+"""The device mesh, the sharded chunk dict and its service, the pipeline, the multi-host rendezvous."""

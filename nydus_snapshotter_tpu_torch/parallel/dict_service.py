@@ -5,12 +5,14 @@ to converters over a unix socket (``service://``).
   :class:`~nydus_snapshotter_tpu_torch.converter.batch.GrowingChunkDict`
   bootstrap holding the chunk/blob/batch/cipher tables — with a
   :class:`~nydus_snapshotter_tpu_torch.parallel.sharded_dict.ShardedChunkDict`
-  probe index grown by ``insert_digests``. A digest's index value is its
-  position in the record store's chunk table: a merge inserts exactly the
-  records it appended, in append order. Every ``/probe`` RPC is one
-  ``lookup_u32`` of the index: one launch of kernel K3 on the index's
-  device (its plain version on the CPU), answers copied to the host before
-  they are serialized.
+  probe index grown by ``insert_digests``, on the service's mesh (one
+  shard on one device unless the caller passes a wider ``mesh``). A
+  digest's index value is its position in the record store's chunk table:
+  a merge inserts exactly the records it appended, in append order. Every
+  ``/probe`` RPC is one ``lookup_u32`` of the index: on one shard one
+  launch of kernel K3 on the index's device (its plain version on the
+  CPU), on more the mesh probe (K3 once per shard); answers are copied to
+  the host before they are serialized.
 - **DictService** serves the namespaces over HTTP/1.1 on a unix socket from
   a ``ThreadingUnixStreamServer``. Probe and merge RPCs are batched: one
   request per image, not per chunk.
@@ -30,10 +32,7 @@ probe bodies are concatenated raw 32-byte digests, answers little-endian
 client of either package talks to a service of the other.
 
 Not here yet: the HA surfaces (``service+ha://``, ``|`` failover groups,
-replica tails, the ``/api/v1/ha`` routes) and the trace, failpoint and
-metrics planes the reference's service reports to; the ``[chunk_dict]``
-section of the global config (the ``NTPU_DICT_*`` environment overrides
-are read).
+replica tails, the ``/api/v1/ha`` routes).
 """
 
 from __future__ import annotations
@@ -70,8 +69,8 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     parse_chunk_dict_arg,
 )
 from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
+from nydus_snapshotter_tpu_torch.parallel import mesh as mesh_lib
 from nydus_snapshotter_tpu_torch.parallel.sharded_dict import DictEpochError, ShardedChunkDict
-from nydus_snapshotter_tpu_torch.tensors import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -114,6 +113,14 @@ _SHARD_BATCHES = _metrics.Counter(
 )
 # since-RPC header: n_entries, epoch, rebuild_epoch, reserved.
 _SINCE_HDR_FIELDS = 4
+
+def _service_mesh(mesh: Optional[mesh_lib.Mesh], device) -> mesh_lib.Mesh:
+    """An index's mesh: ``mesh``, else one shard on ``device`` (the
+    reference's ``make_mesh(1)``)."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass a mesh or a device, not both")
+    return mesh if mesh is not None else mesh_lib.Mesh([device])
+
 
 class DictServiceError(RuntimeError):
     """An RPC failed on the service side (the message carries the op)."""
@@ -238,14 +245,15 @@ class ServiceDict:
         namespace: str = DEFAULT_NAMESPACE,
         cfg: Optional[DictRuntimeConfig] = None,
         device: "str | torch.device | None" = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
         cfg = cfg or resolve_dict_config()
         self.namespace = namespace
         self.records = GrowingChunkDict()
         self.index = ShardedChunkDict(
             np.zeros((0, 8), dtype=np.uint32),
+            _service_mesh(mesh, device),
             capacity_factor=cfg.headroom,
-            device=device,
             probe_backend=cfg.backend,
             load_factor=cfg.load_factor,
         )
@@ -443,16 +451,19 @@ class DictService:
     """One dict per namespace behind batched HTTP RPCs.
 
     ``handle()`` is transport-agnostic; ``run()`` serves on a unix socket.
-    Every namespace's index lives on ``device`` (CUDA unless the caller
-    asks for the CPU), where its probes run.
+    Every namespace's index lives on ``mesh``, by default one shard on
+    ``device`` (CUDA unless the caller asks for the CPU), where its probes
+    run.
     """
 
     def __init__(
         self,
         cfg: Optional[DictRuntimeConfig] = None,
         device: "str | torch.device | None" = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = _service_mesh(mesh, device)
+        self.device = self.mesh.devices[0]
         self.cfg = cfg or resolve_dict_config()
         self._dicts: dict[str, ServiceDict] = {}
         self._mu = _an.make_lock("dict_service.registry")
@@ -465,7 +476,7 @@ class DictService:
         with self._mu:
             sd = self._dicts.get(namespace)
             if sd is None:
-                sd = self._dicts[namespace] = ServiceDict(namespace, self.cfg, self.device)
+                sd = self._dicts[namespace] = ServiceDict(namespace, self.cfg, mesh=self.mesh)
             return sd
 
     def handle(self, method: str, path: str, headers, body: bytes) -> tuple[int, str, bytes]:

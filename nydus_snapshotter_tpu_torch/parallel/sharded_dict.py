@@ -1,10 +1,14 @@
-"""Chunk dictionary for cross-image dedup — single shard, grown and persisted.
+"""Chunk dictionary for cross-image dedup, sharded over a device mesh,
+grown and persisted.
 
-The single-shard subset of the reference's parallel/sharded_dict.py:
+Port of the reference's parallel/sharded_dict.py:
 
-- **Layout.** Open-addressing table: keys ``u32[C, 8]`` (a digest as 8
-  words), values ``i32[C]`` (dict index + 1; 0 = empty). Slot base =
-  ``digest_word1 mod C``, bounded linear probing.
+- **Layout.** One open-addressing table per shard: keys ``u32[S, C, 8]``
+  (a digest as 8 words), values ``i32[S, C]`` (dict index + 1; 0 = empty).
+  Shard = ``digest_word0 mod S``, slot base = ``digest_word1 mod C``,
+  bounded linear probing; ``C`` is sized by the fullest shard. ``S`` is
+  the mesh's size (parallel/mesh.py): ``device=`` means a one-shard mesh
+  on that device, and a dict given neither takes ``make_mesh()``.
 - **Build.** Host-side: the native engine's sequential first-wins build
   (ops/native_cdc) first; the vectorized numpy lockstep build stays as
   the reference keeps it. The two arms place duplicates and chains
@@ -21,21 +25,27 @@ The single-shard subset of the reference's parallel/sharded_dict.py:
   tables); ``save_incremental`` appends only the journal tail a saved file
   lacks; ``load`` maps v5 (its tail replayed), v4 raw and the legacy
   ``.npz`` (format 1) read-only, copying on the first insert. A file of
-  another shard count is rebuilt into one shard. Files are byte-compatible
-  with the reference package's in both directions.
-- **Probe.** ``probe_backend`` ``"auto"``, ``"device"`` and ``"pallas"``
-  probe with kernel K3 (ops/probe_cuda) over padded copies of the tables on
-  the dict's device (on the CPU, K3's plain version); ``"host"`` probes with
-  the native engine's ``ntpu_dict_probe``. The reference's ``"auto"`` picks
-  its native host probe on a single shard (``_use_host_probe``); the port's
-  probes on the card. The two differ only in where they probe: every
-  answer is the same.
+  another shard count is rebuilt for the loading mesh. Files are
+  byte-compatible with the reference package's in both directions, at
+  every shard count.
+- **Probe.** ``probe_backend`` ``"host"`` probes with the native engine's
+  ``ntpu_dict_probe``; the others with kernel K3 (ops/probe_cuda) over
+  padded copies of each shard's table on the shard's device (on the CPU,
+  K3's plain version). On one shard every device backend launches K3 once
+  over all queries: the reference's ``"auto"`` picks its native host probe
+  there (``_use_host_probe``), the port probes on the card, with the same
+  answers. On more than one, ``"auto"`` and ``"device"`` dedup the
+  queries and take the routed probe (``_probe_routed``: bucket by owning
+  shard, all_to_all, K3 per shard, all_to_all back), rerunning the dense
+  probe (``_probe_sharded``: all_gather, K3 per shard, sum) on a bucket
+  overflow; ``"pallas"`` partitions the queries by shard on the host and
+  launches K3 once per shard.
 - **Device tables.** The padded device copies are staged on the first
   probe after a mutation and reused until the next: every mutation
   publishes a new snapshot tuple (keys, values, capacity, depth), and the
-  staged copies are keyed on it. Restaging holds the mutation lock, so it
-  never copies arrays a native insert is writing; a probe that finds its
-  copies current takes no lock.
+  staged copies, one per shard at the dict's one depth, are keyed on it.
+  Restaging holds the mutation lock, so it never copies arrays a native
+  insert is writing; a probe that finds its copies current takes no lock.
 - **State carried across.** :func:`from_tables` takes the tables a
   reference ``ShardedChunkDict.fused_probe_tables()`` returns, so a dict
   built there probes identically here.
@@ -53,7 +63,8 @@ from nydus_snapshotter_tpu_torch import failpoint
 from nydus_snapshotter_tpu_torch.analysis import runtime as _an
 from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
 from nydus_snapshotter_tpu_torch.ops import native_cdc, probe_cuda
-from nydus_snapshotter_tpu_torch.tensors import from_u32, resolve_device
+from nydus_snapshotter_tpu_torch.parallel import mesh as mesh_lib
+from nydus_snapshotter_tpu_torch.tensors import from_u32
 
 # Longest probe chain the BUILD tolerates before doubling capacity; probes
 # bound their loops by the table's actual max chain (_table_max_depth).
@@ -222,6 +233,80 @@ def _probe_local(
     return torch.where(match.any(dim=1), found, 0).to(torch.int32)
 
 
+def _probe_shard(
+    k: torch.Tensor, v: torch.Tensor, q: torch.Tensor, cap: int, depth: int
+) -> torch.Tensor:
+    """Probe queries int32[M,8] against one shard's padded table (``_stage``)
+    -> int32[M]: one launch of K3, which computes :func:`_probe_local` (the
+    reference's ``_probe_local``) over the wrap-free layout."""
+    wstart, off = probe_cuda.window_starts(q, cap)
+    return probe_cuda.probe_padded(k, v, q, wstart, off, depth)
+
+
+def _shard_of(q: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The owning shard of each query int32[M,8] (word 0 as u32, mod S)."""
+    return (q[:, 0].to(torch.int64) & 0xFFFFFFFF) % n_shards
+
+
+def _probe_sharded(keys, values, queries, n_shards: int, mesh, depth: int, cap: int):
+    """Dense probe (all_gather + sum): exact for any query distribution.
+
+    ``keys``/``values`` are the shards' padded tables, ``queries`` the
+    shards' int32[M/S, 8] rows (``mesh.shard_rows``); every shard receives
+    every query, probes its own table with K3, zeroes the answers of the
+    queries it does not own, and the shards' answers are summed ->
+    int32[M] on the mesh's first device."""
+    partial = []
+    for s, (k, v, q) in enumerate(zip(keys, values, mesh_lib.all_gather(queries, mesh))):
+        found = _probe_shard(k, v, q, cap, depth)
+        partial.append(torch.where(_shard_of(q, n_shards) == s, found, 0))
+    return mesh_lib.sum_shards(partial, mesh.devices[0])
+
+
+def _bucket_capacity(m_local: int, n_shards: int) -> int:
+    """Fixed per-(device, target-shard) bucket size: 4x the uniform
+    expectation plus headroom."""
+    return int(4 * ((m_local + n_shards - 1) // n_shards) + 8)
+
+
+def _probe_routed(keys, values, queries, n_shards: int, mesh, depth: int, cap: int):
+    """all_to_all probe: route each query to its owning shard, answer it
+    there with K3, route the answers back. Arguments as
+    :func:`_probe_sharded`. Returns (answers int32[M], overflowed bool[S])
+    on the mesh's first device; when a shard's bucket for some target
+    overflowed, the answers are incomplete and the caller falls back to
+    :func:`_probe_sharded`."""
+    m_local = queries[0].shape[0]
+    bucket_cap = _bucket_capacity(m_local, n_shards)
+    sends, places, overflow = [], [], []
+    for q in queries:
+        target = _shard_of(q, n_shards)
+        # Rank of each query within its target bucket (stable, by position):
+        # the one-hot running count of earlier rows with the same target.
+        onehot = torch.nn.functional.one_hot(target, n_shards)
+        rank = (onehot.cumsum(0) - onehot).gather(1, target[:, None])[:, 0]
+        ok = rank < bucket_cap
+        slot = torch.where(ok, target * bucket_cap + rank, n_shards * bucket_cap)
+        # The padded send buffer with a validity lane; one spill row absorbs
+        # the overflowing writes.
+        send = torch.zeros((n_shards * bucket_cap + 1, 9), dtype=torch.int32, device=q.device)
+        send[slot] = torch.cat([q, torch.ones((m_local, 1), dtype=torch.int32, device=q.device)], 1)
+        sends.append(send[:-1])
+        places.append((ok, slot.clamp(max=n_shards * bucket_cap - 1)))
+        overflow.append((~ok).any())
+    recv = mesh_lib.all_to_all(sends, mesh)
+    found = [
+        _probe_shard(k, v, rq[:, :8].contiguous(), cap, depth) * rq[:, 8]
+        for k, v, rq in zip(keys, values, recv)
+    ]
+    back = mesh_lib.all_to_all(found, mesh)
+    dev = mesh.devices[0]
+    answers = torch.cat([
+        torch.where(ok, b[slot], 0).to(dev) for b, (ok, slot) in zip(back, places)
+    ])
+    return answers, torch.stack([o.to(dev) for o in overflow])
+
+
 def _stage(keys: np.ndarray, values: np.ndarray, depth: int, dev: torch.device):
     """The wrap-free padded layout of ``probe_cuda.pad_tables`` built
     straight on ``dev``: the table, then its first W rows again. Never an
@@ -241,32 +326,44 @@ def _stage(keys: np.ndarray, values: np.ndarray, depth: int, dev: torch.device):
     return tk, tv
 
 
-class ShardedChunkDict:
-    """Single-shard dedup dictionary (``n_shards == 1``), grown in place."""
+def _resolve_mesh(mesh, device) -> "mesh_lib.Mesh":
+    """``device=`` is a one-shard mesh on it; neither takes ``make_mesh()``."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass a mesh or a device, not both")
+    if device is not None:
+        return mesh_lib.Mesh([device])
+    return mesh if mesh is not None else mesh_lib.make_mesh()
 
-    n_shards = 1
+
+class ShardedChunkDict:
+    """Dedup dictionary, one shard per mesh device, grown in place."""
 
     def __init__(
         self,
         digests_u32: np.ndarray,
+        mesh: "mesh_lib.Mesh | None" = None,
         capacity_factor: float = DEFAULT_HEADROOM,
-        device: "str | torch.device | None" = None,
         probe_backend: str = "auto",
         load_factor: float = DEFAULT_LOAD_FACTOR,
+        device: "str | torch.device | None" = None,
     ):
-        self.device = resolve_device(device)
-        self._configure(probe_backend, capacity_factor, load_factor)
+        self._configure(_resolve_mesh(mesh, device), probe_backend, capacity_factor, load_factor)
         digests_u32 = np.asarray(digests_u32, dtype=np.uint32).reshape(-1, 8)
         self.n_entries = len(digests_u32)
-        keys, values = _build_host_tables(digests_u32, 1, capacity_factor)
-        self._put_tables(keys[0], values[0])
+        keys, values = _build_host_tables(digests_u32, self.n_shards, capacity_factor)
+        self._put_tables(keys, values)
         self._n_unique = int(np.count_nonzero(self._values))
 
-    def _configure(self, probe_backend: str, capacity_factor: float, load_factor: float) -> None:
+    def _configure(
+        self, mesh: "mesh_lib.Mesh", probe_backend: str, capacity_factor: float, load_factor: float
+    ) -> None:
         if probe_backend not in PROBE_BACKENDS:
             raise ValueError(f"unknown probe backend {probe_backend!r}")
         if not 0.0 < load_factor < 1.0:
             raise ValueError(f"load_factor must be in (0, 1), got {load_factor}")
+        self.mesh = mesh
+        self.n_shards = mesh.size
+        self.device = mesh.devices[0]
         self.probe_backend = probe_backend
         self.capacity_factor = capacity_factor
         self.load_factor = load_factor
@@ -282,19 +379,19 @@ class ShardedChunkDict:
         # Serializes mutation and device restaging. Reentrant:
         # save_incremental's full rewrite calls save while holding it.
         self._mu = _an.make_rlock("dict.mutate")
-        self._staged = None  # (snapshot, keys_pad, vals_pad) on self.device
+        self._staged = None  # (snapshot, [(keys_pad, vals_pad) per shard])
         self.restages = 0
 
     def _put_tables(
         self, keys: np.ndarray, values: np.ndarray, max_depth: "int | None" = None
     ) -> None:
-        """Adopt host tables keys u32[C,8], values i32[C] (an mmap'd load's
-        stay read-only until the first insert copies them)."""
+        """Adopt host tables keys u32[S,C,8], values i32[S,C] (an mmap'd
+        load's stay read-only until the first insert copies them)."""
         if max_depth is None:
-            max_depth = _table_max_depth(keys[None], values[None])
+            max_depth = _table_max_depth(keys, values)
         self._keys = np.ascontiguousarray(keys, dtype=np.uint32)
         self._values = np.ascontiguousarray(values, dtype=np.int32)
-        self.capacity = self._keys.shape[0]
+        self.capacity = self._keys.shape[1]
         self.max_depth = int(max_depth)
         self._publish()
 
@@ -302,6 +399,9 @@ class ShardedChunkDict:
         """One snapshot tuple read by every probe: a concurrent insert or
         rebuild publishes tables, capacity and depth together."""
         self._tables = (self._keys, self._values, self.capacity, self.max_depth)
+
+    def _slots(self) -> int:
+        return self.n_shards * self.capacity
 
     # -- incremental growth --------------------------------------------------
 
@@ -339,11 +439,12 @@ class ShardedChunkDict:
             void = np.ascontiguousarray(digests_u32).view(np.dtype((np.void, 32)))[:, 0]
             _, first, inverse = np.unique(void, return_index=True, return_inverse=True)
             uniq = digests_u32[first]
-            # The live host tables, as the reference's single-shard probe
-            # reads them: an overflowed _insert_fast left its placed prefix
-            # there without publishing, so the device copy cannot see it.
+            # The live host tables, as the reference's native probe reads
+            # them: an overflowed _insert_fast left its placed prefix there
+            # without publishing, so the device copies cannot see it.
             existing = native_cdc.dict_probe_native(
-                uniq, self._keys, self._values, 1, self.capacity, self.max_depth
+                uniq, self._keys.reshape(-1, 8), self._values.reshape(-1),
+                self.n_shards, self.capacity, self.max_depth,
             )  # int64, -1 = absent
             new_mask = existing < 0
             assigned = np.where(new_mask, base + first, existing)
@@ -379,12 +480,12 @@ class ShardedChunkDict:
         n = len(digests_u32)
         if self.n_entries == 0:
             return None
-        if self._ensure_unique_count() + n > int(self.load_factor * self.capacity):
+        if self._ensure_unique_count() + n > int(self.load_factor * self._slots()):
             return None  # worst-case (all new) breaches: take the slow path
         self._writable()
         res = native_cdc.dict_upsert_native(
-            np.ascontiguousarray(digests_u32), base, 1, self.capacity, INSERT_MAX_PROBE,
-            self._keys, self._values,
+            np.ascontiguousarray(digests_u32), base, self.n_shards, self.capacity,
+            INSERT_MAX_PROBE, self._keys.reshape(-1, 8), self._values.reshape(-1),
         )
         if res is None:
             return None
@@ -416,14 +517,14 @@ class ShardedChunkDict:
         if k == 0:
             return False
         self._writable()
-        cap = self.capacity
-        if self._ensure_unique_count() + k > int(self.load_factor * cap):
+        if self._ensure_unique_count() + k > int(self.load_factor * self._slots()):
             self._rebuild(digests, stored_values)
             return True
         depth = native_cdc.dict_insert_native(
             np.ascontiguousarray(digests),
             np.ascontiguousarray(stored_values.astype(np.int32)),
-            1, cap, INSERT_MAX_PROBE, self._keys, self._values,
+            self.n_shards, self.capacity, INSERT_MAX_PROBE,
+            self._keys.reshape(-1, 8), self._values.reshape(-1),
         )
         if depth < 0:
             # Chain overflow: fold the whole batch into a rebuild (the
@@ -460,10 +561,10 @@ class ShardedChunkDict:
         order = np.argsort(vals, kind="stable")
         digs = np.ascontiguousarray(digs[order])
         vals = vals[order]
-        keys, values = _build_host_tables(digs, 1, self.capacity_factor)
+        keys, values = _build_host_tables(digs, self.n_shards, self.capacity_factor)
         # Rebuilt values index into ``digs``; remap onto the stored values.
         orig = np.concatenate([[0], vals]).astype(np.int32)
-        self._put_tables(keys[0], orig[values[0]])
+        self._put_tables(keys, orig[values])
         self._n_unique = len(digs)
         self._journal = []
         self.rebuild_epoch = self.epoch
@@ -491,11 +592,10 @@ class ShardedChunkDict:
             return digs, vals, self.epoch
 
     def copy(self) -> "ShardedChunkDict":
-        """Deep copy of tables and growth state, on the same device."""
+        """Deep copy of tables and growth state, on the same mesh."""
         with self._mu:
             other = self.__class__.__new__(self.__class__)
-            other.device = self.device
-            other._configure(self.probe_backend, self.capacity_factor, self.load_factor)
+            other._configure(self.mesh, self.probe_backend, self.capacity_factor, self.load_factor)
             other.epoch = self.epoch
             other.rebuild_epoch = self.rebuild_epoch
             other._journal = [(e, d.copy(), v.copy()) for e, d, v in self._journal]
@@ -505,28 +605,40 @@ class ShardedChunkDict:
             return other
 
     def fused_probe_tables(self) -> tuple[np.ndarray, np.ndarray, int, int]:
-        """(keys u32[C,8], values i32[C], depth, epoch) of the published
-        snapshot, the reference's surface for the fused engine."""
+        """(keys u32[C,8], values i32[C], depth, epoch) of the single shard's
+        published snapshot, the reference's surface for the fused engine."""
+        if self.n_shards != 1:
+            raise DictBuildError(f"fused probe wants a single-shard dict, have {self.n_shards}")
         keys, values, _cap, depth = self._tables
-        return keys, values, depth, self.epoch
+        return keys[0], values[0], depth, self.epoch
+
+    def device_shards(self) -> tuple[list[tuple[torch.Tensor, torch.Tensor]], int, int]:
+        """([(keys_pad int32[C+W, 8], vals_pad int32[C+W]) per shard, each on
+        its shard's device], capacity, depth): the padded copies of the
+        published snapshot, restaged once after each mutation, and the
+        geometry they were padded for. Every device probe reads them."""
+        staged = self._staged
+        if staged is None or staged[0] is not self._tables:
+            with self._mu:
+                tables = self._tables
+                staged = self._staged
+                if staged is None or staged[0] is not tables:
+                    keys, values, _cap, depth = tables
+                    staged = (tables, [
+                        _stage(keys[s], values[s], depth, dev)
+                        for s, dev in enumerate(self.mesh.devices)
+                    ])
+                    self._staged = staged
+                    self.restages += 1
+        return staged[1], staged[0][2], staged[0][3]
 
     def device_snapshot(self) -> tuple[torch.Tensor, torch.Tensor, int, int]:
-        """(keys_pad int32[C+W, 8], vals_pad int32[C+W], capacity, depth):
-        the padded copies of the published snapshot on the dict's device,
-        restaged once after each mutation, and the geometry they were
-        padded for. Every device probe of this dict reads them."""
-        staged = self._staged
-        if staged is not None and staged[0] is self._tables:
-            return staged[1], staged[2], staged[0][2], staged[0][3]
-        with self._mu:
-            tables = self._tables
-            staged = self._staged
-            if staged is None or staged[0] is not tables:
-                keys, values, _cap, depth = tables
-                staged = (tables, *_stage(keys, values, depth, self.device))
-                self._staged = staged
-                self.restages += 1
-        return staged[1], staged[2], tables[2], tables[3]
+        """(keys_pad, vals_pad, capacity, depth) of a single-shard dict's
+        staged copy (:meth:`device_shards`), as the fused engine reads it."""
+        if self.n_shards != 1:
+            raise DictBuildError(f"fused probe wants a single-shard dict, have {self.n_shards}")
+        shards, cap, depth = self.device_shards()
+        return shards[0][0], shards[0][1], cap, depth
 
     # -- persistence ----------------------------------------------------------
     #
@@ -538,7 +650,7 @@ class ShardedChunkDict:
     def _header_bytes(self, tail_count: int) -> bytes:
         return _RAW_MAGIC + np.asarray(
             [
-                _RAW_FORMAT_VERSION_5, 1, self.n_entries,
+                _RAW_FORMAT_VERSION_5, self.n_shards, self.n_entries,
                 self.capacity, self.max_depth, self.epoch, self.rebuild_epoch,
                 self._ensure_unique_count(), tail_count, 0,
             ],
@@ -568,7 +680,7 @@ class ShardedChunkDict:
             hdr = _read_v5_header(path)
             if (
                 hdr is not None
-                and hdr["n_shards"] == 1
+                and hdr["n_shards"] == self.n_shards
                 and hdr["capacity"] == self.capacity
                 and hdr["rebuild_epoch"] == self.rebuild_epoch
                 and hdr["epoch"] <= self.epoch
@@ -577,7 +689,7 @@ class ShardedChunkDict:
                 k = sum(len(d) for d, _ in pending)
                 expect = (
                     8 + 8 * _RAW_HEADER_FIELDS_V5
-                    + self.capacity * 36
+                    + self._slots() * 36
                     + hdr["tail_count"] * _TAIL_RECORD_DT.itemsize
                 )
                 if os.path.getsize(path) == expect:
@@ -601,6 +713,7 @@ class ShardedChunkDict:
     def load(
         cls,
         path: str,
+        mesh: "mesh_lib.Mesh | None" = None,
         probe_backend: str = "auto",
         capacity_factor: float = DEFAULT_HEADROOM,
         load_factor: float = DEFAULT_LOAD_FACTOR,
@@ -610,8 +723,8 @@ class ShardedChunkDict:
         replayed with the original values), a v4 raw file, or a legacy
         ``.npz`` (format 1) — the reference package's files included. Raw
         tables are mapped read-only; a file of another shard count is
-        rebuilt into one shard."""
-        dev = resolve_device(device)
+        rebuilt for the loading mesh."""
+        mesh = _resolve_mesh(mesh, device)
         with open(path, "rb") as f:
             magic = f.read(8)
         tail = None
@@ -662,24 +775,24 @@ class ShardedChunkDict:
                 n_shards, n_entries = int(z["n_shards"]), int(z["n_entries"])
             loaded_depth = None  # legacy files carry no depth: rescan
         self = cls.__new__(cls)
-        self.device = dev
-        self._configure(probe_backend, capacity_factor, load_factor)
+        self._configure(mesh, probe_backend, capacity_factor, load_factor)
         self.n_entries = n_entries
-        if n_shards != 1:
-            # The shard count is baked into the layout: rebuild one shard
-            # from the stored keys (empties dropped, first-wins order by
-            # stored value = original insertion index), remapping the
-            # rebuilt values back onto the stored ones.
+        if self.n_shards != n_shards:
+            # The shard count is baked into the layout: rebuild for this
+            # mesh from the stored keys (empties dropped, first-wins order
+            # by stored value = original insertion index) at the default
+            # headroom, as the reference does, and remap the rebuilt values
+            # back onto the stored ones.
             flat_v = values.reshape(-1)
             occupied = flat_v != 0
             order = np.argsort(flat_v[occupied], kind="stable")
             digests = keys.reshape(-1, 8)[occupied][order]
-            k2, v2 = _build_host_tables(digests, 1)
+            k2, v2 = _build_host_tables(digests, self.n_shards)
             orig = np.concatenate([[0], np.sort(flat_v[occupied])]).astype(np.int32)
-            self._put_tables(k2[0], orig[v2[0]])
+            self._put_tables(k2, orig[v2])
             self._n_unique = int(occupied.sum())
         else:
-            self._put_tables(keys[0], values[0], max_depth=loaded_depth)
+            self._put_tables(keys, values, max_depth=loaded_depth)
             self._n_unique = n_unique
         self.epoch = epoch
         self.rebuild_epoch = rebuild_epoch
@@ -698,8 +811,12 @@ class ShardedChunkDict:
     def lookup_u32(self, queries_u32: np.ndarray) -> np.ndarray:
         """Probe a batch: u32[M,8] digests -> int64[M] dict indices (-1 = miss).
 
-        ``"host"`` probes the published snapshot with the native engine;
-        every other backend launches K3 once over the device snapshot."""
+        ``"host"`` probes the published snapshot with the native engine. On
+        one shard every other backend launches K3 once over all queries; on
+        more, ``"pallas"`` launches it once per shard over the shard's
+        queries, and ``"auto"``/``"device"`` route the unique queries over
+        the mesh (:func:`_probe_routed`, :func:`_probe_sharded` on a bucket
+        overflow)."""
         queries_u32 = np.asarray(queries_u32, dtype=np.uint32).reshape(-1, 8)
         m = len(queries_u32)
         if m == 0:
@@ -708,12 +825,51 @@ class ShardedChunkDict:
             return np.full(m, -1, dtype=np.int64)
         if self.probe_backend == "host":
             keys, values, cap, depth = self._tables
-            return native_cdc.dict_probe_native(queries_u32, keys, values, 1, cap, depth)
-        tk, tv, cap, depth = self.device_snapshot()
-        q = from_u32(queries_u32, self.device)
-        wstart, off = probe_cuda.window_starts(q, cap)
-        ans = probe_cuda.probe_padded(tk, tv, q, wstart, off, depth)
-        return ans.cpu().numpy().astype(np.int64) - 1
+            return native_cdc.dict_probe_native(
+                queries_u32, keys.reshape(-1, 8), values.reshape(-1), self.n_shards, cap, depth
+            )
+        if self.n_shards == 1 or self.probe_backend == "pallas":
+            return self._lookup_per_shard(queries_u32)
+        # Route unique queries only: duplicates would concentrate buckets
+        # (and waste probe work); uniqueness restores the uniform digest
+        # distribution the bucket capacity is sized for.
+        void = np.ascontiguousarray(queries_u32).view(np.dtype((np.void, 32)))[:, 0]
+        _, first, inverse = np.unique(void, return_index=True, return_inverse=True)
+        return self._lookup_unique(queries_u32[first])[inverse.reshape(-1)]
+
+    def _lookup_per_shard(self, queries_u32: np.ndarray) -> np.ndarray:
+        """The reference's ``_lookup_pallas``: queries partitioned by owning
+        shard on the host, one K3 launch per shard that has any (on one
+        shard, one launch over the queries as given)."""
+        shards, cap, depth = self.device_shards()
+        if self.n_shards == 1:
+            tk, tv = shards[0]
+            ans = _probe_shard(tk, tv, from_u32(queries_u32, tk.device), cap, depth)
+            return ans.cpu().numpy().astype(np.int64) - 1
+        out = np.zeros(len(queries_u32), dtype=np.int64)
+        shard_of = queries_u32[:, 0] % np.uint32(self.n_shards)
+        for s, (tk, tv) in enumerate(shards):
+            idx = np.nonzero(shard_of == s)[0]
+            if len(idx):
+                ans = _probe_shard(tk, tv, from_u32(queries_u32[idx], tk.device), cap, depth)
+                out[idx] = ans.cpu().numpy()
+        return out - 1
+
+    def _lookup_unique(self, queries_u32: np.ndarray) -> np.ndarray:
+        """Routed probe of unique queries, padded with zero rows to the
+        mesh; the dense probe reruns them on a bucket overflow."""
+        m = len(queries_u32)
+        pad = (-m) % self.n_shards
+        if pad:
+            queries_u32 = np.concatenate([queries_u32, np.zeros((pad, 8), dtype=np.uint32)])
+        shards, cap, depth = self.device_shards()
+        keys = [k for k, _ in shards]
+        values = [v for _, v in shards]
+        q = mesh_lib.shard_rows(queries_u32.view(np.int32), self.mesh)
+        ans, overflowed = _probe_routed(keys, values, q, self.n_shards, self.mesh, depth, cap)
+        if bool(overflowed.any()):
+            ans = _probe_sharded(keys, values, q, self.n_shards, self.mesh, depth, cap)
+        return ans[:m].cpu().numpy().astype(np.int64) - 1
 
     def lookup_digests(self, digests: list[bytes]) -> np.ndarray:
         """Probe raw 32-byte digests."""
@@ -761,10 +917,9 @@ def from_tables(
             f"{keys.shape} and {values.shape}"
         )
     d = ShardedChunkDict.__new__(ShardedChunkDict)
-    d.device = resolve_device(device)
-    d._configure("auto", DEFAULT_HEADROOM, DEFAULT_LOAD_FACTOR)
+    d._configure(mesh_lib.Mesh([device]), "auto", DEFAULT_HEADROOM, DEFAULT_LOAD_FACTOR)
     d.n_entries = int(np.count_nonzero(values))
-    d._put_tables(keys, values, depth)
+    d._put_tables(keys[None], values[None], depth)
     d.epoch = int(epoch)
     d._n_unique = d.n_entries
     return d

@@ -189,7 +189,7 @@ class TestGrowth:
         # long as the table's depth: the prefix the upsert places there lies
         # inside the probe window. The high bits spread it in a rebuild.
         depth = probe.max_depth
-        empty = np.convolve(probe._values == 0, np.ones(depth, int), "valid") == depth
+        empty = np.convolve(probe._values[0] == 0, np.ones(depth, int), "valid") == depth
         slot = np.uint32(np.argmax(empty))
         assert empty[slot]
         mask = np.uint32(probe.capacity - 1)

@@ -18,7 +18,7 @@ from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
 from nydus_snapshotter_tpu_torch.converter.batch import BatchConverter
 from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine, DeviceDigester
 from nydus_snapshotter_tpu_torch.ops.fused_convert import FusedDeviceEngine
-from nydus_snapshotter_tpu_torch.parallel import dict_service, sharded_dict
+from nydus_snapshotter_tpu_torch.parallel import dict_service, mesh, sharded_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -168,6 +168,18 @@ _CHILD = textwrap.dedent(
     assert crypto.decrypt_range(crypto.encrypt(text, b"k" * 32, b"i" * 16)[5:9], 5, b"k" * 32,
                                 b"i" * 16) == text[5:9]
     fwd, args = entry.entry(device="cpu")
+    # the device mesh: a multi-shard dict through both mesh probes, the
+    # sharded convert step, the multi-host runtime's single-host view
+    from nydus_snapshotter_tpu_torch.ops import mesh_pack
+    from nydus_snapshotter_tpu_torch.parallel import mesh, multihost
+    m4 = mesh.make_mesh(4, devices=["cpu"] * 4)
+    md = sharded_dict.ShardedChunkDict(grow, m4, probe_backend="device")
+    assert list(md.lookup_u32(grow[:9])) == list(range(9))
+    rep = {}
+    cuts, digs, boot = entry.sharded_convert_step([data, b"abc"], 0x1000, 4, m4, report=rep)
+    assert digs[1] == [hashlib.sha256(b"abc").digest()] and rep["pack"] == "extent"
+    assert mesh_pack.resolve_mesh_config().pack == "extent"
+    assert multihost.runtime().count == 1
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
     print("LEAKED", bad)
@@ -278,12 +290,15 @@ def _adaptive():
         lambda: pack_layer(b"", PackOption(encrypt=True)),
         lambda: pack_layer(b"", PackOption(compressor="zstd"), codec=_adaptive()),
         lambda: BatchConverter(PackOption(compressor="zstd"), codec=_adaptive()).convert_image("i", [b""]),
+        lambda: mesh.make_mesh(),
+        lambda: entry.sharded_convert_step([b"abc"], 0x1000, 1),
     ],
     ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
          "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
          "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3",
          "pack_layer_jax_zstd", "dict_load", "dict_service", "batch_one_layer",
-         "batch_fanout", "pack_layer_encrypt", "pack_layer_adaptive", "batch_adaptive"],
+         "batch_fanout", "pack_layer_encrypt", "pack_layer_adaptive", "batch_adaptive",
+         "make_mesh", "sharded_convert_step"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():
