@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 0-3 and 15 alone, on every visible card
+    python3 chip_smoke.py --ha-only     # phases 0-3, 16 and 17 alone
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -36,7 +37,7 @@ Phases (any failure exits non-zero; nothing is caught):
    on the table's last row, misses);
 4. pack — ``pack_layer`` over a ~256 MiB node:21-shaped tar, fused backend
    against the numpy (host) backend: blob, bootstrap and blob id identical;
-   each wall time the median of 3 runs after that checked one, every run
+   each wall time the median of ``PACK_REPS`` runs after that checked one, every run
    printed with its host CPU seconds and minor page faults, and the fused
    runs' ``stats`` (``scan`` is the fast tar header walk). Then the tar's
    header walk alone, the fast walk beside ``tarfile``'s (median of 3 in
@@ -79,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the candidate capacity forced to overflow (the per-file windowed
    fallback): blob, bootstrap and blob id equal to phase 4's numpy and
    fused outputs; K1 launched once per non-empty file on the bytes lane
-   (at least that on the other two); each wall time the median of 3 after
+   (at least that on the other two); each wall time the median of ``PACK_REPS`` after
    a checked run (host CPU seconds and page faults beside each run), in
    which the device digester's ``submit`` runs under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
@@ -103,9 +104,9 @@ Phases (any failure exits non-zero; nothing is caught):
    boundaries and digest split); ``pack_layer(backend="fused", digester="blake3")`` over
    phase 4's tar (blob and blob id equal phase 4's SHA-256 fused blob, the
    bootstrap's digests the plain version's over the blob's chunks; median
-   of 3) and ``pack_layer(backend="jax", digester="blake3")`` over the same
+   of ``PACK_REPS``) and ``pack_layer(backend="jax", digester="blake3")`` over the same
    tar (K4 per digest batch, each submitted under sync debug mode "error";
-   equal to the fused BLAKE3 pack; median of 3); K4 alone, through its
+   equal to the fused BLAKE3 pack; median of ``PACK_REPS``); K4 alone, through its
    wrapper and as the plain version, beside its bound, on the main path
    and at 1 MiB chunks;
 10. compressed packs — the path and version of the bound liblz4 and
@@ -116,8 +117,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``fused`` and ``jax``, each equal to it (blob, bootstrap, blob id) with
    the launches of its uncompressed twin (fused: K1 1, K2 1; jax: phase
    8's, K1 once per non-empty file, K2 once per 32 MiB batch, each batch
-   submitted under sync debug mode "error"), wall time the median of 3
-   after the checked run, each run printed with its host CPU seconds and
+   submitted under sync debug mode "error"), wall time the median of
+   ``PACK_REPS`` after the checked run, each run printed with its host CPU seconds and
    its ``stats`` split (scan, chunk_digest, dedup, assemble, bootstrap);
    every chunk record's frame, located by its compressed offset and size
    and decompressed with the port's codec, equals the tar's bytes at the
@@ -173,14 +174,14 @@ Phases (any failure exits non-zero; nothing is caught):
    over phase 2's layer at SHA-256 and BLAKE3, 64 KiB and 1 MiB chunks:
    every cut and digest equal to phases 2, 7 and 9's results, no kernel
    launched (counters zeroed just before, read just after); median of
-   ``HYBRID_REPS`` after the checked run, GiB/s. (b) ``pack_layer(backend="hybrid")`` over
+   ``HYBRID_REPS`` after the checked run (the checked run when 0), GiB/s. (b) ``pack_layer(backend="hybrid")`` over
    phase 4's tar (lz4_block) at ``NTPU_PACK_THREADS=1``: the whole-layer
    ``pack_files`` lane at SHA-256 and at BLAKE3, and the
    ``chunk_digest_multi`` lane with phase 10's dict bootstrap as
    ``chunk_dict_path``; (c) at the default thread count, the per-file lane
    on the stage-parallel pipeline (route lane ``pipeline``). Each equal to its fused twin (blob, bootstrap, blob id),
-   its lane and route printed, no launch, the median of 3 after the checked
-   run with its ``stats``.
+   its lane and route printed, no launch, the median of ``PACK_REPS`` after
+   the checked run with its ``stats``.
 13. images — image-level conversion, BASELINE configs #2 and #3 at the
    ``PackOption`` defaults (1 MiB CDC chunks, lz4_block, SHA-256). Image A
    is phase 2's file population split into bench.py's six log-spread
@@ -204,7 +205,8 @@ Phases (any failure exits non-zero; nothing is caught):
    its hybrid twin with the same hit set as against A's native bootstrap;
    a ``rafs-v6`` emit of A's top layer packed at ``chunking="fixed"`` read
    back the same way. Printed: the wall s and GiB/s of the fused batch
-   (median of 3 after the checked run), the fan-out-1 and hybrid batches
+   (median of ``IMAGE_REPS`` after the checked run, or the checked run
+   when that is 0), the fan-out-1 and hybrid batches
    (their checked runs); per image input bytes, stored blob bytes, dedup
    ratio, new dict chunks, Merge ms and Unpack s; each real-format emit and
    load; the phase's seconds; the checked fused batch's ``convert`` trace
@@ -257,6 +259,41 @@ Phases (any failure exits non-zero; nothing is caught):
    the same bootstrap). Then the same checks on ``make_mesh()``, every
    visible card (one on a one-card machine; K1 splits at the launch
    grid's 65535 rows there).
+16. HA — the dict plane on the card. A primary ``ha.runner`` child process
+   (``--device cuda:0``) holds a namespace of phase 4's tar bootstrap,
+   phase 2's layer (one record per chunk) and 2^20 synthetic chunk
+   records (random digests from the seed); an in-process replica
+   (``DictService`` + ``HaAgent`` on the card) is placed by an in-process
+   ``PlacementController`` (members and liveness injected) and catches up
+   from zero in byte-budgeted pulls (wall time, pulls, largest pull
+   printed; the largest pull within the budget plus the non-chunk rows).
+   The replica's record tables equal the primary's saved bootstrap, and it
+   stays caught up without a resync; phase
+   5's queries answer identically on both, the replica's through one K3
+   launch. Then two images (two layers each of phase 13's A, and A's
+   lowest beside a text-rewritten top) convert twice with
+   ``BatchConverter(dict_service=...)``: against one ``DictService`` (the
+   oracle) and against ``service://<primary>|<replica>``, the primary
+   SIGKILLed after the first image, ``report_down`` + ``tick()`` promoting
+   the replica, the mirror failing over; every blob and bootstrap equals
+   the oracle's (K1 and K2 once per layer), and a probe RPC on the promoted
+   replica launches K3 once with the same answers. Kill -> promoted ->
+   failed over -> first merge acknowledged is printed.
+17. OCIRef — phase 4's tar as a gzip layer (level 1, in parallel members:
+   a multi-member stream) and a zstd -3 layer; ``pack_gzip_layer`` and
+   ``pack_zstd_layer`` on the host path and on the card's
+   ``ChunkDigestEngine`` (K2 under SHA-256, K4 under BLAKE3; the tar
+   handed over), bootstraps byte-identical; 64 seeded random files read
+   through ``BlobReader``'s gzip checkpoints (random order), and the same
+   64 through its zstd cursor (ascending offsets: it resumes forward
+   reads and rewinds to the stream's start whenever a chunk begins behind
+   it), equal the tar's bytes; ``Unpack`` of the whole gzip ref layer
+   (its stream chunks read in ascending offset order, one inflate pass)
+   equals the tar's tree; ``hooks.convert_image`` over a three-layer
+   gzip OCI image in a temporary ``LocalContentStore``, packed (K1 and K2
+   once a layer) and ``oci_ref`` (K2 once a layer, the index's digests):
+   four-layer nydus manifests with their configs, a file of every layer
+   read back.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -291,10 +328,16 @@ K2_PLAIN_MAX_CAP = 128  # the plain SHA-256 loops in Python per 64-byte block
 REPS = 5
 # Timed runs after the checked one of the slowest host-bound earlier lanes:
 # the windowed engine (phases 7 and 9, ~10-15 s a run) and the hybrid
-# engine (phase 12, ~4 s a run). One each keeps the script inside its time
-# limit with phase 13; their medians of 3 from PRs 5-9 stand in PERF.md.
+# engine (phase 12, ~4 s a run; 0 reports the checked run). They keep the
+# script inside its time limit; their medians of 3 from PRs 5-9 stand in
+# PERF.md.
 WINDOWED_REPS = 1
-HYBRID_REPS = 1
+HYBRID_REPS = 0
+# Timed runs after each checked pack (phases 4, 8-12, 14) and after phase
+# 13's checked fused batch; 0 reports the checked run. One pack and no batch
+# keep the script inside its time limit on the slower card hosts (1212 s of
+# command with 3 and 1 on one such host, PERF.md §4). Checks all stay.
+PACK_REPS = 1
 DEVICE = "cuda"
 
 # K3's registry-scale workload: tools/registry_scale.py's deployment.
@@ -310,7 +353,7 @@ SERVICE_REPS = 3
 # C's three new layers; the fused batch's timed runs after the checked one.
 IMAGE_WEIGHTS = (32, 16, 8, 4, 2, 2)
 IMAGE_C_NEW_MIB = (128, 80, 48)
-IMAGE_REPS = 3
+IMAGE_REPS = 0
 # Phase 10's compressed packs as the serial section writer ran them before
 # the deferred writer took them (the median run's wall and stats: scan +
 # chunk_digest + dedup + assemble + bootstrap, s; NVIDIA H100 80GB HBM3,
@@ -1139,7 +1182,7 @@ def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
         if not k1_ok or launches["sha"] != len(submits) or not submits:
             raise AssertionError(f"pack {name}: launches {launches} for {n_files} non-empty "
                                  f"files, {len(submits)} digest batches")
-        runs = [host_timed(fn) for _ in range(3)]
+        runs = [host_timed(fn) for _ in range(PACK_REPS)]
         walls = [r[0] for r in runs]
         log(f"[8] pack {name}: == numpy and fused byte for byte; launches {launches} "
             f"({n_files} non-empty files, {len(submits)} digest batches, each submitted under "
@@ -1414,7 +1457,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
         raise AssertionError("the BLAKE3 pack's bootstrap digests differ from the plain version")
     del data
     pack_runs = []
-    for _ in range(3):
+    for _ in range(PACK_REPS):
         got = []
         pack_runs.append(host_timed(lambda: got.append(
             pack_layer(tar, PackOption(backend="fused", **opt), device=dev)[0])))
@@ -1446,7 +1489,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
         raise AssertionError(f"jax BLAKE3 pack launched {jax_launches} for {n_files} non-empty "
                              f"files, {len(submits)} digest batches")
     jax_runs = []
-    for _ in range(3):
+    for _ in range(PACK_REPS):
         got = []
         jax_runs.append(host_timed(lambda: got.append(
             pack_layer(tar, PackOption(backend="jax", **opt), device=dev)[0])))
@@ -1629,7 +1672,7 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
                 raise AssertionError(f"{codec} pack {lane} launched {launches}; want {want} "
                                      f"({n_files} non-empty files, {batches} digest batches)")
             runs, stats = [], []
-            for _ in range(3):
+            for _ in range(PACK_REPS):
                 st, blobs = {}, []
                 runs.append(host_timed(lambda: blobs.append(
                     pack_layer(tar, PackOption(backend=lane, **opt), device=dev, stats=st)[0])))
@@ -1936,7 +1979,7 @@ def fused_after_insert_phase(dev, eng, files, first, cdict, kernels) -> dict:
         raise AssertionError("an inserted digest does not answer its assigned index")
     hits = int((res.probe > 0).sum())
     runs = []
-    for _ in range(3):
+    for _ in range(PACK_REPS):
         t0 = time.perf_counter()
         again = eng.process_many(files, chunk_dict=cdict)
         runs.append(time.perf_counter() - t0)
@@ -1946,7 +1989,7 @@ def fused_after_insert_phase(dev, eng, files, first, cdict, kernels) -> dict:
         f"into phase 2's dict (epoch {epoch0} -> {epoch}, max chain {depth}) in "
         f"{insert_s * 1e3:.1f} ms; process_many {wall_s:.3f} s (the dict's restage included), "
         f"launches {launches}; {len(q_host)} probe answers == host probe of the grown table, "
-        f"{hits} hits, every inserted digest == its assigned index; median of 3 after it "
+        f"{hits} hits, every inserted digest == its assigned index; median of {PACK_REPS} after it "
         f"{np.median(runs):.3f} s (runs " + ", ".join(f"{x:.3f}" for x in runs) + " s)")
     return {"launches": launches, "insert_s": insert_s, "wall_s": wall_s, "hits": hits,
             "depth": depth, "median_s": float(np.median(runs)), "runs_s": runs}
@@ -2220,7 +2263,7 @@ def host_arms_phase(dev, files, res_sha, windowed, b3, e2e_s, tar, comp, kernels
             raise AssertionError(f"hybrid digests ({digester}, {chunk_size >> 10} KiB) differ from "
                                  f"{against}")
         runs = [host_timed(lambda: eng.process_many(files)) for _ in range(HYBRID_REPS)]
-        wall = float(np.median([r[0] for r in runs]))
+        wall = float(np.median([r[0] for r in runs])) if runs else first
         log(f"[12] ChunkDigestEngine(backend='hybrid', digester='{digester}') at "
             f"{chunk_size >> 10} KiB chunks: {len(want_sizes)} chunks, every cut and digest == "
             f"{against}; no launch; checked run {first:.3f} s, median {wall:.3f} s over {HYBRID_REPS} = "
@@ -2257,7 +2300,7 @@ def host_arms_phase(dev, files, res_sha, windowed, b3, e2e_s, tar, comp, kernels
                 raise AssertionError(f"the hybrid pack ({name}) took {route}; want lane {want_lane}, "
                                      "the deferred writer's native pass")
             runs, stats = [], []
-            for _ in range(3):
+            for _ in range(PACK_REPS):
                 st_r, blobs = {}, []
                 runs.append(host_timed(lambda: blobs.append(pack_layer(tar, hopt, stats=st_r)[0])))
                 stats.append(st_r)
@@ -2539,8 +2582,8 @@ def image_phase(dev, files, kernels, t_start: float) -> dict:
         again, wall = run("fused", "fused")
         same(again, fused, "fused batch's timed run")
         fused_walls.append(wall)
-    del again
-    fused_wall = float(np.median(fused_walls))
+        del again
+    fused_wall = float(np.median(fused_walls)) if fused_walls else fused_first
     zero()
     serial, serial_wall = run("fused", "fanout1", layer_fanout=1, memory_budget_mib=256)
     serial_launches = counts()
@@ -2819,7 +2862,7 @@ def codec_cipher_phase(dev, tar, files, comp, kernels) -> dict:
     ratio = res.blob_size / file_bytes
     fixed_ratio = comp["codecs"]["zstd"]["ratio"]
     runs, stats = [], []
-    for _ in range(2):
+    for _ in range(PACK_REPS):
         c = adaptive()
         st, got = {}, []
         runs.append(host_timed(lambda: got.append(
@@ -3217,14 +3260,484 @@ def mesh_phase(dev, files, res, digests, q_all, answers, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the HA dict plane
+# ---------------------------------------------------------------------------
+
+HA_SYNTH_CHUNKS = 1 << 20  # synthetic chunk records in the replicated namespace
+HA_NS = "registry"
+HA_BATCH_NS = "batch"
+
+
+def records_bootstrap(chunks, blob_id: str, chunk_size: int = CHUNK_SIZE) -> bytes:
+    """A dict-image bootstrap of ``chunks`` = [(digest, uoff, usize)] in one
+    blob, stored uncompressed."""
+    from nydus_snapshotter_tpu_torch.models.bootstrap import BlobRecord, Bootstrap, ChunkRecord
+
+    recs = [ChunkRecord(digest=d, blob_index=0, flags=0, uncompressed_offset=o,
+                        compressed_offset=o, uncompressed_size=s, compressed_size=s)
+            for d, o, s in chunks]
+    total = sum(s for _d, _o, s in chunks)
+    blob = BlobRecord(blob_id=blob_id, compressed_size=total, uncompressed_size=total,
+                      chunk_count=len(recs))
+    return Bootstrap(chunk_size=chunk_size, inodes=[], chunks=recs, blobs=[blob]).to_bytes()
+
+
+def layer_records(files, res) -> list:
+    """Phase 2's chunks as (digest, offset in the joined layer, size)."""
+    out, base = [], 0
+    for f, cuts, digs in zip(files, res.cuts, res.digests):
+        prev = 0
+        for cut, d in zip(cuts, digs):
+            out.append((d, base + prev, int(cut) - prev))
+            prev = int(cut)
+        base += f.size
+    return out
+
+
+def ha_phase(dev, files, res, res_f, q_all, kernels) -> dict:
+    """Phase 16: a primary ``ha.runner`` child on the card, an in-process
+    replica (DictService + HaAgent on the card) placed by an in-process
+    PlacementController; catch-up from zero, identical tables and answers,
+    and a failover batch with the primary SIGKILLed after its first image."""
+    import os
+    import signal
+    import subprocess
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch import fleet
+    from nydus_snapshotter_tpu_torch.converter import PackOption, batch
+    from nydus_snapshotter_tpu_torch.ha.placement import PlacementController, _rank
+    from nydus_snapshotter_tpu_torch.ha.replicate import HaAgent
+    from nydus_snapshotter_tpu_torch.parallel.dict_service import DictClient, DictService
+    from nydus_snapshotter_tpu_torch.utils import udshttp
+
+    t_phase = time.perf_counter()
+    probe = kernels["probe"]
+    tmp = tempfile.mkdtemp(prefix="ntpu-ha-")
+    psock, rsock, osock = (str(Path(tmp) / n) for n in ("p.sock", "r.sock", "o.sock"))
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    env.pop("NTPU_FLEET_CONTROLLER", None)
+    child_log = open(Path(tmp) / "primary.log", "wb")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "nydus_snapshotter_tpu_torch.ha.runner", "--listen", psock,
+         "--role", "primary", "--device", str(dev)],
+        cwd=str(Path(__file__).resolve().parent), env=env, stdout=child_log,
+        stderr=subprocess.STDOUT)
+    repl = DictService(device=dev)
+    agent = HaAgent(repl, role="unassigned")
+    oracle = DictService(device=dev)
+    try:
+        # the namespace's contents, made while the child reaches the card
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 16)
+        synth = rng.integers(0, 2**32, (HA_SYNTH_CHUNKS, 8), dtype=np.uint32)
+        sdigs = synth.view(np.uint8).reshape(-1, 32)
+        synth_boot = records_bootstrap(
+            [(sdigs[i].tobytes(), i * CHUNK_SIZE, CHUNK_SIZE) for i in range(HA_SYNTH_CHUNKS)],
+            f"{SEED + 16:064x}")
+        layer_recs = layer_records(files, res)
+        layer_boot = records_bootstrap(layer_recs, hashlib.sha256(b"phase 2 layer").hexdigest())
+        boots = [("phase 4 tar", res_f.bootstrap), ("phase 2 layer", layer_boot),
+                 ("synthetic", synth_boot)]
+        t_make = time.perf_counter() - t0
+        deadline = time.monotonic() + 120
+        while True:
+            if child.poll() is not None:
+                raise AssertionError(f"the primary runner exited with {child.returncode}: "
+                                     + (Path(tmp) / "primary.log").read_text()[-2000:])
+            try:
+                if udshttp.get_json(psock, "/api/v1/ha/status", timeout=1.0)["role"] == "primary":
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError("the primary runner's socket never answered")
+            time.sleep(0.1)
+        t_child = time.perf_counter() - t_phase
+        pcli = DictClient(psock, timeout=300)
+        t0 = time.perf_counter()
+        added = [pcli.merge(b, HA_NS)["added"] for _n, b in boots]
+        t_merge = time.perf_counter() - t0
+        total = pcli.stats(HA_NS)["chunks"]
+        if total != sum(added) or added[2] != HA_SYNTH_CHUNKS:
+            raise AssertionError(f"primary merges added {added}, holds {total} chunks")
+        log(f"[16] primary ha.runner child (pid {child.pid}) on {dev}: answering after "
+            f"{t_child:.1f} s; namespace {HA_NS!r}: phase 4's tar bootstrap, phase 2's layer "
+            f"({len(layer_recs)} chunks) and {HA_SYNTH_CHUNKS} synthetic records, built in "
+            f"{t_make:.1f} s, merged in {t_merge:.1f} s -> {total} records "
+            f"({total * 64 / 2**20:.1f} MiB of chunk rows)")
+
+        # -- placement: the child is the rank-first member, so it stays primary
+        repl.run(rsock)
+        names = _rank(0, ["dict-a", "dict-b"])
+        pname, rname = names
+        members = [fleet.Member(name=pname, component="dict", address=psock, pid=child.pid),
+                   fleet.Member(name=rname, component="dict", address=rsock, pid=os.getpid())]
+        live = {m.name: {"up": True, "stale": False} for m in members}
+        pc = PlacementController(lambda: members, lambda: dict(live), shards=1, replicas=1)
+        t0 = time.perf_counter()
+        if not pc.tick():
+            raise AssertionError("the first placement tick changed nothing")
+        seat = pc.map()["assignments"][0]
+        if seat["primary"]["address"] != psock or agent.role != "replica":
+            raise AssertionError(f"placement {seat}; the replica's role {agent.role}")
+        rsd = None
+        while True:  # catch-up from zero
+            sd = repl._dicts.get(HA_NS)
+            if sd is not None and len(sd.records.bootstrap.chunks) >= total:
+                rsd = sd
+                break
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError(f"the replica did not catch up: {agent.status()}")
+            time.sleep(0.01)
+        t_catch = time.perf_counter() - t0
+        tail = agent.tailer.status()
+        budget = tail["budget_bytes"]
+        if tail["max_pull_bytes"] > budget + 4096:  # a pull's non-chunk slack
+            raise AssertionError(f"a pull of {tail['max_pull_bytes']} bytes over the "
+                                 f"{budget}-byte budget")
+        restages_catch = rsd.index.restages
+        with tempfile.TemporaryDirectory() as d:
+            pcli.save(str(Path(d) / "p.boot"), HA_NS)
+            rsd.records.save(str(Path(d) / "r.boot"))
+            if (Path(d) / "p.boot").read_bytes() != (Path(d) / "r.boot").read_bytes():
+                raise AssertionError("the replica's record tables differ from the primary's")
+        q_bytes = [row.astype(">u4").tobytes() for row in q_all]  # K2's words -> digests
+        t0 = time.perf_counter()
+        want = pcli.probe(q_bytes, HA_NS)
+        p_probe_ms = 1e3 * (time.perf_counter() - t0)
+        probe.launches = 0
+        t0 = time.perf_counter()
+        got = rsd.probe(b"".join(q_bytes))
+        r_probe_ms = 1e3 * (time.perf_counter() - t0)
+        replica_k3 = probe.launches
+        if replica_k3 != 1 or not np.array_equal(got, want):
+            raise AssertionError(f"replica probe: {replica_k3} K3 launches, answers equal "
+                                 f"{np.array_equal(got, want)}")
+        hits = int((want >= 0).sum())
+        if hits != len(q_all):  # phase 2's layer is in the namespace: every query hits
+            raise AssertionError(f"{hits} of {len(q_all)} of phase 5's queries hit")
+        log(f"[16] replica (in process, {dev}): caught up from zero in {t_catch:.3f} s over "
+            f"{tail['pulls']} pulls (budget {budget} bytes, largest pull {tail['max_pull_bytes']} "
+            f"bytes), {restages_catch} restages during catch-up; record tables == the primary's "
+            f"(saved bootstrap, {total} records); phase 5's {len(q_all)} queries: primary RPC "
+            f"{p_probe_ms:.1f} ms, replica lookup {r_probe_ms:.1f} ms (first probe: restage + "
+            f"K3, {replica_k3} launch), answers identical ({hits} hits)")
+
+        # -- the failover batch ------------------------------------------------
+        img = image_members(files)
+        low = [named_tar(m) for m in img[4:6]]
+        top, _gone, _opaque = image_b_top(img, FileGen(SEED + 16), "text")
+        images = [("A", low), ("B", [low[0], top])]
+        in_bytes = sum(len(t) for _n, ts in images for t in ts)
+        opt = PackOption(backend="fused", chunk_size=CHUNK_SIZE, compressor="none")
+        oracle.run(osock)
+        t0 = time.perf_counter()
+        obc = batch.BatchConverter(opt, dict_service=osock, namespace=HA_BATCH_NS, device=dev)
+        try:
+            want_imgs = [obc.convert_image(n, ts) for n, ts in images]
+        finally:
+            obc.dict.close()
+        t_oracle = time.perf_counter() - t0
+        for k in kernels.values():
+            k.launches = 0
+        hbc = batch.BatchConverter(opt, dict_service=f"service://{psock}|{rsock}",
+                                   namespace=HA_BATCH_NS, device=dev)
+        try:
+            got_imgs = [hbc.convert_image(*images[0])]
+            first_launches = {key: k.launches for key, k in kernels.items()}
+            reg = agent.tailer.status()["namespaces"][HA_NS]
+            if reg["resyncs"] or len(rsd.records.bootstrap.chunks) != total:
+                raise AssertionError(f"the replica's {HA_NS!r} namespace before the kill: {reg}")
+            child.send_signal(signal.SIGKILL)
+            child.wait(timeout=30)
+            t_kill = time.perf_counter()
+            live[pname] = {"up": False, "stale": True}
+            pc.report_down(pname, source="chip_smoke")
+            if not pc.tick() or not agent.is_primary():
+                raise AssertionError(f"no promotion: {pc.map()}")
+            t_promoted = time.perf_counter()
+            if len(repl.dict_for(HA_NS).records.bootstrap.chunks) != total:
+                raise AssertionError("the promoted replica lost records of the namespace")
+            hbc.dict.sync()  # the dead primary fails the RPC: failover + repair
+            t_failover = time.perf_counter()
+            if hbc.dict.client.sock_path != rsock:
+                raise AssertionError("the mirror did not fail over to the promoted replica")
+            got_imgs.append(hbc.convert_image(*images[1]))
+            t_acked = time.perf_counter()
+        finally:
+            hbc.dict.close()
+        batch_launches = {key: k.launches for key, k in kernels.items()}
+        for g, w in zip(got_imgs, want_imgs):
+            if (g.bootstrap, g.blob_digests, g.layer_blobs) != (w.bootstrap, w.blob_digests,
+                                                                w.layer_blobs):
+                raise AssertionError(f"image {g.name}: the failover batch differs from the oracle")
+        n_layers = sum(len(ts) for _n, ts in images)
+        if batch_launches["gear"] != n_layers or batch_launches["sha"] != n_layers:
+            raise AssertionError(f"the failover batch launched {batch_launches}")
+        probe.launches = 0
+        rcli = DictClient(rsock)
+        again = rcli.probe(q_bytes, HA_NS)
+        promoted_k3 = probe.launches
+        rcli.close()
+        if promoted_k3 != 1 or not np.array_equal(again, want):
+            raise AssertionError(f"the promoted replica's probe RPC: {promoted_k3} K3 launches")
+        ev = pc.map()["events"][-1]
+        log(f"[16] failover batch: 2 images, {n_layers} layers, {in_bytes} bytes of tar; oracle "
+            f"(one DictService) {t_oracle:.1f} s; through service://primary|replica: image A, "
+            f"SIGKILL of the primary child, report_down + tick promoted {ev['to']} "
+            f"(applied_chunks {ev['applied_chunks']}) {1e3 * (t_promoted - t_kill):.1f} ms after "
+            f"the kill, the mirror failed over {1e3 * (t_failover - t_kill):.1f} ms after it, "
+            f"image B's merge acknowledged {t_acked - t_kill:.2f} s after it; every blob and "
+            f"bootstrap == the oracle's; launches {batch_launches} (image A {first_launches}); "
+            f"the promoted replica's probe RPC: {promoted_k3} K3 launch, answers == before")
+        out = {
+            "records": total, "synthetic_records": HA_SYNTH_CHUNKS, "catch_up_s": t_catch,
+            "pulls": tail["pulls"], "max_pull_bytes": tail["max_pull_bytes"],
+            "budget_bytes": budget, "restages_during_catch_up": restages_catch,
+            "primary_probe_rpc_ms": p_probe_ms, "replica_probe_ms": r_probe_ms,
+            "replica_probe_launches": replica_k3, "promoted_probe_launches": promoted_k3,
+            "kill_to_promoted_ms": 1e3 * (t_promoted - t_kill),
+            "kill_to_failover_ms": 1e3 * (t_failover - t_kill),
+            "kill_to_first_merge_acked_s": t_acked - t_kill,
+            "batch_launches": batch_launches, "batch_input_bytes": in_bytes,
+            "oracle_batch_s": t_oracle,
+        }
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait(timeout=30)
+        child_log.close()
+        if agent.tailer is not None:
+            agent.tailer.stop()
+        repl.stop()
+        oracle.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[16] {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: OCIRef layers
+# ---------------------------------------------------------------------------
+
+OCIREF_READS = 64
+OCIREF_GZIP_MEMBERS = 8  # the tar compressed as concatenated gzip members, in parallel
+OCIREF_HOOK_LAYER_MIB = 2
+
+
+def ociref_phase(dev, tar, kernels) -> dict:
+    """Phase 17: the OCIRef conversion of phase 4's tar as gzip and zstd
+    layers on the card's digest kernels, lazy reads, Unpack, and the
+    image-converter hooks over a content store."""
+    import gzip
+    import json as json_mod
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nydus_snapshotter_tpu_torch.converter import MergeOption, PackOption, Unpack, hooks
+    from nydus_snapshotter_tpu_torch.converter import content, convert, zran, zstd_ref
+    from nydus_snapshotter_tpu_torch.models import fstree
+    from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
+    from nydus_snapshotter_tpu_torch.remote.registry import Descriptor
+    from nydus_snapshotter_tpu_torch.utils import zstd
+
+    t_phase = time.perf_counter()
+    if not zstd.frames_available():
+        raise AssertionError("the system libzstd lacks the frame surface (zstd OCIRef layers)")
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, {key: k.launches for key, k in kernels.items()}
+
+    # -- the compressed layers: gzip level 1 in parallel members, zstd -3 ----
+    t0 = time.perf_counter()
+    step = -(-len(tar) // OCIREF_GZIP_MEMBERS)
+    with ThreadPoolExecutor(OCIREF_GZIP_MEMBERS + 1) as pool:
+        zs_f = pool.submit(zstd.compress_block, tar, 3)
+        parts = list(pool.map(lambda i: gzip.compress(tar[i:i + step], compresslevel=1, mtime=0),
+                              range(0, len(tar), step)))
+        zs = zs_f.result()
+    gz = b"".join(parts)
+    t_comp = time.perf_counter() - t0
+    log(f"[17] layers: phase 4's {len(tar)} byte tar -> gzip level 1 in {len(parts)} members "
+        f"{len(gz)} bytes, zstd -3 {len(zs)} bytes, in {t_comp:.2f} s (threads)")
+
+    # -- ref packs: the host path and the device engine, SHA-256 and BLAKE3 --
+    packs, rows = {}, []
+    for fmt, raw, pack_fn in (("gzip", gz, zran.pack_gzip_layer),
+                              ("zstd", zs, zstd_ref.pack_zstd_layer)):
+        for digester in ("sha256", "blake3"):
+            opt = PackOption(oci_ref=True, chunk_size=CHUNK_SIZE, digester=digester)
+            # the host path inflates the layer itself once; the rest hand the tar over
+            kw = {} if digester == "sha256" else {"tar_bytes": tar}
+            host, host_s, host_l = counted(lambda: pack_fn(raw, opt, **kw))
+            eng = ChunkDigestEngine(chunk_size=CHUNK_SIZE, backend="jax", digest_backend="jax",
+                                    digester=digester, device=dev)
+            dbs, dev_s, dev_l = counted(lambda: pack_fn(raw, opt, engine=eng, tar_bytes=tar))
+            if any(host_l.values()):
+                raise AssertionError(f"the host {fmt} ref pack launched {host_l}")
+            want_l = ({"sha"} if digester == "sha256" else {"b3_leaves", "b3_parents"})
+            if {k for k, n in dev_l.items() if n} != want_l:
+                raise AssertionError(f"the device {fmt}/{digester} ref pack launched {dev_l}")
+            if dbs.to_bytes() != host.to_bytes():
+                raise AssertionError(f"{fmt}/{digester}: the device engine's bootstrap differs")
+            packs[(fmt, digester)] = host
+            rows.append(f"{fmt}/{digester} host {host_s:.2f} s, device {dev_s:.2f} s "
+                        f"({', '.join(f'{k} {n}' for k, n in dev_l.items() if n)})")
+            packs[(fmt, digester, "launches")] = dev_l
+            packs[(fmt, digester, "s")] = (host_s, dev_s)
+    bs_gz, bs_zs = packs[("gzip", "sha256")], packs[("zstd", "sha256")]
+    log(f"[17] ref packs ({len(bs_gz.chunks)} chunks of {len(bs_gz.inodes)} inodes; the "
+        f"device engine's bootstraps == the host path's): " + "; ".join(rows))
+
+    # -- lazy reads: 64 seeded random files through each reader --------------
+    regs = [i for i in bs_gz.inodes if i.chunk_count]
+    pick = np.random.default_rng(SEED + 17).choice(len(regs), OCIREF_READS, replace=False)
+
+    def file_reads(bs, raw, order):
+        reader = convert.BlobReader(bs, 0, lambda o, s: raw[o:o + s])
+        by_path = bs.inode_by_path()
+        n = 0
+        for k in order:
+            ino = by_path[regs[k].path]
+            recs = bs.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]
+            got = b"".join(reader.chunk_data(c) for c in recs)
+            lo = recs[0].uncompressed_offset
+            if got != tar[lo:lo + ino.size]:
+                raise AssertionError(f"{ino.path}: the ref read differs from the tar's bytes")
+            n += len(recs)
+        return n
+
+    t0 = time.perf_counter()
+    n_gz = file_reads(bs_gz, gz, pick)  # random order: the gzip checkpoints
+    t_gz = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_zs = file_reads(bs_zs, zs, sorted(pick, key=lambda k: bs_gz.chunks[regs[k].chunk_index]
+                                        .uncompressed_offset))
+    t_zs = time.perf_counter() - t0
+    log(f"[17] reads: seeded random files == the tar's bytes: {OCIREF_READS} through the gzip "
+        f"checkpoints, random order, {n_gz} chunks in {t_gz:.2f} s; the same {OCIREF_READS} "
+        f"through the zstd sequential cursor, ascending offsets, {n_zs} chunks in {t_zs:.2f} s")
+
+    # -- Unpack of the whole gzip ref layer --------------------------------------
+    def tree(tar_bytes):
+        with tarfile.open(fileobj=io.BytesIO(tar_bytes)) as tf:
+            return {fstree.norm_path(m.name): tf.extractfile(m).read() if m.isreg() else m.linkname
+                    for m in tf if m.isreg() or m.issym()}
+
+    t0 = time.perf_counter()
+    out = Unpack(bs_gz, {bs_gz.blobs[0].blob_id: gz})
+    t_unpack = time.perf_counter() - t0
+    want = tree(tar)
+    if tree(out) != want:
+        raise AssertionError("Unpack of the gzip ref layer differs from the tar's tree")
+    del out
+    log(f"[17] Unpack of the gzip ref layer ({len(want)} files and links, {len(tar)} bytes of "
+        f"tar, {len(bs_gz.chunks)} chunks; stream chunks in ascending offset order) == the "
+        f"tar's tree in {t_unpack:.2f} s")
+
+    # -- hooks: a three-layer gzip OCI image, packed and oci_ref ----------------
+    gen = FileGen(SEED + 171)
+    layers = [named_tar([(f"l{li}/f{fi}.bin", f) for fi, f in enumerate(gen.pool(OCIREF_HOOK_LAYER_MIB))])
+              for li in range(3)]
+    hook_rows = {}
+
+    def publish(cs):
+        """The image in ``cs`` -> (manifest descriptor, layer descriptors)."""
+        descs = []
+        for lt in layers:
+            info = cs.write_blob(gzip.compress(lt, compresslevel=1, mtime=0))
+            descs.append({"mediaType": "application/vnd.oci.image.layer.v1.tar+gzip",
+                          "digest": info.digest, "size": info.size})
+        cfg = cs.write_blob(json_mod.dumps({"architecture": "amd64", "os": "linux",
+                                            "rootfs": {"type": "layers", "diff_ids": []}}).encode())
+        man = cs.write_blob(json_mod.dumps({
+            "schemaVersion": 2, "mediaType": "application/vnd.oci.image.manifest.v1+json",
+            "config": {"mediaType": "application/vnd.oci.image.config.v1+json",
+                       "digest": cfg.digest, "size": cfg.size},
+            "layers": descs}).encode())
+        return Descriptor("application/vnd.oci.image.manifest.v1+json", man.digest, man.size), descs
+
+    # each arm in a store of its own: the conversion-cache label would
+    # otherwise answer the second arm with the first one's blobs
+    for arm, popt in (("packed", PackOption(backend="fused", chunk_size=CHUNK_SIZE)),
+                      ("oci_ref", PackOption(oci_ref=True, chunk_size=CHUNK_SIZE))):
+        with tempfile.TemporaryDirectory() as d:
+            cs = content.LocalContentStore(d)
+            man_desc, descs = publish(cs)
+            new, hook_s, hook_l = counted(lambda: hooks.convert_image(
+                cs, man_desc, popt, MergeOption(oci=True), device=dev))
+            manifest = json_mod.loads(cs.read(new.digest))
+            if not hooks.is_nydus_image(manifest) or len(manifest["layers"]) != 4:
+                raise AssertionError(f"hooks {arm}: not a four-layer nydus manifest")
+            config = json_mod.loads(cs.read(manifest["config"]["digest"]))
+            if len(config["rootfs"]["diff_ids"]) != 4:
+                raise AssertionError(f"hooks {arm}: {config['rootfs']['diff_ids']}")
+            boot = convert.bootstrap_from_bootstrap_layer(
+                gzip.decompress(cs.read(manifest["layers"][-1]["digest"])))
+            provider = {}
+            for lj, src in zip(manifest["layers"][:-1], descs):
+                if arm == "oci_ref":  # the original gzip layer is the data
+                    provider[src["digest"].split(":")[1]] = cs.read(src["digest"])
+                else:
+                    stream = cs.read(lj["digest"])
+                    for b in convert.bootstrap_from_layer_blob(stream).blobs:
+                        provider[b.blob_id] = convert.blob_data_from_layer_blob(stream)
+            by_path = boot.inode_by_path()
+            for li, lt in enumerate(layers):
+                with tarfile.open(fileobj=io.BytesIO(lt)) as tf:
+                    members = [m for m in tf if m.isreg()]
+                m = members[len(members) // 2]  # one file of each layer, read back
+                ino = by_path[fstree.norm_path(m.name)]
+                recs = boot.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]
+                data = provider[boot.blobs[recs[0].blob_index].blob_id]
+                reader = convert.BlobReader(boot, recs[0].blob_index, lambda o, s: data[o:o + s])
+                if b"".join(reader.chunk_data(c) for c in recs) != lt[m.offset_data:m.offset_data + m.size]:
+                    raise AssertionError(f"hooks {arm}: layer {li} does not read back")
+            # oci_ref: K2 digests each layer's index (on the host under a
+            # CPU rehearsal, as hooks do for device="cpu")
+            want_l = ({"gear": 3, "sha": 3} if arm == "packed"
+                      else {"sha": 3} if dev.type == "cuda" else {})
+            if {k: n for k, n in hook_l.items() if n} != want_l:
+                raise AssertionError(f"hooks {arm} launched {hook_l}; want {want_l}")
+            hook_rows[arm] = {"s": hook_s, "launches": hook_l, "manifest": new.digest}
+            log(f"[17] hooks.convert_image ({arm}): 3 gzip layers of {OCIREF_HOOK_LAYER_MIB} MiB "
+                f"-> {new.digest[:19]}.., a four-layer nydus manifest with its config; a file of "
+                f"each layer read back; {hook_s:.2f} s, launches "
+                + (", ".join(f"{k} {n}" for k, n in hook_l.items() if n) or "none"))
+    out_d = {
+        "gzip_bytes": len(gz), "zstd_bytes": len(zs), "compress_s": t_comp,
+        "chunks": len(bs_gz.chunks),
+        "packs": {f"{f}/{g}": {"host_s": packs[(f, g, "s")][0], "device_s": packs[(f, g, "s")][1],
+                               "launches": packs[(f, g, "launches")]}
+                  for f in ("gzip", "zstd") for g in ("sha256", "blake3")},
+        "reads": {"gzip_files": OCIREF_READS, "gzip_chunks": n_gz, "gzip_s": t_gz,
+                  "zstd_files": OCIREF_READS, "zstd_chunks": n_zs, "zstd_s": t_zs},
+        "unpack": {"files": len(want), "tar_bytes": len(tar), "s": t_unpack},
+        "hooks": hook_rows,
+    }
+    out_d["phase_s"] = time.perf_counter() - t_phase
+    log(f"[17] {out_d['phase_s']:.1f} s")
+    return out_d
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    if args not in ([], ["--mesh-only"]):
-        print(f"usage: {sys.argv[0]} [--mesh-only]", file=sys.stderr)
+    if args not in ([], ["--mesh-only"], ["--ha-only"]):
+        print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only]", file=sys.stderr)
         return 2
     mesh_only = args == ["--mesh-only"]
+    ha_only = args == ["--ha-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3481,6 +3994,18 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                   "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if ha_only:  # phases 0-3, phase 4's checked fused pack, then 16 and 17
+        tar = layer_tar(FileGen(SEED + 3).pool(PACK_MIB))
+        _blob_f, res_f = pack_layer(tar, PackOption(backend="fused", chunk_size=CHUNK_SIZE,
+                                                    compressor="none"), device=dev)
+        ha = ha_phase(dev, files, res, res_f, to_u32(allq), all_kernels)
+        ociref = ociref_phase(dev, tar, all_kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--ha-only: phases 0-3, 16 and 17)")
+        print(smi, flush=True)
+        print(json.dumps({"ha": ha, "ociref": ociref}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3500,7 +4025,7 @@ def main() -> int:
     pack_runs, fused_stats = {}, []
     for backend, want in (("fused", blob_f), ("numpy", blob_n)):
         pack_runs[backend] = []
-        for _ in range(3):
+        for _ in range(PACK_REPS):
             got, st = [], {}
             pack_runs[backend].append(host_timed(lambda: got.append(
                 pack_layer(tar, PackOption(backend=backend, **opt), device=dev, stats=st)[0])))
@@ -3510,7 +4035,7 @@ def main() -> int:
                 fused_stats.append(st)
     log(f"[4] pack: {len(tar)} byte tar (built in {t_gen:.1f} s) -> {len(blob_f)} byte layer "
         f"blob, blob id {res_f.blob_id[:16]}..; fused == numpy byte for byte; checked runs fused "
-        f"{t_fused:.3f} s, numpy {t_numpy:.3f} s; median of 3 after them (runs, wall / host CPU "
+        f"{t_fused:.3f} s, numpy {t_numpy:.3f} s; median of {PACK_REPS} after them (runs, wall / host CPU "
         "s / minor page faults): " + "; ".join(
             f"{b} {np.median([r[0] for r in rs]):.3f} s ("
             + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in rs) + ")"
@@ -3656,6 +4181,18 @@ def main() -> int:
     # -- 15. the device mesh: the sharded dict and its probes, the sharded step --
     mesh = mesh_phase(dev, files, res, digests, q_all, to_u32(k3), kernels)
 
+    # -- 16. the HA dict plane: replica catch-up, promotion, a failover batch --
+    ha = ha_phase(dev, files, res, res_f, q_all, all_kernels)
+
+    # -- 17. OCIRef layers: gzip and zstd ref packs, reads, Unpack, the hooks --
+    ociref = ociref_phase(dev, tar, all_kernels)
+
+    def ociref_launches(*keys):  # phase 17: per ref pack and hooks arm
+        out = {name: sum(r["launches"][k] for k in keys) for name, r in ociref["packs"].items()}
+        out.update({f"hooks_{arm}": sum(r["launches"][k] for k in keys)
+                    for arm, r in ociref["hooks"].items()})
+        return out
+
     def row(key, name, source, replaces, err, kern, call, plain, bound, main_kern, main_call,
             main_bound, work, n_launches=None, **extra):
         return {
@@ -3691,6 +4228,7 @@ def main() -> int:
             pack_compressed_launches=comp_launches("gear"),
             image_batch_launches=images["launches"]["gear"], image_batch_layers=images["layers"],
             codec_cipher_launches=cc_launches("gear"), mesh_launches=mesh_launches("gear"),
+            ha_batch_launches=ha["batch_launches"]["gear"], ociref_launches=ociref_launches("gear"),
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -3705,6 +4243,7 @@ def main() -> int:
             pack_compressed_launches=comp_launches("sha"),
             image_batch_launches=images["launches"]["sha"], image_batch_layers=images["layers"],
             codec_cipher_launches=cc_launches("sha"), mesh_launches=mesh_launches("sha"),
+            ha_batch_launches=ha["batch_launches"]["sha"], ociref_launches=ociref_launches("sha"),
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -3716,6 +4255,9 @@ def main() -> int:
             service_probe_launches=service["probe_launches"],
             fused_after_insert_launches=fused_grown["launches"]["probe"],
             mesh_launches=mesh_launches("probe"),
+            ha_replica_probe_launches=ha["replica_probe_launches"],
+            ha_promoted_probe_launches=ha["promoted_probe_launches"],
+            ha={k: v for k, v in ha.items() if k != "batch_launches"},
             growth=growth, service=service, fused_after_insert=fused_grown,
             mesh={k: v for k, v in mesh.items() if k != "launches"}),
         row(None, "blake3_chunks", pkg + "blake3.cu",
@@ -3740,6 +4282,7 @@ def main() -> int:
             + comp["all_options"]["launches"]["b3_parents"],
             codec_cipher_launches=cc["adaptive"]["blake3_launches"]["b3_leaves"]
             + cc["adaptive"]["blake3_launches"]["b3_parents"],
+            ociref_launches=ociref_launches("b3_leaves", "b3_parents"),
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

@@ -26,9 +26,12 @@ applies to every image after it, and a service-backed batch adopts the
 namespace's dictionary before its first image and publishes the one it
 trains.
 
-Refused with ``ConvertError``: the HA dict service (``service+ha://``,
-``|`` failover groups) with ``GrowingChunkDict.append_records``, its
-replica path.
+A service-backed batch takes ``dict_service=`` (or ``NTPU_DICT_SERVICE``)
+in every shape ``open_chunk_dict`` resolves: ``service://`` addresses,
+comma-separated rendezvous shards, ``|`` failover groups (a shard's
+replicas, failed over to mid-batch) and ``service+ha://<controller>``
+(shards and failover candidates from the controller's placement map).
+``GrowingChunkDict.append_records`` is the HA replica's verbatim apply.
 """
 
 from __future__ import annotations
@@ -148,6 +151,32 @@ class GrowingChunkDict:
                     )
         return added
 
+    def append_records(self, chunks, blobs, batches, ciphers) -> None:
+        """Verbatim append of already-merged record rows (the HA replica's
+        apply path, ``ServiceDict.apply_replica_tail``): no per-digest dedup
+        and no blob reindexing, so the rows land at exactly the primary's
+        table positions, which a promoted replica needs to honor the
+        clients' replay cursors. The probe maps are kept so later merges
+        on a promoted replica dedup against the replicated state."""
+        with self._lock:
+            bs = self.bootstrap
+            for rec in blobs:
+                self._blob_index_of.setdefault(rec.blob_id, len(bs.blobs))
+                bs.blobs.append(rec)
+            for rec in chunks:
+                if rec.blob_index >= len(bs.blobs):
+                    raise ConvertError(
+                        f"replica chunk row references blob index "
+                        f"{rec.blob_index} outside the replicated blob table"
+                    )
+                bs.chunks.append(rec)
+                self._by_digest.setdefault(rec.digest, rec)
+            for rec in batches:
+                self._batch_seen.add((rec.blob_index, rec.compressed_offset))
+                bs.batches.append(rec)
+            for rec in ciphers:
+                bs.ciphers.append(rec)
+
     # -- persistence ---------------------------------------------------------
 
     def save(self, path: str) -> None:
@@ -249,16 +278,16 @@ class BatchConverter:
                     "seeds through the service (merge the seed bootstrap "
                     "into the namespace instead)"
                 )
-            if service.startswith("service+ha://") or "|" in service:
-                raise ConvertError(
-                    f"dict service {service!r}: the HA dict service (service+ha://, '|' "
-                    "failover groups; ROADMAP.md Queue A item 6) is not ported"
-                )
             # Comma-separated addresses = a rendezvous-sharded namespace
             # (one DictService process per shard); one address keeps the
-            # single-service path byte-for-byte.
-            if service.startswith("service://"):
-                arg = service if "#" in service else service + "#" + self.namespace
+            # single-service path byte-for-byte. A service:// or
+            # service+ha:// scheme (or "|" failover groups) resolves the HA
+            # topology through open_chunk_dict: replica failover and
+            # placement-map resolution included.
+            if service.startswith(("service://", "service+ha://")) or "|" in service:
+                arg = service if service.startswith("service") else "service://" + service
+                if "#" not in arg:
+                    arg += "#" + self.namespace
                 self.dict = dict_service_mod.open_chunk_dict(arg)
             else:
                 self.dict = dict_service_mod.ServiceChunkDict(

@@ -25,11 +25,15 @@ reference. The output is byte-identical to the reference package's.
 converter/crypto.py) and decodes trained-dictionary ``nZD1`` zstd frames
 through the process-wide registry of converter/codec.py, which fails
 loudly, naming the dictionary id, when the dictionary is not registered.
-
-Refused with :class:`ConvertError`: the OCIRef stream chunks and readers
-of the soci layer (``CHUNK_FLAG_GZIP_STREAM`` of
-converter/zran.py, ``CHUNK_FLAG_ZSTD_STREAM`` of converter/zstd_ref.py,
-``mount_gzip_stream`` / ``mount_zstd_stream``).
+It reads the OCIRef stream chunks of converter/zran.py
+(``CHUNK_FLAG_GZIP_STREAM``: the in-process checkpointed
+``GzipStreamReader``) and converter/zstd_ref.py
+(``CHUNK_FLAG_ZSTD_STREAM``: the sequential ``ZstdSequentialReader``), and
+takes an indexed reader through ``mount_gzip_stream`` /
+``mount_zstd_stream``; the reference's soci index readers that those
+receive are not in this package yet. ``Merge`` and ``Unpack`` take layers
+that mix OCIRef and packed layers; ``Unpack`` reads the stream chunks in
+ascending offset order, one decode pass per blob.
 """
 
 from __future__ import annotations
@@ -54,6 +58,11 @@ from nydus_snapshotter_tpu_torch.converter.pack import (  # noqa: F401  (re-expo
     pack_layer,
 )
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, MergeOption, UnpackOption
+from nydus_snapshotter_tpu_torch.converter.zran import CHUNK_FLAG_GZIP_STREAM, GzipStreamReader
+from nydus_snapshotter_tpu_torch.converter.zstd_ref import (
+    CHUNK_FLAG_ZSTD_STREAM,
+    ZstdSequentialReader,
+)
 from nydus_snapshotter_tpu_torch.models import fstree, layout, nydus_tar, toc
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
     CHUNK_FLAG_BATCH,
@@ -68,11 +77,6 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
 from nydus_snapshotter_tpu_torch.models.nydus_real import RealBootstrapError, load_any_bootstrap
 from nydus_snapshotter_tpu_torch.utils import lz4
 
-# Chunk flags of the reference's OCIRef layers (converter/zran.py,
-# converter/zstd_ref.py): offsets address the decompressed stream of the
-# original .tar.gz / .tar.zst blob.
-CHUNK_FLAG_GZIP_STREAM = 0x400
-CHUNK_FLAG_ZSTD_STREAM = 0x800
 
 
 class ThreadSafeCompressor:
@@ -190,9 +194,9 @@ class BlobReader:
     Resolves the storage transforms a chunk record can carry: per-chunk
     compression, batch packing (``CHUNK_FLAG_BATCH``: several small chunks
     share one compressed extent) and blob encryption (seekable AES-CTR,
-    converter/crypto.py). ``read_at(offset, size)`` returns raw
-    (still-encrypted) blob bytes. An OCIRef stream chunk raises
-    :class:`ConvertError`.
+    converter/crypto.py), and the OCIRef stream chunks, whose offsets
+    address the decompressed stream of the original gzip or zstd blob.
+    ``read_at(offset, size)`` returns raw (still-encrypted) blob bytes.
     """
 
     # Decompressed batches kept hot per reader — bounded so a long-lived
@@ -205,6 +209,8 @@ class BlobReader:
         blob_index: int,
         read_at: Callable[[int, int], bytes],
         batch_map: Optional[dict[tuple[int, int], tuple[int, int]]] = None,
+        gzip_stream=None,
+        zstd_stream=None,
     ):
         self.bootstrap = bootstrap
         self.blob_index = blob_index
@@ -219,12 +225,48 @@ class BlobReader:
         self._batch_lock = threading.Lock()
         self._batch_cache: "OrderedDict[int, bytes]" = OrderedDict()
         self._batch_cache_bytes = 0
+        # OCIRef blobs: a cursor into the original gzip stream, by default
+        # the in-process GzipStreamReader (built lazily, serialized by
+        # _gzip_lock: its inflate cursor is stateful); an injected reader
+        # whose ``concurrent`` flag is set skips the lock.
+        self._gzip_stream = gzip_stream
+        self._gzip_lock = threading.Lock()
+        # The same for whole-zstd OCIRef blobs: an injected frame-indexed
+        # reader, or the sequential cursor built lazily under the lock.
+        self._zstd_stream = zstd_stream
+        self._zstd_lock = threading.Lock()
 
     def mount_gzip_stream(self, stream) -> None:
-        raise ConvertError("OCIRef gzip stream readers (converter/zran.py, soci) are not ported")
+        """Swap in a checkpoint-indexed gzip reader after construction
+        (``read_range(offset, size)`` of decompressed bytes). The attribute
+        swap is atomic; reads served before it used the sequential path,
+        with the same bytes."""
+        self._gzip_stream = stream
 
     def mount_zstd_stream(self, stream) -> None:
-        raise ConvertError("OCIRef zstd stream readers (converter/zstd_ref.py, soci) are not ported")
+        """Swap in a frame-indexed zstd reader after construction, as
+        :meth:`mount_gzip_stream` does for gzip."""
+        self._zstd_stream = stream
+
+    def _stream_read(self, rec: ChunkRecord) -> bytes:
+        """An OCIRef chunk: offsets address the decompressed stream of the
+        original .tar.gz (converter/zran.py) or .tar.zst
+        (converter/zstd_ref.py) blob."""
+        if rec.flags & CHUNK_FLAG_GZIP_STREAM:
+            attr, lock, reader_cls = "_gzip_stream", self._gzip_lock, GzipStreamReader
+        else:
+            attr, lock, reader_cls = "_zstd_stream", self._zstd_lock, ZstdSequentialReader
+        stream = getattr(self, attr)
+        if getattr(stream, "concurrent", False):
+            return stream.read_range(rec.uncompressed_offset, rec.uncompressed_size)
+        with lock:
+            stream = getattr(self, attr)
+            if stream is None:
+                stream = reader_cls(
+                    self._read_plain, self.bootstrap.blobs[self.blob_index].compressed_size
+                )
+                setattr(self, attr, stream)
+            return stream.read_range(rec.uncompressed_offset, rec.uncompressed_size)
 
     def _read_plain(self, offset: int, size: int) -> bytes:
         raw = self.read_at(offset, size)
@@ -242,10 +284,7 @@ class BlobReader:
         if rec.blob_index != self.blob_index:
             raise ConvertError("chunk record belongs to a different blob")
         if rec.flags & (CHUNK_FLAG_GZIP_STREAM | CHUNK_FLAG_ZSTD_STREAM):
-            raise ConvertError(
-                "OCIRef stream chunk: the zran/zstd stream readers (converter/zran.py, "
-                "converter/zstd_ref.py) are not ported"
-            )
+            return self._stream_read(rec)
         if rec.flags & CHUNK_FLAG_BATCH:
             extent = self._batch_map.get((self.blob_index, rec.compressed_offset))
             if extent is None:
@@ -577,13 +616,35 @@ def Unpack(
             readers[blob_index] = make_bytes_reader(bs, blob_index, blob, batch_map)
         return readers[blob_index]
 
+    def has_data(inode) -> bool:
+        return stat.S_ISREG(inode.mode) and inode.chunk_count and not inode.hardlink_target
+
+    # OCIRef stream chunks are read first, in ascending offset order per
+    # blob, so each stream reader's cursor only moves forward: one decode
+    # pass per blob, where path order would seek back and forth.
+    stream_ids = sorted(
+        (
+            ci
+            for inode in bs.inodes
+            if has_data(inode)
+            for ci in range(inode.chunk_index, inode.chunk_index + inode.chunk_count)
+            if bs.chunks[ci].flags & (CHUNK_FLAG_GZIP_STREAM | CHUNK_FLAG_ZSTD_STREAM)
+        ),
+        key=lambda ci: (bs.chunks[ci].blob_index, bs.chunks[ci].uncompressed_offset),
+    )
+    stream_data = {
+        ci: reader_for(bs.chunks[ci].blob_index).chunk_data(bs.chunks[ci]) for ci in stream_ids
+    }
+
     entries: list[fstree.FileEntry] = []
     for inode in bs.inodes:
         data = b""
-        if stat.S_ISREG(inode.mode) and inode.chunk_count and not inode.hardlink_target:
+        if has_data(inode):
             parts = []
-            for rec in bs.chunks[inode.chunk_index : inode.chunk_index + inode.chunk_count]:
-                parts.append(reader_for(rec.blob_index).chunk_data(rec))
+            for ci in range(inode.chunk_index, inode.chunk_index + inode.chunk_count):
+                rec = bs.chunks[ci]
+                part = stream_data.pop(ci, None)
+                parts.append(reader_for(rec.blob_index).chunk_data(rec) if part is None else part)
             data = b"".join(parts)
             if len(data) != inode.size:
                 raise ConvertError(

@@ -64,8 +64,11 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   engine's own dlopen of the same names), never a bundled build.
 - ``prefetch_patterns`` fill the bootstrap's prefetch table;
   ``chunk_dict_path`` opens a chunk dict when none is passed, through
-  parallel/dict_service.open_chunk_dict: ``service://<uds>[,<uds>...]
-  [#namespace]`` is a mirror of a chunk-dict service's namespace,
+  parallel/dict_service.open_chunk_dict: ``service://<uds>[|<replica>...]
+  [,<uds>...][#namespace]`` is a mirror of a chunk-dict service's
+  namespace (``,`` separates rendezvous shards, ``|`` a shard's failover
+  replicas), ``service+ha://<controller>[#namespace]`` the same with the
+  shards and replicas taken from the controller's placement map, and
   ``bootstrap=<file>`` or a bare path a bootstrap of this package's layout.
   ``chunk_dict`` takes any dict with the ``get``/``blob_id_for``/
   ``bootstrap`` interface: ``ChunkDict``, ``GrowingChunkDict``,
@@ -82,10 +85,8 @@ reference package's ``Pack``/``pack_layer`` for the same options:
   them (on the card for ``fused`` and ``jax``), and the codec and the
   cipher run on the host.
 
-Refused with :class:`ConvertError`: the HA chunk-dict service
-(``service+ha://``, ``|`` failover groups). A ``chunk_dict_path``
-bootstrap may be in this package's layout or the real nydus v5/v6 layouts
-(models/nydus_real.load_any_bootstrap).
+A ``chunk_dict_path`` bootstrap may be in this package's layout or the
+real nydus v5/v6 layouts (models/nydus_real.load_any_bootstrap).
 
 An in-memory tar's headers are read by :func:`_fast_tar_members` (the
 reference's header walk; ``tarfile`` where it bails). A file-like
@@ -443,17 +444,8 @@ def match_prefetch_paths(inodes, patterns: str) -> list[str]:
 
 def _check_options(opt: PackOption) -> None:
     opt.validate()
-    refused = []
     if opt.backend not in ("fused", "jax", "hybrid", "numpy"):
-        refused.append(f"backend={opt.backend!r}")
-    path = opt.chunk_dict_path
-    if path.startswith("service+ha://") or (path.startswith("service://") and "|" in path):
-        refused.append(
-            f"chunk_dict_path={path!r} (the HA chunk-dict service, service+ha:// and "
-            "'|' failover groups, is not ported)"
-        )
-    if refused:
-        raise ConvertError(f"Pack does not support {'; '.join(refused)}")
+        raise ConvertError(f"Pack does not support backend={opt.backend!r}")
 
 
 def _tar_num(field: memoryview) -> int:

@@ -24,10 +24,14 @@ class PackOption:
 
     Field semantics follow reference PackOption (pkg/converter/types.go:58-90);
     fields that configured the external builder binary are replaced by engine
-    selection knobs (``backend``, ``chunking``). The fields the reference's
-    ``pack_layer`` never reads (work_dir, oci_ref, timeout) are left out.
+    selection knobs (``backend``, ``chunking``). ``oci_ref`` selects the
+    OCIRef conversion of converter/hooks.py (the original gzip layer
+    indexed in place by converter/zran.py, no nydus blob data); ``Pack``
+    itself does not read it, nor ``work_dir`` or ``timeout``, as in the
+    reference.
     """
 
+    work_dir: str = ""
     fs_version: str = layout.RAFS_V6
     chunk_dict_path: str = ""
     prefetch_patterns: str = ""
@@ -39,9 +43,11 @@ class PackOption:
     # output (max ratio); each step up trades ratio for speed.
     # Deterministic for a fixed value.
     lz4_acceleration: int = 1
+    oci_ref: bool = False
     aligned_chunk: bool = False
     chunk_size: int = constants.CHUNK_SIZE_DEFAULT
     batch_size: int = 0
+    timeout: Optional[float] = None
     encrypt: bool = False
     # Engine selection, with the reference's value names: fused = the device full path (ops/fused_convert, the default
     # here); jax = the windowed device lane (ops/chunker.ChunkDigestEngine,

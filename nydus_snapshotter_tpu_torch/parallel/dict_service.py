@@ -25,14 +25,27 @@ to converters over a unix socket (``service://``).
   key-space is split by rendezvous hash (:func:`shard_for`) and the mirror
   combines every shard's tail.
 
+The HA plane (``ha/``) rides on the same service: a replica's
+``ServiceDict.apply_replica_tail`` applies its primary's record tail
+verbatim and grows its own probe index (K3 on the replica's device); a
+member with an ``HaAgent`` attached (``DictService.ha``) serves the
+``/api/v1/ha`` routes and answers write RPCs with 503
+(:class:`NotPrimaryError`) unless it is the primary. ``ServiceChunkDict``
+fails a shard over to its replicas (``|`` groups, or the controller's
+placement map under ``service+ha://``), replays the un-acked batch and
+repairs the record tail the promoted replica lacks, so the table stays
+position-identical to the no-failure path.
+
 The wire formats are the reference package's (parallel/dict_service.py):
 probe bodies are concatenated raw 32-byte digests, answers little-endian
 ``<i8`` indices (-1 = miss), record deltas fixed-width ``_CHUNK_DT``/
 ``_BLOB_DT``/``_BATCH_DT``/``_CIPHER_DT`` rows behind a ``<u8`` header. A
-client of either package talks to a service of the other.
+client of either package talks to a service of the other, and a replica of
+either package tails a primary of the other.
 
-Not here yet: the HA surfaces (``service+ha://``, ``|`` failover groups,
-replica tails, the ``/api/v1/ha`` routes).
+The controller that serves the placement map (``/api/v1/fleet/placement``,
+the reference's fleet plane) is not in this package yet; ``service+ha://``
+clients and runners work against the reference's.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import re
 import socket
 import socketserver
 import threading
+import time
 from http.server import BaseHTTPRequestHandler
 from time import perf_counter
 from typing import Optional
@@ -58,7 +72,6 @@ from nydus_snapshotter_tpu_torch import failpoint, trace
 from nydus_snapshotter_tpu_torch.analysis import runtime as _an
 from nydus_snapshotter_tpu_torch.config.config import global_section
 from nydus_snapshotter_tpu_torch.converter.batch import GrowingChunkDict
-from nydus_snapshotter_tpu_torch.converter.types import ConvertError
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
     BatchRecord,
     BlobRecord,
@@ -71,6 +84,7 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
 from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
 from nydus_snapshotter_tpu_torch.parallel import mesh as mesh_lib
 from nydus_snapshotter_tpu_torch.parallel.sharded_dict import DictEpochError, ShardedChunkDict
+from nydus_snapshotter_tpu_torch.utils import udshttp
 
 logger = logging.getLogger(__name__)
 
@@ -124,6 +138,11 @@ def _service_mesh(mesh: Optional[mesh_lib.Mesh], device) -> mesh_lib.Mesh:
 
 class DictServiceError(RuntimeError):
     """An RPC failed on the service side (the message carries the op)."""
+
+
+class NotPrimaryError(DictServiceError):
+    """A write RPC reached a replica (wire status 503): the caller must
+    fail over to the shard's current primary (ha/ placement map)."""
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +243,66 @@ def resolve_dict_config() -> DictRuntimeConfig:
         ),
         backend=os.environ.get("NTPU_DICT_BACKEND", getattr(cd, "service_backend", "auto")),
     )
+
+
+def _chunk_rows(recs) -> np.ndarray:
+    """Chunk records -> ``_CHUNK_DT`` rows, a column at a time (a replica's
+    catch-up ships millions)."""
+    ca = np.zeros(len(recs), dtype=_CHUNK_DT)
+    if recs:
+        ca["digest"] = np.frombuffer(b"".join(r.digest for r in recs), np.uint8).reshape(-1, 32)
+        for col, attr in (("blob_index", "blob_index"), ("flags", "flags"),
+                          ("uoff", "uncompressed_offset"), ("coff", "compressed_offset"),
+                          ("usize", "uncompressed_size"), ("csize", "compressed_size")):
+            ca[col] = [getattr(r, attr) for r in recs]
+    return ca
+
+
+def _chunk_records(ca) -> list[ChunkRecord]:
+    """``_CHUNK_DT`` rows -> chunk records, a column at a time."""
+    raw = np.ascontiguousarray(ca["digest"]).tobytes()
+    return [
+        ChunkRecord(digest=raw[32 * i : 32 * i + 32], blob_index=b, flags=f,
+                    uncompressed_offset=uo, compressed_offset=co, uncompressed_size=us,
+                    compressed_size=cs)
+        for i, (b, f, uo, co, us, cs) in enumerate(zip(
+            ca["blob_index"].tolist(), ca["flags"].tolist(), ca["uoff"].tolist(),
+            ca["coff"].tolist(), ca["usize"].tolist(), ca["csize"].tolist()))
+    ]
+
+
+def _blob_records(ba) -> list[BlobRecord]:
+    return [
+        BlobRecord(
+            blob_id=row["blob_id"].decode(),
+            compressed_size=int(row["csize"]),
+            uncompressed_size=int(row["usize"]),
+            chunk_count=int(row["chunk_count"]),
+            flags=int(row["flags"]),
+        )
+        for row in ba
+    ]
+
+
+def _batch_records(ta) -> list[BatchRecord]:
+    return [
+        BatchRecord(int(row["blob_index"]), int(row["coff"]), int(row["ubase"]), int(row["usize"]))
+        for row in ta
+    ]
+
+
+def _cipher_records(ea) -> list[CipherRecord]:
+    out = []
+    for row in ea:
+        algo = int(row["algo"])
+        out.append(
+            CipherRecord(
+                algo=algo,
+                key=row["key"].tobytes() if algo else b"",
+                iv=row["iv"].tobytes() if algo else b"",
+            )
+        )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -350,13 +429,7 @@ class ServiceDict:
             epoch, rebuild_epoch = self.index.epoch, self.index.rebuild_epoch
             chunk_size = bs.chunk_size
             total_chunks = len(bs.chunks)
-        ca = np.zeros(len(c_rows), dtype=_CHUNK_DT)
-        for i, r in enumerate(c_rows):
-            ca[i] = (
-                np.frombuffer(r.digest, dtype=np.uint8),
-                r.blob_index, r.flags, r.uncompressed_offset,
-                r.compressed_offset, r.uncompressed_size, r.compressed_size,
-            )
+        ca = _chunk_rows(c_rows)
         ba = np.zeros(len(b_rows), dtype=_BLOB_DT)
         for i, r in enumerate(b_rows):
             ba[i] = (r.blob_id.encode(), r.compressed_size, r.uncompressed_size,
@@ -394,6 +467,40 @@ class ServiceDict:
             [hdr.tobytes(), np.ascontiguousarray(digs, dtype="<u4").tobytes(),
              np.ascontiguousarray(vals, dtype="<i8").tobytes()]
         )
+
+    def apply_replica_tail(self, meta, ca, ba, ta, ea, base) -> int:
+        """Apply a primary's record tail verbatim (HA replication,
+        ``ha/replicate.py``): rows land at exactly the table positions the
+        primary holds them, so a promoted replica honors the surviving
+        clients' counts-based replay cursors. ``base`` is the (chunks,
+        blobs, batches, ciphers) cursor the tail was requested at; a
+        mismatch means the stream has a gap, raised as
+        :class:`DictServiceError` (the tailer resyncs). The chunk digests
+        grow the probe index in the same order, under the namespace lock;
+        the index restages its device tables after the insert."""
+        with self._mu:
+            bs = self.records.bootstrap
+            have = (len(bs.chunks), len(bs.blobs), len(bs.batches), len(bs.ciphers))
+            if have != tuple(base):
+                raise DictServiceError(
+                    f"replica tail base mismatch: have {have}, tail expects "
+                    f"{tuple(base)}: the replication stream has a gap, resync"
+                )
+            if meta.get("chunk_size"):
+                bs.chunk_size = int(meta["chunk_size"])
+            self.records.append_records(
+                _chunk_records(ca), _blob_records(ba), _batch_records(ta), _cipher_records(ea)
+            )
+            if len(ca):
+                got = self.index.insert_u32(
+                    np.ascontiguousarray(ca["digest"]).view("<u4").reshape(-1, 8)
+                )
+                if got[0] != base[0]:
+                    raise DictServiceError(
+                        f"replica index/record skew: insert returned {got[0]}, "
+                        f"records at {base[0]}"
+                    )
+            return len(ca)
 
     def save(self, path: str) -> dict:
         """Persist both faces: the dict-image bootstrap at ``path`` and the
@@ -453,8 +560,14 @@ class DictService:
     ``handle()`` is transport-agnostic; ``run()`` serves on a unix socket.
     Every namespace's index lives on ``mesh``, by default one shard on
     ``device`` (CUDA unless the caller asks for the CPU), where its probes
-    run.
+    run. ``ha`` is the attached ``ha.replicate.HaAgent``, if any: the role
+    gate of the write ops and the ``/api/v1/ha`` routes.
     """
+
+    # Write ops a non-primary member rejects (wire 503, the HA role gate);
+    # reads stay allowed, so replicas serve warm probes and the replication
+    # stream itself.
+    _WRITE_OPS = ("merge", "save", "zdict")
 
     def __init__(
         self,
@@ -469,6 +582,7 @@ class DictService:
         self._mu = _an.make_lock("dict_service.registry")
         self._httpd: Optional[_UnixHTTPServer] = None
         self.sock_path = ""
+        self.ha = None
 
     def dict_for(self, namespace: str) -> ServiceDict:
         if not _NS_RE.match(namespace):
@@ -479,11 +593,41 @@ class DictService:
                 sd = self._dicts[namespace] = ServiceDict(namespace, self.cfg, mesh=self.mesh)
             return sd
 
+    def reset_namespace(self, namespace: str) -> None:
+        """Drop one namespace's tables, its device tables with them (the HA
+        replica's loud full resync: the tailer re-pulls from record zero)."""
+        if not _NS_RE.match(namespace):
+            raise ValueError(f"invalid dict namespace {namespace!r}")
+        with self._mu:
+            self._dicts.pop(namespace, None)
+
+    def reset_all(self) -> int:
+        """Drop every namespace and its device tables (a replica retargeted
+        to another shard's primary must not replay a foreign table);
+        returns how many namespaces were dropped."""
+        with self._mu:
+            n = len(self._dicts)
+            self._dicts.clear()
+            return n
+
+    def namespace_stats(self) -> list[dict]:
+        """Stats for every namespace (the HA status surface)."""
+        with self._mu:
+            dicts = list(self._dicts.values())
+        return [sd.stats() for sd in dicts]
+
     def handle(self, method: str, path: str, headers, body: bytes) -> tuple[int, str, bytes]:
         """(method, path?query, headers, body) -> (status, ctype, payload).
         Adopts the caller's trace context from the ``x-ntpu-*`` headers so
         the server-side span joins the converter's ``convert`` root."""
         parsed = urlparse(path)
+        if parsed.path.startswith("/api/v1/ha"):
+            # HA control surface (ha/replicate.HaAgent): role pushes and
+            # promotion from the placement controller, status for its
+            # most-caught-up ranking.
+            if self.ha is None:
+                return 404, "application/json", b'{"message": "ha plane not attached"}'
+            return self.ha.handle(method, parsed.path, body)
         if parsed.path == "/api/v1/traces" and method == "GET":
             # the span ring (dict.rpc.* spans) as a Chrome trace document
             return 200, "application/json", trace.chrome_trace_bytes()
@@ -517,6 +661,11 @@ class DictService:
         except (ValueError, KeyError) as e:
             _RPC_ERRORS.labels(op).inc()
             return 400, "application/json", json.dumps({"message": str(e)}).encode()
+        except NotPrimaryError as e:
+            _RPC_ERRORS.labels(op).inc()
+            # HA role gate: a write reached a replica; 503 tells the client
+            # to fail over to the placement map's primary.
+            return 503, "application/json", json.dumps({"message": str(e)}).encode()
         except DictEpochError as e:
             _RPC_ERRORS.labels(op).inc()
             # A journal tail compacted away: the caller must resync from a
@@ -531,6 +680,16 @@ class DictService:
         return 200, "application/json", json.dumps(payload).encode()
 
     def _dispatch(self, method: str, op: str, ns: Optional[str], query: str, body: bytes):
+        if (
+            self.ha is not None
+            and method == "POST"
+            and op in self._WRITE_OPS
+            and not self.ha.is_primary()
+        ):
+            raise NotPrimaryError(
+                f"dict member is {self.ha.role}, not primary: fail over to the "
+                "placement map's primary for this shard"
+            )
         if op == "list":
             with self._mu:
                 dicts = [self._dicts[n] for n in sorted(self._dicts)]
@@ -613,8 +772,17 @@ class DictService:
         self.sock_path = sock_path
         threading.Thread(target=self._httpd.serve_forever, name="dict-service", daemon=True).start()
         logger.info("chunk-dict service on unix:%s", sock_path)
+        # A standalone dict-service process self-registers with the fleet
+        # controller when one is configured (the placement controller's
+        # candidate pool); a no-op without one.
+        from nydus_snapshotter_tpu_torch import fleet
+
+        fleet.register_self("dict", sock_path)
 
     def stop(self) -> None:
+        tailer = getattr(self.ha, "tailer", None)
+        if tailer is not None:
+            tailer.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.sever_connections()
@@ -684,7 +852,8 @@ class DictClient:
                 message = json.loads(payload).get("message", "")
             except ValueError:
                 message = payload[:200].decode("utf-8", "replace")
-            raise DictServiceError(f"dict service {method} {path} -> {resp.status}: {message}")
+            err = NotPrimaryError if resp.status == 503 else DictServiceError
+            raise err(f"dict service {method} {path} -> {resp.status}: {message}")
         return resp.headers.get("Content-Type", ""), payload
 
     def namespaces(self) -> list[dict]:
@@ -716,6 +885,7 @@ class DictClient:
             f"&batches={batches}&ciphers={ciphers}"
         )
         if limit:
+            # HA replication's byte budget: cap the chunk rows per pull.
             path += f"&limit={int(limit)}"
         _ctype, payload = self._request("GET", path)
         hdr = np.frombuffer(payload, dtype=np.uint64, count=_DELTA_HDR_FIELDS)
@@ -788,10 +958,14 @@ class DictClient:
 class _ShardState:
     """One shard's replication cursor inside a (sharded) mirror."""
 
-    __slots__ = ("client", "chunks", "blobs", "batches", "ciphers", "epoch", "rebuild_epoch",
-                 "blob_map")
+    __slots__ = (
+        "client", "chunks", "blobs", "batches", "ciphers", "epoch", "rebuild_epoch",
+        "blob_map", "route_key", "alternates",
+        "hist_chunks", "hist_blobs", "hist_batches", "hist_ciphers",
+    )
 
-    def __init__(self, client: DictClient):
+    def __init__(self, client: DictClient, route_key: str = "",
+                 alternates: Optional[list[str]] = None):
         self.client = client
         self.chunks = 0
         self.blobs = 0
@@ -800,6 +974,22 @@ class _ShardState:
         self.epoch = 0
         self.rebuild_epoch = 0
         self.blob_map: list[int] = []  # shard-local blob index -> mirror blob index
+        # HA: the stable rendezvous key of this shard. Digest -> shard
+        # routing must not move when a replica is promoted (the key-space
+        # split is the first-wins ordering authority), so the key is pinned
+        # at construction (the first address, or "dict-shard-<i>" under
+        # placement resolution) and never follows the current client.
+        self.route_key = route_key or client.sock_path
+        # HA: replica addresses to fail over to.
+        self.alternates: list[str] = list(alternates or ())
+        # HA: the shard-local record rows this mirror replayed, in order:
+        # the repair source when a promoted replica lags the dead primary
+        # (every mirror's knowledge of a shard is a prefix of its record
+        # sequence, so concurrent repairs compose position-identically).
+        self.hist_chunks: list = []
+        self.hist_blobs: list = []
+        self.hist_batches: list = []
+        self.hist_ciphers: list = []
 
 
 class ServiceChunkDict:
@@ -814,14 +1004,41 @@ class ServiceChunkDict:
     blob indices onto the combined blob table. A shard whose epoch or
     chunk count went backwards (a restart with a younger table) raises
     :class:`DictEpochError`: the mirror cannot un-merge.
+
+    HA: ``failover`` lists each shard's replica addresses,
+    ``resolver(shard_idx)`` re-reads the placement map (``[primary,
+    *replicas]``) so a promotion mid-merge is found, and ``route_keys``
+    pins the rendezvous keys where addresses are not stable identities
+    (``service+ha://``). With either, a shard RPC that fails in transport
+    or with a 503 fails over: the un-acked operation is re-run against the
+    shard's new primary after the record tail it lacks is re-merged from
+    this mirror's history.
     """
 
-    def __init__(self, client, namespace: str = DEFAULT_NAMESPACE, sync_on_init: bool = True):
+    def __init__(
+        self,
+        client,
+        namespace: str = DEFAULT_NAMESPACE,
+        sync_on_init: bool = True,
+        failover=None,
+        resolver=None,
+        route_keys: Optional[list[str]] = None,
+        failover_deadline_s: float = 15.0,
+    ):
         clients = list(client) if isinstance(client, (list, tuple)) else [client]
         if not clients:
             raise ValueError("ServiceChunkDict needs at least one client")
-        self._shards = [_ShardState(c) for c in clients]
-        self.shard_addrs = [c.sock_path for c in clients]
+        self._resolver = resolver
+        self._failover_deadline_s = failover_deadline_s
+        self._ha = bool(failover) or resolver is not None
+        alts = list(failover) if failover else [None] * len(clients)
+        keys = list(route_keys) if route_keys else [c.sock_path for c in clients]
+        if len(alts) != len(clients) or len(keys) != len(clients):
+            raise ValueError("failover/route_keys must match the shard count")
+        self._shards = [
+            _ShardState(c, route_key=k, alternates=a) for c, k, a in zip(clients, keys, alts)
+        ]
+        self.shard_addrs = keys
         self.namespace = namespace
         self.bootstrap = Bootstrap(inodes=[])
         self._by_digest: dict[bytes, ChunkRecord] = {}
@@ -846,7 +1063,7 @@ class ServiceChunkDict:
 
     def shard_epochs(self) -> list[dict]:
         return [
-            {"address": s.client.sock_path, "epoch": s.epoch,
+            {"address": s.client.sock_path, "route_key": s.route_key, "epoch": s.epoch,
              "rebuild_epoch": s.rebuild_epoch, "chunks": s.chunks}
             for s in self._shards
         ]
@@ -936,16 +1153,8 @@ class ServiceChunkDict:
                 bs.ciphers.append(CipherRecord())
             if algo:
                 bs.ciphers[combined] = cipher
-        for row in ca:
-            rec = ChunkRecord(
-                digest=row["digest"].tobytes(),
-                blob_index=shard.blob_map[int(row["blob_index"])],
-                flags=int(row["flags"]),
-                uncompressed_offset=int(row["uoff"]),
-                compressed_offset=int(row["coff"]),
-                uncompressed_size=int(row["usize"]),
-                compressed_size=int(row["csize"]),
-            )
+        for rec in _chunk_records(ca):
+            rec.blob_index = shard.blob_map[rec.blob_index]
             bs.chunks.append(rec)
             self._by_digest.setdefault(rec.digest, rec)
         for row in ta:
@@ -962,19 +1171,127 @@ class ServiceChunkDict:
         shard.ciphers += len(ea)
         shard.epoch = meta["epoch"]
         shard.rebuild_epoch = meta["rebuild_epoch"]
+        if self._ha and (len(ca) or len(ba) or len(ta) or len(ea)):
+            # The raw replayed rows: the failover repair source (~64 B a
+            # chunk record; kept only under HA).
+            shard.hist_chunks.append(np.array(ca))
+            shard.hist_blobs.append(np.array(ba))
+            shard.hist_batches.append(np.array(ta))
+            shard.hist_ciphers.append(np.array(ea))
         return len(ca)
 
     def sync(self) -> int:
         """Replay every shard's tail into the mirror; returns how many
         chunk records arrived."""
         got = 0
-        for shard in self._shards:
+        for i, shard in enumerate(self._shards):
             if len(self._shards) > 1:
                 failpoint.hit("dict.shard")
                 _SHARD_BATCHES.labels("sync").inc()
-            got += self._sync_shard(shard)
+            got += self._with_failover(i, lambda s=shard: self._sync_shard(s))
         self.epoch = sum(s.epoch for s in self._shards)
         return got
+
+    # -- HA failover ---------------------------------------------------------
+
+    def _with_failover(self, shard_idx: int, fn):
+        """Run one shard RPC; on a transport failure or a 503 role gate,
+        fail over to the shard's promoted replica and retry (merge is
+        first-wins idempotent and sync resumes from the counts cursor).
+        :class:`DictEpochError` passes through: an epoch regression is a
+        loud failure, never papered over by a retry."""
+        attempts = 0
+        while True:
+            try:
+                return fn()
+            except (DictServiceError, OSError) as e:
+                if not self._ha or attempts >= 2:
+                    raise
+                attempts += 1
+                self._failover_shard(shard_idx, e)
+
+    def _failover_shard(self, shard_idx: int, cause: Exception) -> None:
+        """Re-resolve the shard's primary (placement map, replica list),
+        adopt it, and repair the record tail this mirror holds beyond the
+        promoted replica's tables."""
+        from nydus_snapshotter_tpu_torch import ha as _ha_mod
+
+        shard = self._shards[shard_idx]
+        dead = shard.client.sock_path
+        logger.warning(
+            "dict shard %s: primary %s failed (%s); failing over", shard.route_key, dead, cause
+        )
+        deadline = time.monotonic() + self._failover_deadline_s
+        while True:
+            candidates: list[str] = []
+            if self._resolver is not None:
+                try:
+                    candidates = list(self._resolver(shard_idx) or ())
+                except Exception:  # noqa: BLE001 - the controller may lag the kill
+                    candidates = []
+            candidates += [a for a in shard.alternates if a not in candidates]
+            ordered = [c for c in candidates if c and c != dead]
+            if dead in candidates:
+                ordered.append(dead)  # it may have come back
+            for addr in ordered:
+                cli = DictClient(addr, timeout=shard.client.timeout)
+                try:
+                    try:
+                        st = json.loads(cli._request("GET", "/api/v1/ha/status")[1])
+                        if st.get("role") != "primary":
+                            cli.close()
+                            continue
+                    except DictServiceError as e:
+                        if "404" not in str(e):
+                            raise
+                        # No HA agent on this member: primary-capable.
+                    stats = cli.stats(self.namespace)
+                except (DictServiceError, OSError):
+                    cli.close()
+                    continue
+                shard.client.close()
+                shard.client = cli
+                _ha_mod.FAILOVERS.inc()
+                repaired = self._repair_shard(shard, int(stats.get("chunks", 0)))
+                # The promoted primary's index epochs count its own insert
+                # batches: the counts cursor stays valid (tables are
+                # position-identical), the epoch cursor re-bases.
+                shard.epoch = 0
+                shard.rebuild_epoch = 0
+                logger.warning(
+                    "dict shard %s: failed over to %s (repaired %d records)",
+                    shard.route_key, addr, repaired,
+                )
+                return
+            if time.monotonic() > deadline:
+                raise DictServiceError(
+                    f"dict shard {shard.route_key}: no live primary within "
+                    f"{self._failover_deadline_s:.1f}s (last error: {cause})"
+                )
+            time.sleep(0.1)
+
+    def _repair_shard(self, shard: _ShardState, new_total: int) -> int:
+        """Re-merge the shard-local record history this mirror holds past
+        the promoted replica's tables. The history is a prefix of the dead
+        primary's record sequence and merge is first-wins: replicated rows
+        dedup away and lost rows append in their original order, so the
+        table is position-identical however many clients repair at once."""
+        if new_total >= shard.chunks or not shard.hist_chunks:
+            return 0
+        sub = Bootstrap(chunk_size=self.bootstrap.chunk_size, inodes=[])
+        for arr in shard.hist_blobs:
+            sub.blobs += _blob_records(arr)
+        for arr in shard.hist_ciphers:
+            sub.ciphers += _cipher_records(arr)
+        for arr in shard.hist_chunks:
+            sub.chunks += _chunk_records(arr)
+        for arr in shard.hist_batches:
+            sub.batches += _batch_records(arr)
+        if sub.ciphers:
+            while len(sub.ciphers) < len(sub.blobs):
+                sub.ciphers.append(CipherRecord())
+        res = shard.client.merge(sub.to_bytes(), self.namespace)
+        return int(res.get("added", 0))
 
     def _partition_bootstrap(self, data: bytes) -> list[Optional[bytes]]:
         """Split one image's bootstrap into per-shard sub-bootstraps: each
@@ -1030,15 +1347,22 @@ class ServiceChunkDict:
         whatever other converters added first) into the mirror. Returns how
         many chunks this merge added."""
         if len(self._shards) == 1:
-            added = int(self.client.merge(data, self.namespace).get("added", 0))
+            res = self._with_failover(0, lambda: self.client.merge(data, self.namespace))
+            added = int(res.get("added", 0))
         else:
             added = 0
-            for shard, sub in zip(self._shards, self._partition_bootstrap(data)):
+            for i, (shard, sub) in enumerate(zip(self._shards, self._partition_bootstrap(data))):
                 if sub is None:
                     continue
                 failpoint.hit("dict.shard")
                 _SHARD_BATCHES.labels("merge").inc()
-                added += int(shard.client.merge(sub, self.namespace).get("added", 0))
+                # Mid-merge failover: the un-acked sub-bootstrap is the
+                # replay unit, re-merged against the promoted replica
+                # (first-wins makes the replay idempotent).
+                res = self._with_failover(
+                    i, lambda s=shard, b=sub: s.client.merge(b, self.namespace)
+                )
+                added += int(res.get("added", 0))
         self.sync()
         return added
 
@@ -1050,31 +1374,90 @@ class ServiceChunkDict:
         sharded namespace persists one partition per shard
         (``<path>.shard<i>-of-<n>``)."""
         if len(self._shards) == 1:
-            self.client.save(path, self.namespace)
+            self._with_failover(0, lambda: self.client.save(path, self.namespace))
             return
         n = len(self._shards)
         for i, shard in enumerate(self._shards):
-            shard.client.save(f"{path}.shard{i}-of-{n}", self.namespace)
+            self._with_failover(
+                i,
+                lambda s=shard, p=f"{path}.shard{i}-of-{n}": s.client.save(p, self.namespace),
+            )
+
+
+def placement_resolver(controller: str, timeout: float = 5.0):
+    """``resolver(shard_idx) -> [primary_addr, *replica_addrs]`` backed by
+    the controller's ``/api/v1/fleet/placement`` map (ha/placement.py):
+    the candidates a failing client retries against; a promotion shows up
+    as soon as the controller's epoch bumps."""
+
+    def resolve(shard_idx: int) -> list[str]:
+        doc = udshttp.get_json(controller, "/api/v1/fleet/placement", timeout=timeout)
+        assignments = doc.get("assignments", [])
+        if shard_idx >= len(assignments):
+            return []
+        a = assignments[shard_idx]
+        out = [a.get("primary", {}).get("address", "")]
+        out += [r.get("address", "") for r in a.get("replicas", [])]
+        return [x for x in out if x]
+
+    return resolve
+
+
+def open_ha_chunk_dict(
+    controller: str,
+    namespace: str = DEFAULT_NAMESPACE,
+    resolve_deadline_s: float = 15.0,
+) -> ServiceChunkDict:
+    """Placement-resolved HA mirror: shard primaries come from the
+    controller's placement map, the rendezvous keys are the stable shard
+    names (``dict-shard-<i>``) so a promotion never moves the key-space
+    split, and failover re-resolves the map mid-merge."""
+    resolver = placement_resolver(controller)
+    deadline = time.monotonic() + resolve_deadline_s
+    while True:
+        try:
+            doc = udshttp.get_json(controller, "/api/v1/fleet/placement")
+            primaries = [a.get("primary", {}).get("address", "") for a in doc.get("assignments", [])]
+            if primaries and all(primaries):
+                break
+        except Exception:  # noqa: BLE001 - the controller may still be placing
+            pass
+        if time.monotonic() > deadline:
+            raise DictServiceError(
+                f"placement map on {controller} has no full primary set "
+                f"within {resolve_deadline_s:.1f}s"
+            )
+        time.sleep(0.1)
+    return ServiceChunkDict(
+        [DictClient(p) for p in primaries],
+        namespace,
+        resolver=resolver,
+        route_keys=[f"dict-shard-{i}" for i in range(len(primaries))],
+    )
 
 
 def open_chunk_dict(arg: str):
     """Resolve a ``chunk_dict_path``-shaped argument:
 
-    - ``service://<uds>[,<uds>...][#namespace]`` — a
-      :class:`ServiceChunkDict` mirror; comma-separated addresses are the
-      rendezvous shards;
+    - ``service://<uds>[|<replica-uds>...][,<uds>...][#namespace]`` — a
+      :class:`ServiceChunkDict` mirror; comma-separated groups are the
+      rendezvous shards, ``|``-separated addresses inside a group a
+      shard's failover candidates (primary first; the first address stays
+      the shard's routing key across failovers);
+    - ``service+ha://<controller-uds>[#namespace]`` — the shard set and
+      failover candidates resolved live from the controller's placement
+      map (:func:`open_ha_chunk_dict`);
     - anything else is the file-based dict (``bootstrap=…`` prefixed or a
-      bare path).
-
-    ``service+ha://`` and ``|``-separated failover groups (the HA
-    surfaces) raise :class:`ConvertError`."""
-    if arg.startswith("service+ha://") or (arg.startswith("service://") and "|" in arg):
-        raise ConvertError(
-            f"chunk dict {arg!r}: the HA dict service (service+ha://, '|' failover "
-            "groups) is not ported"
-        )
+      bare path)."""
+    if arg.startswith("service+ha://"):
+        controller, _, ns = arg[len("service+ha://"):].partition("#")
+        return open_ha_chunk_dict(controller.strip(), ns or DEFAULT_NAMESPACE)
     if arg.startswith("service://"):
         socks, _, ns = arg[len("service://"):].partition("#")
-        addrs = [a.strip() for a in socks.split(",") if a.strip()]
-        return ServiceChunkDict([DictClient(a) for a in addrs], ns or DEFAULT_NAMESPACE)
+        groups = [[a.strip() for a in g.split("|") if a.strip()] for g in socks.split(",") if g.strip()]
+        clients = [DictClient(g[0]) for g in groups]
+        failover = [g[1:] for g in groups]
+        if any(failover):
+            return ServiceChunkDict(clients, ns or DEFAULT_NAMESPACE, failover=failover)
+        return ServiceChunkDict(clients, ns or DEFAULT_NAMESPACE)
     return ChunkDict.from_path(parse_chunk_dict_arg(arg))

@@ -14,8 +14,11 @@ compression and decompression need: the loader, the CCtx/DCtx pools,
 :func:`decompress_block` (with :func:`dctx_stats`), the pinned-context pool the adaptive codec's
 workers take (:func:`cctx_acquire`/:func:`cctx_release`) and the trained
 dictionary arms (ZDICT training, digested :class:`CDict`/:class:`DDict`
-handles), with :func:`library` added. The frame-walk and streaming
-surfaces are not carried.
+handles), the frame-walk and streaming arms the OCIRef zstd layers need
+(:func:`frames_available`, :func:`is_skippable_frame`,
+:func:`find_frame_compressed_size`, :func:`frame_content_size`,
+:func:`stream_decompress`, :class:`StreamDecoder`), with :func:`library`
+added.
 
 When the system library is absent, callers fall back to
 ``utils/zstdcompat.zstandard``.
@@ -41,6 +44,22 @@ _LIB_CANDIDATES = ("libzstd.so.1", "libzstd.so", "libzstd.dylib")
 
 _CONTENTSIZE_UNKNOWN = 2**64 - 1
 _CONTENTSIZE_ERROR = 2**64 - 2
+
+
+class _InBuffer(ctypes.Structure):
+    _fields_ = [
+        ("src", ctypes.c_void_p),
+        ("size", ctypes.c_size_t),
+        ("pos", ctypes.c_size_t),
+    ]
+
+
+class _OutBuffer(ctypes.Structure):
+    _fields_ = [
+        ("dst", ctypes.c_void_p),
+        ("size", ctypes.c_size_t),
+        ("pos", ctypes.c_size_t),
+    ]
 
 
 class _Api:
@@ -76,6 +95,30 @@ class _Api:
         self.has_dctx = self._bind_dctx(lib)
         self.has_dict = self._bind_dict(lib)
         self.has_zdict = self._bind_zdict(lib)
+        self.has_frames = self._bind_frames(lib)
+
+    @staticmethod
+    def _bind_frames(lib) -> bool:
+        """Frame walk and streaming decode: per-frame compressed size
+        without decoding, and a DStream decode for frames whose header
+        omits the content size. ``ZSTD_isSkippableFrame`` is not bound
+        (older system builds lack it); the magic is checked in Python."""
+        try:
+            lib.ZSTD_findFrameCompressedSize.restype = ctypes.c_size_t
+            lib.ZSTD_findFrameCompressedSize.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+            # DStream == DCtx in every libzstd this binds, so the pooled
+            # decompress contexts double as streaming decoders.
+            lib.ZSTD_initDStream.restype = ctypes.c_size_t
+            lib.ZSTD_initDStream.argtypes = [ctypes.c_void_p]
+            lib.ZSTD_decompressStream.restype = ctypes.c_size_t
+            lib.ZSTD_decompressStream.argtypes = [
+                ctypes.c_void_p,
+                ctypes.POINTER(_OutBuffer),
+                ctypes.POINTER(_InBuffer),
+            ]
+        except AttributeError:
+            return False
+        return True
 
     @staticmethod
     def _bind_dctx(lib) -> bool:
@@ -406,3 +449,176 @@ def decompress_with_ddict(data: bytes | memoryview, ddict: DDict, max_output_siz
     if _API.lib.ZSTD_isError(w):
         raise ZstdError(f"zstd dict decompress failed for {n}-byte input (wrong or missing dictionary?)")
     return buf[:w].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# Frame walk and streaming decode (the OCIRef zstd layers, converter/zstd_ref.py)
+# ---------------------------------------------------------------------------
+
+# Skippable-frame magic range: 0x184D2A50 .. 0x184D2A5F (little-endian on
+# the wire), checked by hand.
+_SKIPPABLE_LO = 0x184D2A50
+_SKIPPABLE_HI = 0x184D2A5F
+
+
+def frames_available() -> bool:
+    """True when the bound libzstd exposes the frame-walk and streaming
+    surface (findFrameCompressedSize / decompressStream)."""
+    return _API is not None and _API.has_frames and _API.has_dctx
+
+
+def is_skippable_frame(data: bytes | memoryview, offset: int = 0) -> bool:
+    """Skippable-frame probe on the 4-byte magic at ``offset``."""
+    head = bytes(data[offset : offset + 4])
+    if len(head) < 4:
+        return False
+    return _SKIPPABLE_LO <= int.from_bytes(head, "little") <= _SKIPPABLE_HI
+
+
+def find_frame_compressed_size(data: bytes | memoryview, offset: int = 0) -> int:
+    """Compressed size of the frame starting at ``offset`` (header, blocks
+    and checksum; a skippable frame's full size) without decoding it."""
+    if not frames_available():
+        raise ZstdError("system libzstd lacks the frame surface")
+    src = np.frombuffer(data, dtype=np.uint8)
+    if not 0 <= offset < src.size:
+        raise ZstdError(f"frame offset {offset} outside {src.size}-byte blob")
+    w = _API.lib.ZSTD_findFrameCompressedSize(src.ctypes.data + offset, src.size - offset)
+    if _API.lib.ZSTD_isError(w):
+        raise ZstdError(f"not a complete zstd frame at offset {offset}")
+    return int(w)
+
+
+def frame_content_size(data: bytes | memoryview, offset: int = 0):
+    """Declared decompressed size of the frame at ``offset``, or ``None``
+    when the header omits it (skippable frames report 0). Raises on a
+    malformed header."""
+    if _API is None or not _API.has_dctx:
+        raise ZstdError("system libzstd not available")
+    src = np.frombuffer(data, dtype=np.uint8)
+    if not 0 <= offset < src.size:
+        raise ZstdError(f"frame offset {offset} outside {src.size}-byte blob")
+    size = _API.lib.ZSTD_getFrameContentSize(src.ctypes.data + offset, src.size - offset)
+    if size == _CONTENTSIZE_ERROR:
+        raise ZstdError(f"not a valid zstd frame at offset {offset}")
+    if size == _CONTENTSIZE_UNKNOWN:
+        return None
+    return int(size)
+
+
+def stream_decompress(data: bytes | memoryview, max_output_size: int = 0) -> bytes:
+    """Streaming decode of one or more concatenated frames (skippable
+    frames skipped) on a pooled context: the decode for frames whose
+    header omits the content size."""
+    if not frames_available():
+        raise ZstdError("system libzstd lacks the frame surface")
+    src = np.frombuffer(data, dtype=np.uint8)
+    n = src.size
+    if n == 0:
+        return b""
+    ctx = _API.acquire_d()
+    out = bytearray()
+    step = 1 << 17
+    chunk = np.empty(step, dtype=np.uint8)
+    try:
+        w = _API.lib.ZSTD_initDStream(ctx)
+        if _API.lib.ZSTD_isError(w):
+            raise ZstdError("ZSTD_initDStream failed")
+        ib = _InBuffer(src.ctypes.data, n, 0)
+        while ib.pos < ib.size:
+            ob = _OutBuffer(chunk.ctypes.data, step, 0)
+            w = _API.lib.ZSTD_decompressStream(ctx, ctypes.byref(ob), ctypes.byref(ib))
+            if _API.lib.ZSTD_isError(w):
+                raise ZstdError(f"zstd stream decode failed at input byte {ib.pos}")
+            out += chunk[: ob.pos].tobytes()
+            if max_output_size and len(out) > max_output_size:
+                raise ZstdError(
+                    f"decompressed stream exceeds max_output_size {max_output_size}"
+                )
+            if w == 0 and ib.pos >= ib.size:
+                break
+            if ob.pos == 0 and ib.pos >= ib.size and w != 0:
+                raise ZstdError("truncated zstd frame (stream ended early)")
+        if w != 0:
+            raise ZstdError("truncated zstd frame (stream ended early)")
+    except BaseException:
+        # A context abandoned mid-frame must not rejoin the pool.
+        _API.lib.ZSTD_freeDCtx(ctx)
+        ctx = 0
+        raise
+    finally:
+        _API.release_d(ctx)
+    return bytes(out)
+
+
+class StreamDecoder:
+    """A held streaming decode cursor for sequential zstd reads.
+
+    A ZSTD_DCtx cannot be copied as zlib's ``decompressobj`` can, so the
+    sequential reader (converter/zstd_ref.py) keeps one forward cursor per
+    blob: ``feed`` the next compressed bytes, get the decompressed bytes
+    they complete; ``reset`` rewinds to stream start. The context comes
+    from the pool and rejoins it on ``close`` after a clean re-init; a
+    decode error frees it instead.
+    """
+
+    def __init__(self):
+        if not frames_available():
+            raise ZstdError("system libzstd lacks the frame surface")
+        self._ctx = _API.acquire_d()
+        self._init()
+
+    def _init(self) -> None:
+        w = _API.lib.ZSTD_initDStream(self._ctx)
+        if _API.lib.ZSTD_isError(w):
+            _API.lib.ZSTD_freeDCtx(self._ctx)
+            self._ctx = 0
+            raise ZstdError("ZSTD_initDStream failed")
+
+    def reset(self) -> None:
+        if not self._ctx:
+            raise ZstdError("stream decoder is closed")
+        self._init()
+
+    def feed(self, data: bytes | memoryview) -> bytes:
+        """Decode ``data`` (the next compressed bytes in stream order) and
+        return every decompressed byte it completes."""
+        if not self._ctx:
+            raise ZstdError("stream decoder is closed")
+        src = np.frombuffer(data, dtype=np.uint8)
+        n = src.size
+        if n == 0:
+            return b""
+        out = bytearray()
+        step = 1 << 17
+        chunk = np.empty(step, dtype=np.uint8)
+        ib = _InBuffer(src.ctypes.data, n, 0)
+        while True:
+            ob = _OutBuffer(chunk.ctypes.data, step, 0)
+            w = _API.lib.ZSTD_decompressStream(self._ctx, ctypes.byref(ob), ctypes.byref(ib))
+            if _API.lib.ZSTD_isError(w):
+                _API.lib.ZSTD_freeDCtx(self._ctx)
+                self._ctx = 0
+                raise ZstdError(f"zstd stream decode failed at input byte {ib.pos}")
+            out += chunk[: ob.pos].tobytes()
+            if ib.pos >= ib.size and ob.pos < step:
+                break
+        return bytes(out)
+
+    def close(self) -> None:
+        ctx, self._ctx = self._ctx, 0
+        if not ctx:
+            return
+        # Re-init before rejoining the pool so no borrower inherits
+        # mid-frame state; a failed init frees instead.
+        w = _API.lib.ZSTD_initDStream(ctx)
+        if _API.lib.ZSTD_isError(w):
+            _API.lib.ZSTD_freeDCtx(ctx)
+            return
+        _API.release_d(ctx)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -6,13 +6,15 @@ per image, here spread over several layers so the layer fan-out has work)
 goes through both packages' ``BatchConverter.convert_many`` on the host
 lanes (the port on ``device="cpu"``). Per image the merged bootstrap,
 ``blob_digests``, ``layer_blobs`` and ``new_dict_chunks`` must be equal,
-byte for byte, at every fan-out, with a persisted dict, and through a
-``service://`` dict on the port's ``DictService``; every refusal raises
-``ConvertError``.
+byte for byte, at every fan-out, with a persisted dict, through a
+``service://`` dict on the port's ``DictService``, and through the HA dict
+paths (a ``|`` failover group, ``service+ha://``) with a primary killed
+mid-batch; every refusal raises ``ConvertError``.
 """
 
 import io
 import tarfile
+import time
 
 import numpy as np
 import pytest
@@ -226,6 +228,60 @@ class TestServiceDict:
         _same(got, reference["hybrid"])
 
 
+def _ha_batch_equals_reference(tmp_path, corpus, reference, template: str) -> None:
+    """A port primary and its port replica behind ``template`` (a ``|``
+    group, or ``service+ha://`` through the reference's fleet plane serving
+    the port's placement map). The primary dies after the first image; the
+    replica is promoted, and the batch equals the reference's."""
+    from nydus_snapshotter_tpu import fleet as jfleet
+    from nydus_snapshotter_tpu.system.system import SystemController
+    from nydus_snapshotter_tpu_torch.ha.placement import PlacementController
+    from nydus_snapshotter_tpu_torch.ha.replicate import HaAgent
+
+    svcs = [pds.DictService(device="cpu") for _ in range(2)]
+    for i, svc in enumerate(svcs):
+        HaAgent(svc, role="unassigned")
+        svc.run(str(tmp_path / f"m{i}.sock"))
+    plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+    pc = PlacementController(plane.registry.members, plane.federator.liveness, shards=1,
+                             replicas=1)
+    plane.attach_placement(pc)
+    ctl = SystemController(fs=None, managers=[], sock_path=str(tmp_path / "ctl.sock"), fleet=plane)
+    ctl.run()
+    bc = None
+    try:
+        for i, svc in enumerate(svcs):
+            plane.registry.register(jfleet.Member(name=f"dict-{i}", component="dict",
+                                                  address=svc.sock_path, pid=i + 1))
+        pc.tick()
+        seat = pc.map()["assignments"][0]["primary"]
+        prim = next(s for s in svcs if s.sock_path == seat["address"])
+        repl = next(s for s in svcs if s is not prim)
+        service = template.format(ctl=ctl.sock_path, sock=prim.sock_path, replica=repl.sock_path)
+        bc = BatchConverter(PackOption(backend="hybrid", **OPT), dict_service=service, device="cpu")
+        got = bc.convert_many(corpus[:1])
+        deadline = time.monotonic() + 10
+        while len(repl.dict_for("default").records.bootstrap.chunks) < len(
+            prim.dict_for("default").records.bootstrap.chunks
+        ):
+            assert time.monotonic() < deadline, "replica catch-up"
+            time.sleep(0.02)
+        prim.stop()
+        pc.report_down(seat["name"], source="test")
+        pc.tick()
+        assert repl.ha.is_primary()
+        got += bc.convert_many(corpus[1:])
+        _same(got, reference["hybrid"])
+    finally:
+        if bc is not None:
+            bc.dict.close()
+        ctl.stop()
+        for svc in svcs:
+            if svc.ha.tailer is not None:
+                svc.ha.tailer.stop()
+            svc.stop()
+
+
 class TestRefusals:
     @pytest.mark.parametrize(
         "kw, match",
@@ -234,13 +290,18 @@ class TestRefusals:
             (dict(memory_budget_mib=64), None),
             # accepted since the adaptive codec was ported: the batch's one codec
             (dict(codec=object()), None),
-            (dict(dict_service="service+ha://a|b"), "HA dict service"),
-            (dict(dict_service="/tmp/a.sock|/tmp/b.sock"), "HA dict service"),
+            # accepted since the HA plane was ported: the batch converts as
+            # the reference's, failing over mid-batch
+            (dict(dict_service="service+ha://{ctl}"), "ha"),
+            (dict(dict_service="{sock}|{replica}"), "ha"),
             (dict(dict_service="/tmp/a.sock", dict_path="/tmp/d.boot"), "dict_path"),
         ],
         ids=["memory_budget", "codec", "service+ha", "failover-group", "service-and-dict_path"],
     )
-    def test_refused(self, kw, match):
+    def test_refused(self, kw, match, corpus, reference, tmp_path):
+        if match == "ha":
+            _ha_batch_equals_reference(tmp_path, corpus, reference, kw["dict_service"])
+            return
         if match is None:
             bc = BatchConverter(PackOption(**OPT), device="cpu", **kw)
             if "codec" in kw:

@@ -490,13 +490,38 @@ class TestBlobReader:
     @pytest.mark.parametrize("flag", [convert.CHUNK_FLAG_GZIP_STREAM, convert.CHUNK_FLAG_ZSTD_STREAM],
                              ids=["gzip-stream", "zstd-stream"])
     def test_stream_chunks_refused(self, flag):
+        """Refused until the OCIRef readers were ported (same name): a
+        stream chunk reads through the blob's gzip or zstd stream, the
+        default sequential reader or a mounted one, as the reference's."""
+        import gzip
+
+        from nydus_snapshotter_tpu.converter import convert as jconvert
+        from nydus_snapshotter_tpu.models.bootstrap import Bootstrap as JBootstrap
+        from nydus_snapshotter_tpu_torch.utils import zstd as zstd_native
+
+        plain = b"abc" * 100
+        if flag == convert.CHUNK_FLAG_ZSTD_STREAM:
+            if not zstd_native.frames_available():
+                pytest.skip("the system libzstd's frame surface is not bound")
+            blob = zstd_native.compress_block(plain, 3)
+        else:
+            blob = gzip.compress(plain, mtime=0)
         bs = self._one_chunk_bootstrap(flag)
-        reader = convert.make_bytes_reader(bs, 0, b"abc" * 100)
-        with pytest.raises(ConvertError, match="not ported"):
-            reader.chunk_data(bs.chunks[0])
+        bs.blobs[0].compressed_size = len(blob)
+        reader = convert.make_bytes_reader(bs, 0, blob)
+        assert reader.chunk_data(bs.chunks[0]) == plain
+        jbs = JBootstrap.from_bytes(bs.to_bytes())
+        assert jconvert.make_bytes_reader(jbs, 0, blob).chunk_data(jbs.chunks[0]) == plain
+
+        class Mounted:
+            concurrent = True
+
+            def read_range(self, off, size):
+                return b"m" * size
+
         for mount in (reader.mount_gzip_stream, reader.mount_zstd_stream):
-            with pytest.raises(ConvertError, match="not ported"):
-                mount(object())
+            mount(Mounted())
+        assert reader.chunk_data(bs.chunks[0]) == b"m" * len(plain)
 
     def test_encrypted_blob_reads_back_as_reference(self):
         """An AES-256-CTR blob: both readers decrypt the raw range before

@@ -23,7 +23,7 @@ from nydus_snapshotter_tpu.parallel import dict_service as jds
 from nydus_snapshotter_tpu.parallel.sharded_dict import DictEpochError as JDictEpochError
 from nydus_snapshotter_tpu.parallel.sharded_dict import ShardedChunkDict as JDict
 from nydus_snapshotter_tpu_torch.converter import codec
-from nydus_snapshotter_tpu_torch.converter import ConvertError, PackOption, pack_layer
+from nydus_snapshotter_tpu_torch.converter import PackOption, pack_layer
 from nydus_snapshotter_tpu_torch.converter.batch import GrowingChunkDict
 from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap, ChunkDict
 from nydus_snapshotter_tpu_torch.ops import probe_cuda
@@ -353,11 +353,42 @@ class TestPackThroughService:
         assert via[1].blob_id == ref_res.blob_id
         assert set(via[1].referenced_blob_ids) - {via[1].blob_id}
 
-    def test_ha_paths_refused(self):
-        with pytest.raises(ConvertError, match="HA"):
-            pds.open_chunk_dict("service+ha:///run/ctl.sock")
-        with pytest.raises(ConvertError, match="HA"):
-            pds.open_chunk_dict("service:///run/a.sock|/run/b.sock#ns")
+    def test_ha_paths_refused(self, pool, tmp_path):
+        """Refused until the HA plane was ported (same name): both packages
+        now open a ``|`` group (the first address is the shard's route key,
+        the rest its failover candidates) and ``service+ha://`` (shards and
+        candidates from the placement map, served here by the reference's
+        fleet plane with the port's placement controller) alike."""
+        from nydus_snapshotter_tpu import fleet as jfleet
+        from nydus_snapshotter_tpu.system.system import SystemController
+        from nydus_snapshotter_tpu_torch.ha.placement import PlacementController
+
+        svc = pool("port")
+        plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+        pc = PlacementController(plane.registry.members, plane.federator.liveness, shards=1,
+                                 replicas=0)
+        plane.attach_placement(pc)
+        plane.registry.register(jfleet.Member(name="dict-0", component="dict",
+                                              address=svc.sock_path, pid=1))
+        pc.tick()
+        ctl = SystemController(fs=None, managers=[], sock_path=str(tmp_path / "ctl.sock"),
+                               fleet=plane)
+        ctl.run()
+        try:
+            opened = []
+            for mod in (pds, jds):
+                group = mod.open_chunk_dict(f"service://{svc.sock_path}|/run/b.sock#ns")
+                ha = mod.open_chunk_dict(f"service+ha://{ctl.sock_path}#ns")
+                opened += [group, ha]
+                assert (group.namespace, group.shard_addrs) == ("ns", [svc.sock_path])
+                assert group._shards[0].alternates == ["/run/b.sock"]
+                assert (ha.namespace, ha.shard_addrs) == ("ns", ["dict-shard-0"])
+                assert ha._resolver(0) == [svc.sock_path]
+                assert ha.client.sock_path == svc.sock_path
+            for d in opened:
+                d.close()
+        finally:
+            ctl.stop()
 
 
 def test_config_env_overrides(monkeypatch):

@@ -180,6 +180,73 @@ _CHILD = textwrap.dedent(
     assert digs[1] == [hashlib.sha256(b"abc").digest()] and rep["pack"] == "extent"
     assert mesh_pack.resolve_mesh_config().pack == "extent"
     assert multihost.runtime().count == 1
+    # the HA dict plane: placement pushes roles, a replica tails its
+    # primary, a down report promotes it, a failover group's mirror repairs
+    # and replays onto it; the fleet member half and the runner module
+    import gzip, json, time
+    from nydus_snapshotter_tpu_torch import fleet, ha
+    from nydus_snapshotter_tpu_torch.ha import placement, replicate, runner
+    from nydus_snapshotter_tpu_torch.utils import udshttp
+    assert ha.resolve_ha_config().budget_bytes == 256 << 10 and callable(runner.main)
+    boot_a = pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000), device="cpu")[1].bootstrap
+    boot_b = pack_layer(many.getvalue(), PackOption(chunk_size=0x1000, backend="hybrid"))[1].bootstrap
+    with tempfile.TemporaryDirectory() as t:
+        svcs = [dict_service.DictService(device="cpu") for _ in range(2)]
+        for i, svc in enumerate(svcs):
+            replicate.HaAgent(svc, role="unassigned")
+            svc.run(os.path.join(t, f"m{i}.sock"))
+        try:
+            members = [fleet.Member(name=f"d{i}", component="dict", address=s.sock_path, pid=i)
+                       for i, s in enumerate(svcs)]
+            pc = placement.PlacementController(lambda: members, lambda: {}, shards=1, replicas=1)
+            assert pc.tick()
+            seat = pc.map()["assignments"][0]["primary"]
+            prim = next(s for s in svcs if s.sock_path == seat["address"])
+            repl = next(s for s in svcs if s is not prim)
+            mirror = dict_service.open_chunk_dict(f"service://{prim.sock_path}|{repl.sock_path}")
+            mirror.add_bootstrap_bytes(boot_a)
+            deadline = time.monotonic() + 30
+            while len(repl.dict_for("default").records.bootstrap.chunks) < len(mirror):
+                assert time.monotonic() < deadline
+                time.sleep(0.02)
+            prim.stop()
+            pc.report_down(seat["name"])
+            assert pc.tick() and repl.ha.is_primary()
+            assert udshttp.get_json(repl.sock_path, "/api/v1/ha/status")["role"] == "primary"
+            mirror.add_bootstrap_bytes(boot_b)
+            assert len(repl.dict_for("default").records.bootstrap.chunks) == len(mirror)
+            mirror.close()
+        finally:
+            for s in svcs:
+                s.stop()
+    # the OCIRef paths: a gzip and a zstd ref layer read lazily and unpacked,
+    # the hooks over a content store (packed and oci_ref), decompress_stream
+    from nydus_snapshotter_tpu_torch.converter import hooks, zran, zstd_ref
+    from nydus_snapshotter_tpu_torch.remote import unpack
+    raw = gzip.compress(many.getvalue(), mtime=0)
+    assert unpack.decompress_stream(raw) == many.getvalue()
+    refs = [(zran.pack_gzip_layer(raw, PackOption(chunk_size=0x4000, oci_ref=True)), raw)]
+    if zstd.frames_available():
+        zraw = zstd.compress_block(many.getvalue(), 3)
+        refs.append((zstd_ref.pack_zstd_layer(zraw, PackOption(chunk_size=0x4000)), zraw))
+    for bs, blob in refs:
+        out = Unpack(bs, {bs.blobs[0].blob_id: blob})
+        assert tarfile.open(fileobj=io.BytesIO(out)).extractfile("m2").read() == data
+    with tempfile.TemporaryDirectory() as t:
+        cs = content.LocalContentStore(t)
+        layer = cs.write_blob(raw)
+        cfg = cs.write_blob(json.dumps({"rootfs": {"diff_ids": []}}).encode())
+        man = cs.write_blob(json.dumps({
+            "schemaVersion": 2, "mediaType": "application/vnd.oci.image.manifest.v1+json",
+            "config": {"mediaType": "application/vnd.oci.image.config.v1+json",
+                       "digest": cfg.digest, "size": cfg.size},
+            "layers": [{"mediaType": "application/vnd.oci.image.layer.v1.tar+gzip",
+                        "digest": layer.digest, "size": layer.size}]}).encode())
+        desc = Descriptor("application/vnd.oci.image.manifest.v1+json", man.digest, man.size)
+        for oci_ref in (False, True):
+            new = hooks.convert_image(cs, desc, PackOption(chunk_size=0x4000, oci_ref=oci_ref),
+                                      MergeOption(oci=True), device="cpu")
+            assert hooks.is_nydus_image(json.loads(cs.read(new.digest)))
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
     print("LEAKED", bad)
@@ -292,13 +359,17 @@ def _adaptive():
         lambda: BatchConverter(PackOption(compressor="zstd"), codec=_adaptive()).convert_image("i", [b""]),
         lambda: mesh.make_mesh(),
         lambda: entry.sharded_convert_step([b"abc"], 0x1000, 1),
+        lambda: __import__("nydus_snapshotter_tpu_torch.ha.runner", fromlist=["main"]).main(
+            ["--listen", "/nonexistent/r.sock"]),
+        lambda: __import__("nydus_snapshotter_tpu_torch.converter.hooks", fromlist=["hooks"])
+        .layer_convert_func(PackOption(oci_ref=True)),
     ],
     ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
          "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
          "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3",
          "pack_layer_jax_zstd", "dict_load", "dict_service", "batch_one_layer",
          "batch_fanout", "pack_layer_encrypt", "pack_layer_adaptive", "batch_adaptive",
-         "make_mesh", "sharded_convert_step"],
+         "make_mesh", "sharded_convert_step", "ha_runner", "hooks_oci_ref"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():

@@ -336,6 +336,48 @@ def _third_tar(seed: int = 7, files: int = 8) -> bytes:
     return buf.getvalue()
 
 
+def _pack_through_ha_dict(tmp_path, tar, template: str) -> None:
+    """A port primary (and its replica) holds a third of the files; every
+    lane's pack through ``template`` equals the reference's pack through the
+    same path, and references the dict's blob."""
+    from nydus_snapshotter_tpu import fleet as jfleet
+    from nydus_snapshotter_tpu.system.system import SystemController
+    from nydus_snapshotter_tpu_torch.ha.placement import PlacementController
+    from nydus_snapshotter_tpu_torch.ha.replicate import HaAgent
+    from nydus_snapshotter_tpu_torch.parallel.dict_service import DictClient, DictService
+
+    _dblob, dres = j_pack_layer(_third_tar(), JPackOption(backend="numpy", **SMALL))
+    prim, repl = DictService(device="cpu"), DictService(device="cpu")
+    HaAgent(prim, role="primary")
+    HaAgent(repl, role="unassigned")
+    prim.run(str(tmp_path / "p.sock"))
+    repl.run(str(tmp_path / "r.sock"))
+    plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+    pc = PlacementController(plane.registry.members, plane.federator.liveness, shards=1,
+                             replicas=1)
+    plane.attach_placement(pc)
+    ctl = SystemController(fs=None, managers=[], sock_path=str(tmp_path / "ctl.sock"), fleet=plane)
+    ctl.run()
+    try:
+        cli = DictClient(prim.sock_path)
+        assert cli.merge(dres.bootstrap, "ns")["added"] > 0
+        cli.close()
+        plane.registry.register(jfleet.Member(name="dict-p", component="dict",
+                                              address=prim.sock_path, pid=1))
+        pc.tick()
+        assert pc.map()["assignments"][0]["primary"]["address"] == prim.sock_path
+        path = template.format(ctl=ctl.sock_path, sock=prim.sock_path, replica=repl.sock_path)
+        for backend in BACKENDS:
+            _blob, res = _pack_both(tar, backend, chunk_dict_path=path, **SMALL)
+            assert res.referenced_blob_ids[1:] == [dres.blob_id]
+    finally:
+        ctl.stop()
+        if repl.ha.tailer is not None:
+            repl.ha.tailer.stop()
+        repl.stop()
+        prim.stop()
+
+
 class TestCompressedPack:
     @pytest.mark.parametrize("fs_version", [layout.RAFS_V6, layout.RAFS_V5])
     @pytest.mark.parametrize("backend", BACKENDS)
@@ -524,15 +566,22 @@ class TestPackOptions:
         [
             pytest.param({"digester": "md5"}, id="kw5"),
             pytest.param({"chunk_dict_path": "/nonexistent"}, id="kw10"),
-            pytest.param({"chunk_dict_path": "service+ha:///run/ctl.sock"}, id="service_ha"),
-            pytest.param({"chunk_dict_path": "service:///run/a.sock|/run/b.sock#ns"},
+            pytest.param({"chunk_dict_path": "service+ha://{ctl}#ns"}, id="service_ha"),
+            pytest.param({"chunk_dict_path": "service://{sock}|{replica}#ns"},
                          id="service_group"),
             pytest.param({"lz4_acceleration": 0}, id="lz4_acceleration"),
         ],
     )
-    def test_unsupported_options_raise(self, kw):
+    def test_unsupported_options_raise(self, kw, tmp_path, small_tar):
         """Refused options raise ConvertError; a missing dict file raises
-        what the reference raises there."""
+        what the reference raises there. The HA dict paths (refused until
+        they were ported, same ids) pack as the reference does: through a
+        ``|`` failover group of a port primary and its port replica, and
+        through ``service+ha://``, the reference's fleet plane serving the
+        port's placement map."""
+        if "{" in kw.get("chunk_dict_path", ""):
+            _pack_through_ha_dict(tmp_path, small_tar, kw["chunk_dict_path"])
+            return
         tar = _layer_tar(files=1)
         want = ConvertError
         if kw.get("chunk_dict_path") == "/nonexistent":

@@ -61,7 +61,7 @@ PORTED_SITES = {
     "converter.pack", "pipeline.chunk", "pipeline.queue", "pipeline.compress",
     "pipeline.assemble", "fused.dispatch", "dict.insert", "dict.rebuild", "dict.rpc",
     "dict.shard", "chunk.vec", "compress.probe", "compress.train", "compress.encode",
-    "compress.batch",
+    "compress.batch", "ha.place", "ha.replicate", "ha.promote",
 }
 
 
@@ -220,7 +220,7 @@ def test_catalog_equal_and_ported_sites_wired():
     assert wired == PORTED_SITES
     assert PORTED_SITES <= set(tfp.KNOWN_SITES)
     not_ported = set(tfp.KNOWN_SITES) - PORTED_SITES
-    assert "transport.fetch_blob" in not_ported and "ha.replicate" in not_ported
+    assert "transport.fetch_blob" in not_ported and "fleet.collect" in not_ported
 
 
 def _drive_pack(pkg):
@@ -323,6 +323,45 @@ def _drive_batch(pkg):
     return _codec(pkg).encode_batch([b"x" * 8192, b"y" * 9000])
 
 
+def _ha_mods(pkg):
+    from nydus_snapshotter_tpu.ha import placement as jplacement
+    from nydus_snapshotter_tpu.ha import replicate as jreplicate
+    from nydus_snapshotter_tpu_torch.ha import placement as tplacement
+    from nydus_snapshotter_tpu_torch.ha import replicate as treplicate
+
+    return (tplacement, treplicate) if pkg == "port" else (jplacement, jreplicate)
+
+
+def _service(pkg):
+    return tds.DictService(device="cpu") if pkg == "port" else jds.DictService()
+
+
+def _drive_place(pkg):
+    from nydus_snapshotter_tpu.fleet import Member
+
+    members = [Member(name=f"dict-{i}", component="dict", address=f"/tmp/m{i}.sock", pid=i)
+               for i in range(2)]
+    pc = _ha_mods(pkg)[0].PlacementController(
+        lambda: members, lambda: {}, shards=1, replicas=1)
+    pc._push_role = lambda name, addr, payload: True
+    return pc.tick()
+
+
+def _drive_replicate(pkg, tmp_path):
+    prim = _service(pkg)
+    prim.run(str(tmp_path / f"{pkg}-primary.sock"))
+    tailer = _ha_mods(pkg)[1].ReplicaTailer(_service(pkg), prim.sock_path)
+    try:
+        return tailer.poll_once()
+    finally:
+        tailer.stop()
+        prim.stop()
+
+
+def _drive_promote(pkg):
+    return _ha_mods(pkg)[1].HaAgent(_service(pkg), role="replica").promote()
+
+
 DRIVERS = {
     "converter.pack": _drive_pack,
     "pipeline.chunk": _drive_pack,
@@ -339,6 +378,9 @@ DRIVERS = {
     "compress.train": _drive_train,
     "compress.encode": _drive_encode,
     "compress.batch": _drive_batch,
+    "ha.place": _drive_place,
+    "ha.replicate": _drive_replicate,
+    "ha.promote": _drive_promote,
 }
 
 
@@ -350,7 +392,8 @@ def test_each_ported_site_fires_in_both_packages(monkeypatch, tmp_path, site):
     for pkg in ("port", "ref"):
         fp = PKG[pkg].fp
         drive = DRIVERS[site]
-        run = (lambda: drive(pkg, tmp_path)) if site == "dict.shard" else (lambda: drive(pkg))
+        with_path = site in ("dict.shard", "ha.replicate")
+        run = (lambda: drive(pkg, tmp_path)) if with_path else (lambda: drive(pkg))
         fp.inject(site, "error(OSError:site-chaos)*1")
         with pytest.raises(OSError, match="site-chaos|status 500"):
             run()
