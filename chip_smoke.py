@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 0-3 and 15 alone, on every visible card
     python3 chip_smoke.py --ha-only     # phases 0-3, 16 and 17 alone
+    python3 chip_smoke.py --convert-only  # phases 0-3 and 18 alone
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -294,6 +295,36 @@ Phases (any failure exits non-zero; nothing is caught):
    once a layer) and ``oci_ref`` (K2 once a layer, the index's digests):
    four-layer nydus manifests with their configs, a file of every layer
    read back.
+18. converter CLI and corpora — (a) ``cmd.convert.main`` in process on
+   phase 4's tar at the CLI's defaults (1 MiB CDC chunks, lz4_block, v6;
+   no ``--device``: the card): ``pack --backend fused`` (K1 and K2 once)
+   and the default ``hybrid`` (no launch) write the same layer stream, as
+   do ``--digester blake3`` fused (K1 once, K4's two launches once each)
+   and hybrid; ``detect_features()`` has DEVICE_DIGEST. (b) ``merge``,
+   ``check``, ``inspect --prefix`` (the tar's paths under the prefix) and
+   ``unpack`` (every member's bytes equal the source's) on (a)'s output,
+   no launch. (c) ``tarfs_bootstrap_from_tar`` of the tar with the card's
+   ``ChunkDigestEngine`` (K2 once): every region's digest equals
+   hashlib's and the bootstrap the host route's; ``export-erofs`` (an
+   EROFS disk holding the tar at a 512-byte boundary) and ``export-real
+   --format v6`` of it (the real layout reads back with the same digests).
+   (d) ``python -m nydus_snapshotter_tpu_torch.cmd.convert pack --backend
+   fused`` as a process: rc 0, one JSON line, the blob of (a); ``check`` of
+   4096 random bytes: rc 1, one stderr line. (e) The scenario corpora at
+   64 KiB chunks, ``pack_layer`` fused (K1 and K2 once) against hybrid (no
+   launch), byte for byte, each with its route and ``stats`` split:
+   ``cdc_resonant_layer`` in ``min`` and ``max`` mode (256 MiB; every
+   chunk of a file but its last is ``min_size`` / ``max_size``),
+   ``single_huge_file_layer`` (1024 MiB, one file),
+   ``tiny_files_layer`` (100 000 files), ``incompressible_layer`` and
+   ``compressible_layer`` (256 MiB each, zstd under the adaptive codec:
+   the bypass engages on the first only). (f) ``cross_tree_dedup`` with
+   fixed chunks on the card (K2 only) and on the hybrid lane: the same
+   figures. (g) Tree 1 at drift epochs 0, 8, 16 and 24
+   (``misc/scenarios/soak.toml``'s seed and drift rate) through ``batch``
+   with a growing dict, fused (K1 and K2 once per image) and hybrid: the
+   same images and dict; each epoch's new chunks beside its
+   ``shared_fraction``.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -328,16 +359,17 @@ K2_PLAIN_MAX_CAP = 128  # the plain SHA-256 loops in Python per 64-byte block
 REPS = 5
 # Timed runs after the checked one of the slowest host-bound earlier lanes:
 # the windowed engine (phases 7 and 9, ~10-15 s a run) and the hybrid
-# engine (phase 12, ~4 s a run; 0 reports the checked run). They keep the
+# engine (phase 12, ~4 s a run); 0 reports the checked run. They keep the
 # script inside its time limit; their medians of 3 from PRs 5-9 stand in
 # PERF.md.
-WINDOWED_REPS = 1
+WINDOWED_REPS = 0
 HYBRID_REPS = 0
-# Timed runs after each checked pack (phases 4, 8-12, 14) and after phase
-# 13's checked fused batch; 0 reports the checked run. One pack and no batch
-# keep the script inside its time limit on the slower card hosts (1212 s of
-# command with 3 and 1 on one such host, PERF.md §4). Checks all stay.
-PACK_REPS = 1
+# Timed runs after each checked pack (phases 4, 8-12; phase 14 keeps one,
+# whose codec it reads) and after phase 13's checked fused batch; 0 reports
+# the checked run. None keeps the script, phase 18 included, inside its time
+# limit on the slower card hosts (1212 s of command with 3 and 1 on one such
+# host, PERF.md §4). Checks all stay.
+PACK_REPS = 0
 DEVICE = "cuda"
 
 # K3's registry-scale workload: tools/registry_scale.py's deployment.
@@ -586,6 +618,13 @@ def host_timed(fn) -> tuple[float, float, int]:
     fn()
     wall, cpu = time.perf_counter() - t0, time.process_time() - c0
     return wall, cpu, resource.getrusage(resource.RUSAGE_SELF).ru_minflt - r0.ru_minflt
+
+
+def or_checked(runs: list, first_s: float) -> list:
+    """Timed repetitions after a checked run, or, with none (a ``*_REPS``
+    of 0), the checked run's wall seconds standing for them (its host CPU
+    seconds and page faults were not taken: nan and -1)."""
+    return runs or [(first_s, float("nan"), -1)]
 
 
 @contextlib.contextmanager
@@ -959,9 +998,11 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
     eng = chunker.ChunkDigestEngine(chunk_size=CHUNK_SIZE, backend="jax", device=dev)
     for k in kernels.values():
         k.launches = 0
+    before = dict(eng.stats)
     t0 = time.perf_counter()
     got = eng.process_many(files)
     first_s = time.perf_counter() - t0
+    first_split = {k: eng.stats[k] - before[k] for k in eng.stats}
     launches = {key: k.launches for key, k in kernels.items()}
     for metas, cuts, digs in zip(got, fused_res.cuts, fused_res.digests):
         if [m.offset + m.size for m in metas] != [int(c) for c in cuts]:
@@ -983,12 +1024,13 @@ def windowed_phase(dev, files, fused_res, kernels, int_ops_per_s, sm_hz, rc) -> 
         eng.process_many(files)
         walls.append(time.perf_counter() - t0)
         splits.append({k: eng.stats[k] - before[k] for k in eng.stats})
+    walls, splits = walls or [first_s], splits or [first_split]
     wall = float(np.median(walls))
     split = {k: float(np.median([x[k] for x in splits])) for k in splits[0]}
     busy_ms, by_name = device_busy(lambda: eng.process_many(files))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"[7] windowed process_many: median {wall:.3f} s over {WINDOWED_REPS} runs after the "
-        f"checked one -> "
+        f"checked one (the checked run when 0) -> "
         f"{n_bytes / 2**30 / wall:.3f} GiB/s (runs: " + ", ".join(f"{x:.3f}" for x in walls)
         + f" s); boundaries_many {split['boundaries_s']:.3f} s, digest_all {split['digest_s']:.3f} s; "
         f"device busy {busy_ms:.3f} ms = {100 * busy_ms / (wall * 1e3):.1f}% of the median, idle "
@@ -1168,9 +1210,9 @@ def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
         for k in kernels.values():
             k.launches = 0
         with submits_without_sync(submits):
-            t0 = time.perf_counter()
-            blob, res = fn()
-            first = time.perf_counter() - t0
+            got = []
+            first_run = host_timed(lambda: got.append(fn()))
+            (blob, res), first = got[0], first_run[0]
         launches = {key: k.launches for key, k in kernels.items()}
         if not (blob == blob_n == blob_f and res.bootstrap == res_n.bootstrap
                 and res.blob_id == res_n.blob_id):
@@ -1182,7 +1224,7 @@ def pack_lanes_phase(dev, tar, blob_n, res_n, blob_f, kernels) -> dict:
         if not k1_ok or launches["sha"] != len(submits) or not submits:
             raise AssertionError(f"pack {name}: launches {launches} for {n_files} non-empty "
                                  f"files, {len(submits)} digest batches")
-        runs = [host_timed(fn) for _ in range(PACK_REPS)]
+        runs = [host_timed(fn) for _ in range(PACK_REPS)] or [first_run]
         walls = [r[0] for r in runs]
         log(f"[8] pack {name}: == numpy and fused byte for byte; launches {launches} "
             f"({n_files} non-empty files, {len(submits)} digest batches, each submitted under "
@@ -1423,6 +1465,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
         weng.process_many(files)
         win_walls.append(time.perf_counter() - t0)
         win_splits.append(tuple(weng.stats[k] - before[k] for k in ("boundaries_s", "digest_s")))
+    win_walls, win_splits = win_walls or [win_s], win_splits or [win_first]
     win_wall = float(np.median(win_walls))
     log(f"[9] windowed ChunkDigestEngine(backend='jax', digester='blake3') at 1 MiB chunks: "
         f"{len(sizes_1m)} chunks, cuts == phase 7's, digests == the plain version; launches "
@@ -1463,6 +1506,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
             pack_layer(tar, PackOption(backend="fused", **opt), device=dev)[0])))
         if got[0] != blob_b:
             raise AssertionError("the fused BLAKE3 pack differs from its checked run")
+    pack_runs = or_checked(pack_runs, pack_first)
     pack_wall = float(np.median([r[0] for r in pack_runs]))
     log(f"[9] pack fused, digester='blake3': blob and blob id == phase 4's SHA-256 fused blob, "
         f"{len(chunks)} bootstrap digests == the plain version; launches {pack_launches}; checked "
@@ -1495,6 +1539,7 @@ def blake3_phase(dev, files, res_sha, buffer_dev, extents, windowed, tar, blob_f
             pack_layer(tar, PackOption(backend="jax", **opt), device=dev)[0])))
         if got[0] != blob_b:
             raise AssertionError("the jax lane's BLAKE3 pack differs from its checked run")
+    jax_runs = or_checked(jax_runs, jax_first)
     jax_wall = float(np.median([r[0] for r in jax_runs]))
     log(f"[9] pack jax, digester='blake3': == the fused BLAKE3 pack (blob, bootstrap, blob id); "
         f"launches {jax_launches} ({n_files} non-empty files, {len(submits)} digest batches, each "
@@ -1650,8 +1695,9 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
                  "frames": n_frames, "data_bytes": ref[1].blob_size, "numpy_route": ref[1].route}
         n_unique = Bootstrap.from_bytes(ref[1].bootstrap).blobs[0].chunk_count
         for lane in ("fused", "jax"):
+            st0 = {}
             got, first, launches, batches = counted(
-                lambda: pack_layer(tar, PackOption(backend=lane, **opt), device=dev))
+                lambda: pack_layer(tar, PackOption(backend=lane, **opt), device=dev, stats=st0))
             if not same(got, ref):
                 raise AssertionError(f"{codec} pack {lane} differs from the numpy lane")
             # The reference's writer choice for an in-memory tar: the deferred
@@ -1679,6 +1725,7 @@ def compressed_phase(dev, tar, lanes, kernels) -> dict:
                 stats.append(st)
                 if blobs[0] != ref[0]:
                     raise AssertionError(f"{codec} pack {lane} differs from its checked run")
+            runs, stats = or_checked(runs, first), stats or [st0]
             wall = float(np.median([r[0] for r in runs]))
             batch_note = (f" ({batches} digest batches, each submitted under sync debug mode "
                           "'error')" if lane == "jax" else "")
@@ -1985,11 +2032,13 @@ def fused_after_insert_phase(dev, eng, files, first, cdict, kernels) -> dict:
         runs.append(time.perf_counter() - t0)
         if not np.array_equal(again.probe, res.probe):
             raise AssertionError("probe answers differ between process_many calls")
+    runs = runs or [wall_s]
     log(f"[11] fused after insert: {len(extra)} digests of another third of the layer's files "
         f"into phase 2's dict (epoch {epoch0} -> {epoch}, max chain {depth}) in "
         f"{insert_s * 1e3:.1f} ms; process_many {wall_s:.3f} s (the dict's restage included), "
         f"launches {launches}; {len(q_host)} probe answers == host probe of the grown table, "
         f"{hits} hits, every inserted digest == its assigned index; median of {PACK_REPS} after it "
+        "(the checked run when 0) "
         f"{np.median(runs):.3f} s (runs " + ", ".join(f"{x:.3f}" for x in runs) + " s)")
     return {"launches": launches, "insert_s": insert_s, "wall_s": wall_s, "hits": hits,
             "depth": depth, "median_s": float(np.median(runs)), "runs_s": runs}
@@ -2306,6 +2355,7 @@ def host_arms_phase(dev, files, res_sha, windowed, b3, e2e_s, tar, comp, kernels
                 stats.append(st_r)
                 if blobs[0] != got[0]:
                     raise AssertionError(f"the hybrid pack ({name}) differs from its checked run")
+        runs, stats = or_checked(runs, first), stats or [st]
         wall = float(np.median([r[0] for r in runs]))
         log(f"[12] hybrid pack, {name}, NTPU_PACK_THREADS={threads or 'unset'}: == its fused twin "
             f"(blob, bootstrap, blob id); no launch; route: "
@@ -2862,7 +2912,7 @@ def codec_cipher_phase(dev, tar, files, comp, kernels) -> dict:
     ratio = res.blob_size / file_bytes
     fixed_ratio = comp["codecs"]["zstd"]["ratio"]
     runs, stats = [], []
-    for _ in range(PACK_REPS):
+    for _ in range(max(PACK_REPS, 1)):  # one at least: the class counts need an explicit codec
         c = adaptive()
         st, got = {}, []
         runs.append(host_timed(lambda: got.append(
@@ -3729,15 +3779,337 @@ def ociref_phase(dev, tar, kernels) -> dict:
     return out_d
 
 
+CONVERT_CORPUS_MIB = 256  # phase 18's resonant, incompressible and compressible layers
+CONVERT_HUGE_MIB = 1024  # its single-file layer
+CONVERT_TINY_FILES = 100_000
+CONVERT_EPOCHS = (0, 8, 16, 24)  # drift epochs of tree 1 fed to `batch`
+
+
+def convert_phase(dev, tar, kernels) -> dict:
+    """Phase 18: the converter CLI in process and as a process, tar-tarfs
+    and the exports, the scenario corpora on the fused lane against the
+    hybrid lane, real-vs-real cross-tree dedup, and image evolution
+    through ``batch``."""
+    import contextlib
+    import os
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch.cmd import convert as cli
+    from nydus_snapshotter_tpu_torch.converter import PackOption, convert, feature, pack_layer
+    from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
+    from nydus_snapshotter_tpu_torch.models import erofs_image, fstree, nydus_real
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.ops.cdc import CDCParams
+    from nydus_snapshotter_tpu_torch.ops import fused_convert
+    from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
+    from nydus_snapshotter_tpu_torch.scenario import corpus, evolution
+    from nydus_snapshotter_tpu_torch.scenario import spec as scenario_spec
+    from nydus_snapshotter_tpu_torch.tarfs import tarfs_bootstrap_from_tar
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    # no --device: the card (the CLI's default); a CPU rehearsal asks for the CPU
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    feats = feature.detect_features(force=True, device=None if dev.type == "cuda" else "cpu")
+    if not feats.contains(feature.Feature.DEVICE_DIGEST):
+        raise AssertionError("detect_features: no DEVICE_DIGEST with the card present")
+    sha_l = {"gear": 1, "sha": 1}
+    b3_l = {"gear": 1, "b3_leaves": 1, "b3_parents": 1}
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, {key: k.launches for key, k in kernels.items() if k.launches}
+
+    def run_cli(*argv, want=None):
+        """``main(argv)`` in process -> (its one stdout line, s, launches)."""
+        out = io.StringIO()
+
+        def call():
+            with contextlib.redirect_stdout(out):
+                return cli.main([*dev_args, *argv])
+
+        rc, s, launched = counted(call)
+        lines = out.getvalue().splitlines()
+        if rc != 0 or len(lines) != 1:
+            raise AssertionError(f"ntpu-convert {argv[0]}: rc {rc}, stdout {lines}")
+        if want is not None and launched != want:
+            raise AssertionError(f"ntpu-convert {' '.join(argv[:3])} launched {launched}; want {want}")
+        return lines[0], s, launched
+
+    def tree(tar_bytes):
+        with tarfile.open(fileobj=io.BytesIO(tar_bytes)) as tf:
+            return {fstree.norm_path(m.name): tf.extractfile(m).read() if m.isreg() else m.linkname
+                    for m in tf if m.isreg() or m.issym()}
+
+    def fmt_l(launched):
+        return ", ".join(f"{k} {n}" for k, n in launched.items()) or "none"
+
+    out_d = {"features": sorted(f.name for f in feats)}
+    with tempfile.TemporaryDirectory() as work:
+        w = Path(work)
+        src = w / "layer.tar"
+        src.write_bytes(tar)
+
+        # -- (a) CLI packs at the CLI defaults: 1 MiB CDC, lz4_block, v6 ----------
+        packs = {}
+        for name, extra, want in (("fused", ["--backend", "fused"], sha_l), ("hybrid", [], {}),
+                                  ("fused_blake3", ["--backend", "fused", "--digester", "blake3"], b3_l),
+                                  ("hybrid_blake3", ["--digester", "blake3"], {})):
+            line, s, launched = run_cli("pack", "--in", str(src), "--out", str(w / f"{name}.nydus"), *extra,
+                                        want=want)
+            packs[name] = {"line": line, "s": s, "launches": launched}
+        for a, b in (("fused", "hybrid"), ("fused_blake3", "hybrid_blake3")):
+            if (w / f"{a}.nydus").read_bytes() != (w / f"{b}.nydus").read_bytes() \
+                    or packs[a]["line"] != packs[b]["line"]:
+                raise AssertionError(f"ntpu-convert pack: {a} differs from {b}")
+        blob_id = json.loads(packs["fused"]["line"])["blob_id"]
+        log(f"[18] features {out_d['features']}; CLI pack of phase 4's {len(tar)} byte tar at the "
+            "defaults (1 MiB CDC, lz4_block, v6), in process: " + "; ".join(
+                f"{n} {p['s']:.2f} s ({fmt_l(p['launches'])})" for n, p in packs.items())
+            + "; fused == hybrid byte for byte, at SHA-256 and at BLAKE3")
+
+        # -- (b) the other verbs on (a)'s output ---------------------------------
+        verbs = {}
+        line, verbs["merge"], _ = run_cli("merge", str(w / "fused.nydus"), "--out", str(w / "image.boot"),
+                                          want={})
+        if json.loads(line)["blob_digests"] != [blob_id]:
+            raise AssertionError(f"merge: {line}")
+        line, verbs["check"], _ = run_cli("check", "--boot", str(w / "image.boot"), want={})
+        info = json.loads(line)
+        if info["version"] != "v6" or info["blobs"] != [blob_id]:
+            raise AssertionError(f"check: {line[:300]}")
+        want_tree = tree(tar)
+        prefix = "/layer0/d5"
+        line, verbs["inspect"], _ = run_cli("inspect", "--boot", str(w / "image.boot"), "--prefix", prefix,
+                                            want={})
+        want_paths = sorted([prefix] + [p for p in want_tree if p.startswith(prefix + "/")])
+        if json.loads(line)["paths"] != want_paths:
+            raise AssertionError("inspect --prefix: the listing differs from the tar's")
+        (w / "blobs").mkdir()
+        (w / "blobs" / blob_id).write_bytes(convert.blob_data_from_layer_blob((w / "fused.nydus").read_bytes()))
+        line, verbs["unpack"], _ = run_cli("unpack", "--boot", str(w / "image.boot"), "--blob-dir",
+                                           str(w / "blobs"), "--out", str(w / "out.tar"), want={})
+        if tree((w / "out.tar").read_bytes()) != want_tree:
+            raise AssertionError("unpack: the tar's members differ from the source's")
+        log(f"[18] merge {verbs['merge']:.2f} s, check {verbs['check']:.2f} s, inspect --prefix "
+            f"{verbs['inspect']:.2f} s ({len(want_paths)} paths), unpack {verbs['unpack']:.2f} s: "
+            f"{info['inodes']} inodes, {info['chunks']} chunks; every member of the unpacked tar == "
+            f"the source's ({len(want_tree)} files and links); no launch")
+
+        # -- (c) tar-tarfs on the card's engine, then the exports ----------------
+        tar_id = hashlib.sha256(tar).hexdigest()
+        eng = ChunkDigestEngine(chunk_size=CHUNK_SIZE, backend="jax", digest_backend="jax", device=dev)
+        tbs, tarfs_s, tarfs_l = counted(lambda: tarfs_bootstrap_from_tar(io.BytesIO(tar), tar_id, engine=eng))
+        if tarfs_l != {"sha": 1}:
+            raise AssertionError(f"tar-tarfs launched {tarfs_l}; want K2 once")
+        for c in tbs.chunks:
+            o, n = c.uncompressed_offset, c.uncompressed_size
+            if c.digest != hashlib.sha256(tar[o:o + n]).digest():
+                raise AssertionError(f"tar-tarfs: the digest of region {o}+{n} differs from hashlib")
+        if tbs.to_bytes() != tarfs_bootstrap_from_tar(io.BytesIO(tar), tar_id).to_bytes():
+            raise AssertionError("tar-tarfs: the engine's bootstrap differs from the host route's")
+        (w / "tarfs.boot").write_bytes(tbs.to_bytes())
+        (w / "tars").mkdir()
+        (w / "tars" / tar_id).write_bytes(tar)
+        line, erofs_s, _ = run_cli("export-erofs", "--boot", str(w / "tarfs.boot"), "--tar-dir",
+                                   str(w / "tars"), "--out", str(w / "disk.erofs"), want={})
+        disk = (w / "disk.erofs").read_bytes()
+        base = disk.find(tar[:1 << 16])
+        if (len(disk) != json.loads(line)["image_bytes"] or base <= 0 or base % 512
+                or int.from_bytes(disk[1024:1028], "little") != erofs_image.EROFS_MAGIC
+                or disk[base:base + len(tar)] != tar):
+            raise AssertionError("export-erofs: not an EROFS disk holding the tar")
+        line, real_s, _ = run_cli("export-real", "--boot", str(w / "tarfs.boot"), "--out",
+                                  str(w / "real.v6"), "--format", "v6", want={})
+        real = nydus_real.load_any_bootstrap((w / "real.v6").read_bytes())
+        if real.version != "v6" or [c.digest for c in real.chunks] != [c.digest for c in tbs.chunks]:
+            raise AssertionError("export-real v6: the real bootstrap's chunks differ")
+        del disk
+        out_d["tarfs"] = {"chunks": len(tbs.chunks), "s": tarfs_s, "launches": tarfs_l,
+                          "export_erofs_s": erofs_s, "export_real_s": real_s}
+        log(f"[18] tar-tarfs: {len(tbs.chunks)} regions of <= 4 MiB digested on the card in "
+            f"{tarfs_s:.2f} s ({fmt_l(tarfs_l)}), == hashlib and == the host route's bootstrap; "
+            f"export-erofs {erofs_s:.2f} s (an EROFS disk with the tar at byte {base}), export-real "
+            f"v6 {real_s:.2f} s (the real layout reads back with the same digests)")
+
+        # -- (d) the process contract ---------------------------------------------
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = str(root)
+        cmd = [sys.executable, "-m", "nydus_snapshotter_tpu_torch.cmd.convert", *dev_args]
+        (w / "bad.boot").write_bytes(np.random.default_rng(SEED + 18).integers(
+            0, 256, 4096, dtype=np.uint8).tobytes())
+        # the two processes side by side: each pays the interpreter and torch
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  cwd=str(root), env=env)
+                 for argv in (["pack", "--backend", "fused", "--in", str(src), "--out", str(w / "proc.nydus")],
+                              ["check", "--boot", str(w / "bad.boot")])]
+        try:
+            (p_out, p_err), (b_out, b_err) = (p.communicate(timeout=600) for p in procs)
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        proc_s = time.perf_counter() - t0
+        proc, bad = procs
+        if proc.returncode != 0 or p_out != packs["fused"]["line"] + "\n" \
+                or (w / "proc.nydus").read_bytes() != (w / "fused.nydus").read_bytes():
+            raise AssertionError(f"the CLI process: rc {proc.returncode}, {p_out[:200]!r}, {p_err[-400:]!r}")
+        if bad.returncode != 1 or b_out or b_err.count("\n") != 1 or not b_err.startswith("ntpu-convert:"):
+            raise AssertionError(f"bad input: rc {bad.returncode}, {b_out!r}, {b_err[-400:]!r}")
+        out_d["process"] = {"pack_s": proc_s}
+        log(f"[18] python -m nydus_snapshotter_tpu_torch.cmd.convert pack --backend fused: rc 0, one "
+            f"JSON line and the blob == (a)'s; beside it check of 4096 random bytes: rc 1, one stderr "
+            f"line: {b_err.strip()[:120]}; both done in {proc_s:.2f} s (interpreter, torch, CUDA "
+            "context and the pack)")
+    out_d["cli"] = {"packs": packs, "verbs_s": verbs}
+    del src
+
+    # -- (e) the corpora: fused against hybrid, 64 KiB chunks ---------------------
+    params = CDCParams(CHUNK_SIZE)
+
+    def lanes(name, layer, check=None, fused_want=sha_l, **opt_kw):
+        got, rows = {}, []
+        for lane in ("fused", "hybrid"):
+            codec = codec_mod.AdaptiveCodec(codec_mod.CodecConfig(adaptive=True)) if "compressor" in opt_kw \
+                else None
+            st = {}
+            (blob, res), s, launched = counted(lambda: pack_layer(
+                layer, PackOption(backend=lane, chunk_size=CHUNK_SIZE, **opt_kw), device=dev, stats=st,
+                codec=codec))
+            if launched != (fused_want if lane == "fused" else {}):
+                raise AssertionError(f"{name} {lane} launched {launched}")
+            got[lane] = (blob, res, codec)
+            rows.append(f"{lane} {s:.2f} s, route {res.route['lane']}/{res.route['writer']}, "
+                        f"{fmt_stats(st)}, launches {fmt_l(launched)}")
+            got[lane + "_row"] = {"s": s, "route": dict(res.route), "stats": dict(st), "launches": launched}
+        (bf, rf, cf), (bh, rh, ch) = got["fused"], got["hybrid"]
+        if bf != bh or rf.bootstrap != rh.bootstrap or rf.blob_id != rh.blob_id:
+            raise AssertionError(f"{name}: the fused pack differs from the hybrid pack")
+        bs = Bootstrap.from_bytes(rf.bootstrap)
+        extra = check(bs, cf) if check else ""
+        log(f"[18] {name}: {len(layer)} byte tar, {len(bs.chunks)} chunks, blob {len(bf)} bytes; fused == "
+            f"hybrid byte for byte{extra}; " + "; ".join(rows))
+        return {"tar_bytes": len(layer), "chunks": len(bs.chunks), "blob_bytes": len(bf),
+                "fused": got["fused_row"], "hybrid": got["hybrid_row"]}
+
+    def every_chunk(size):
+        def check(bs, _codec):
+            n = 0
+            for ino in bs.inodes:
+                sizes = [c.uncompressed_size for c in bs.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]]
+                if sizes and (any(x != size for x in sizes[:-1]) or not 0 < sizes[-1] <= size):
+                    raise AssertionError(f"{ino.path}: chunk sizes {sorted(set(sizes))}, want {size}")
+                n += len(sizes)
+            return f"; all {n} chunks of each file but its last are {size} bytes"
+        return check
+
+    def bypass(engaged):
+        def check(_bs, codec):
+            counts = codec.stats()["counts"]
+            if (counts["bypass"] > 0) != engaged:
+                raise AssertionError(f"adaptive codec classes {counts}; bypass engaged should be {engaged}")
+            return f"; codec classes {counts} (bypass {'engaged' if engaged else 'not engaged'})"
+        return check
+
+    def overflow(mode):
+        """The full-path engine alone on the resonant file: its candidate
+        compaction's overflow message, or "" (then no windowed fallback)."""
+        data = corpus.cdc_resonant_data(SEED, CONVERT_CORPUS_MIB << 20, CHUNK_SIZE, mode)
+        try:
+            fused_convert.FusedDeviceEngine(chunk_size=CHUNK_SIZE, device=dev).process_many([data])
+        except fused_convert.FusedOverflow as e:
+            return str(e)
+        return ""
+
+    corpora = {}
+    t0 = time.perf_counter()
+    for mode, size in (("min", params.min_size), ("max", params.max_size)):
+        # A layer whose candidates overflow the compaction's capacity (4x the
+        # expected density, the reference's) takes the windowed lane on the
+        # card: K1 again, once per file, and K2 once.
+        why = overflow(mode)
+        layer = corpus.cdc_resonant_layer(SEED, CONVERT_CORPUS_MIB, CHUNK_SIZE, mode)
+        corpora[f"resonant_{mode}"] = lanes(
+            f"cdc_resonant {mode} (fused fallback: {why or 'none'})", layer, every_chunk(size),
+            fused_want={"gear": 2, "sha": 1} if why else sha_l)
+        corpora[f"resonant_{mode}"]["fused_overflow"] = why
+    layer = corpus.single_huge_file_layer(SEED, CONVERT_HUGE_MIB)
+    corpora["single_huge_file"] = lanes("single_huge_file", layer)
+    layer = corpus.tiny_files_layer(SEED, CONVERT_TINY_FILES)
+    corpora["tiny_files"] = lanes("tiny_files", layer)
+    layer = corpus.incompressible_layer(SEED, CONVERT_CORPUS_MIB)
+    corpora["incompressible"] = lanes("incompressible, adaptive zstd", layer, bypass(True), compressor="zstd")
+    layer = corpus.compressible_layer(SEED, CONVERT_CORPUS_MIB)
+    corpora["compressible"] = lanes("compressible, adaptive zstd", layer, bypass(False), compressor="zstd")
+    del layer
+    corpora_s = time.perf_counter() - t0
+
+    # -- (f) real-vs-real cross-tree dedup on the card ----------------------------
+    fixed = dict(chunking="fixed")
+    xf, xf_s, xf_l = counted(lambda: corpus.cross_tree_dedup(PackOption(backend="fused", **fixed), device=dev))
+    xh, xh_s, xh_l = counted(lambda: corpus.cross_tree_dedup(PackOption(backend="hybrid", **fixed)))
+    if xf != xh or xh_l or set(xf_l) != {"sha"}:
+        raise AssertionError(f"cross_tree_dedup: fused {xf['dedup_ratio']} ({xf_l}), hybrid "
+                             f"{xh['dedup_ratio']} ({xh_l})")
+    log(f"[18] cross_tree_dedup (fixed 1 MiB chunks; tree 1 {xf['tree1_mib']} MiB through the real v6 "
+        f"layout into a dict of {xf['dict_chunks']} chunks, tree 2 {xf['tree2_mib']} MiB against it): "
+        f"ratio {xf['dedup_ratio']} on the card in {xf_s:.2f} s ({fmt_l(xf_l)}) == the hybrid lane's in "
+        f"{xh_s:.2f} s")
+
+    # -- (g) image evolution through `batch` ---------------------------------------
+    soak = scenario_spec.load_spec(str(root / "misc" / "scenarios" / "soak.toml"))
+    seed, drift = soak.seed, soak.soak.drift_rate
+    manifest = corpus.load_manifest(corpus.MANIFEST_TREE1)
+    shared = [evolution.shared_fraction(manifest, seed, drift, e) for e in CONVERT_EPOCHS]
+    with tempfile.TemporaryDirectory() as work:
+        w = Path(work)
+        images = []
+        for e in CONVERT_EPOCHS:
+            images.append(str(w / f"epoch{e:02d}.tar"))
+            Path(images[-1]).write_bytes(corpus.members_to_tar(evolution.evolved_members(manifest, seed, drift, e)))
+        batch = {}
+        for lane, want in (("fused", {"gear": len(images), "sha": len(images)}), ("hybrid", {})):
+            line, s, launched = run_cli("batch", *images, "--out-dir", str(w / lane), "--dict-out",
+                                        str(w / f"{lane}.dict"), "--backend", lane, want=want)
+            batch[lane] = {"line": line, "s": s, "launches": launched}
+        if batch["fused"]["line"] != batch["hybrid"]["line"] or any(
+                (w / "fused" / f.name).read_bytes() != f.read_bytes() for f in (w / "hybrid").iterdir()) \
+                or (w / "fused.dict").read_bytes() != (w / "hybrid.dict").read_bytes():
+            raise AssertionError("batch: the fused lane's images or dict differ from the hybrid lane's")
+    new = [img["new_chunks"] for img in json.loads(batch["fused"]["line"])["images"]]
+    if new[0] <= 0 or any(not 0 <= n < new[0] for n in new[1:]):
+        raise AssertionError(f"evolution: new chunks per epoch {new}")
+    log(f"[18] evolution of tree 1 (soak.toml: seed {seed}, drift_rate {drift}) through `batch`, "
+        f"growing dict: fused {batch['fused']['s']:.2f} s ({fmt_l(batch['fused']['launches'])}), hybrid "
+        f"{batch['hybrid']['s']:.2f} s, images and dict byte-identical; epoch: new chunks / "
+        "shared_fraction: " + ", ".join(f"{e}: {n} / {f:.4f}" for e, n, f in zip(CONVERT_EPOCHS, new, shared)))
+
+    out_d.update({
+        "corpora": corpora, "corpora_s": corpora_s,
+        "cross_tree": {"ratio": xf["dedup_ratio"], "fused_s": xf_s, "hybrid_s": xh_s, "launches": xf_l},
+        "evolution": {"epochs": list(CONVERT_EPOCHS), "new_chunks": new, "shared_fraction": shared,
+                      "fused_s": batch["fused"]["s"], "hybrid_s": batch["hybrid"]["s"],
+                      "launches": batch["fused"]["launches"]},
+    })
+    out_d["phase_s"] = time.perf_counter() - t_phase
+    log(f"[18] {out_d['phase_s']:.1f} s")
+    return out_d
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    if args not in ([], ["--mesh-only"], ["--ha-only"]):
-        print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only]", file=sys.stderr)
+    if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"]):
+        print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only]", file=sys.stderr)
         return 2
     mesh_only = args == ["--mesh-only"]
     ha_only = args == ["--ha-only"]
+    convert_only = args == ["--convert-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -4006,14 +4378,23 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                   "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if convert_only:  # phases 0-3, then 18 on phase 4's tar
+        conv = convert_phase(dev, layer_tar(FileGen(SEED + 3).pool(PACK_MIB)), all_kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--convert-only: phases 0-3 and 18)")
+        print(smi, flush=True)
+        print(json.dumps({"convert": conv}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
     tar = layer_tar(FileGen(SEED + 3).pool(PACK_MIB))
     t_gen = time.perf_counter() - t0
     opt = dict(chunk_size=CHUNK_SIZE, compressor="none")
+    st_f = {}
     t0 = time.perf_counter()
-    blob_f, res_f = pack_layer(tar, PackOption(backend="fused", **opt), device=dev)
+    blob_f, res_f = pack_layer(tar, PackOption(backend="fused", **opt), device=dev, stats=st_f)
     t_fused = time.perf_counter() - t0
     t0 = time.perf_counter()
     blob_n, res_n = pack_layer(tar, PackOption(backend="numpy", **opt))
@@ -4033,9 +4414,12 @@ def main() -> int:
                 raise AssertionError(f"pack_layer({backend}) differs from its checked run")
             if backend == "fused":
                 fused_stats.append(st)
+        pack_runs[backend] = or_checked(pack_runs[backend], t_fused if backend == "fused" else t_numpy)
+    fused_stats = fused_stats or [st_f]
     log(f"[4] pack: {len(tar)} byte tar (built in {t_gen:.1f} s) -> {len(blob_f)} byte layer "
         f"blob, blob id {res_f.blob_id[:16]}..; fused == numpy byte for byte; checked runs fused "
-        f"{t_fused:.3f} s, numpy {t_numpy:.3f} s; median of {PACK_REPS} after them (runs, wall / host CPU "
+        f"{t_fused:.3f} s, numpy {t_numpy:.3f} s; median of {PACK_REPS} after them (the checked "
+        "runs when 0; runs, wall / host CPU "
         "s / minor page faults): " + "; ".join(
             f"{b} {np.median([r[0] for r in rs]):.3f} s ("
             + ", ".join(f"{w:.3f} / {c:.3f} / {f}" for w, c, f in rs) + ")"
@@ -4187,6 +4571,19 @@ def main() -> int:
     # -- 17. OCIRef layers: gzip and zstd ref packs, reads, Unpack, the hooks --
     ociref = ociref_phase(dev, tar, all_kernels)
 
+    # -- 18. the converter CLI, tar-tarfs and the exports, the scenario corpora --
+    conv = convert_phase(dev, tar, all_kernels)
+
+    def convert_launches(*keys):  # phase 18: per CLI pack, tarfs, corpus layer, batch
+        def n(launched):
+            return sum(launched.get(k, 0) for k in keys)
+        out = {f"cli_{name}": n(p["launches"]) for name, p in conv["cli"]["packs"].items()}
+        out["tarfs"] = n(conv["tarfs"]["launches"])
+        out.update({f"corpus_{name}": n(r["fused"]["launches"]) for name, r in conv["corpora"].items()})
+        out["cross_tree_fused"] = n(conv["cross_tree"]["launches"])
+        out["evolution_batch"] = n(conv["evolution"]["launches"])
+        return out
+
     def ociref_launches(*keys):  # phase 17: per ref pack and hooks arm
         out = {name: sum(r["launches"][k] for k in keys) for name, r in ociref["packs"].items()}
         out.update({f"hooks_{arm}": sum(r["launches"][k] for k in keys)
@@ -4229,6 +4626,7 @@ def main() -> int:
             image_batch_launches=images["launches"]["gear"], image_batch_layers=images["layers"],
             codec_cipher_launches=cc_launches("gear"), mesh_launches=mesh_launches("gear"),
             ha_batch_launches=ha["batch_launches"]["gear"], ociref_launches=ociref_launches("gear"),
+            convert_launches=convert_launches("gear"),
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -4244,6 +4642,7 @@ def main() -> int:
             image_batch_launches=images["launches"]["sha"], image_batch_layers=images["layers"],
             codec_cipher_launches=cc_launches("sha"), mesh_launches=mesh_launches("sha"),
             ha_batch_launches=ha["batch_launches"]["sha"], ociref_launches=ociref_launches("sha"),
+            convert_launches=convert_launches("sha"),
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -4283,6 +4682,7 @@ def main() -> int:
             codec_cipher_launches=cc["adaptive"]["blake3_launches"]["b3_leaves"]
             + cc["adaptive"]["blake3_launches"]["b3_parents"],
             ociref_launches=ociref_launches("b3_leaves", "b3_parents"),
+            convert_launches=convert_launches("b3_leaves", "b3_parents"),
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

@@ -247,6 +247,31 @@ _CHILD = textwrap.dedent(
             new = hooks.convert_image(cs, desc, PackOption(chunk_size=0x4000, oci_ref=oci_ref),
                                       MergeOption(oci=True), device="cpu")
             assert hooks.is_nydus_image(json.loads(cs.read(new.digest)))
+    # the converter CLI (a device-lane pack on the CPU, then every verb on
+    # its output), the tar-tarfs builder and its EROFS export, the corpora
+    import contextlib, json
+    from nydus_snapshotter_tpu_torch import tarfs
+    from nydus_snapshotter_tpu_torch.cmd import convert as cli
+    from nydus_snapshotter_tpu_torch.converter import cs_proxy, feature
+    from nydus_snapshotter_tpu_torch.models import erofs_image
+    from nydus_snapshotter_tpu_torch.scenario import arrivals, corpus, evolution, spec
+    assert feature.detect_features(device="cpu").contains(feature.Feature.DEVICE_DIGEST)
+    layer = corpus.cdc_resonant_layer(1, 1, 0x1000, "min")
+    with tempfile.TemporaryDirectory() as t:
+        src = os.path.join(t, "l.tar")
+        open(src, "wb").write(layer)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["--device", "cpu", "pack", "--backend", "fused", "--chunk-size", "0x1000",
+                             "--in", src, "--out", os.path.join(t, "l.nydus")]) == 0
+            assert cli.main(["merge", os.path.join(t, "l.nydus"), "--out", os.path.join(t, "i.boot")]) == 0
+            assert cli.main(["check", "--boot", os.path.join(t, "i.boot")]) == 0
+        assert json.loads(out.getvalue().splitlines()[0])["blob_size"] > 0
+        bs = tarfs.tarfs_bootstrap_from_tar(io.BytesIO(layer), "t" * 64, chunk_size=0x1000,
+                                            engine=ChunkDigestEngine(chunk_size=0x1000, device="cpu"))
+        assert int.from_bytes(erofs_image.erofs_from_rafs(bs)[1024:1028], "little") == erofs_image.EROFS_MAGIC
+    assert spec.list_specs(os.path.join(os.getcwd(), "misc", "scenarios"))
+    assert 0 < evolution.shared_fraction(corpus.load_manifest(), 23, 0.08, 8) < 1
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
     print("LEAKED", bad)
