@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mesh-only   # phases 0-3 and 15 alone, on every visible card
     python3 chip_smoke.py --ha-only     # phases 0-3, 16 and 17 alone
     python3 chip_smoke.py --convert-only  # phases 0-3 and 18 alone
+    python3 chip_smoke.py --registry-only  # phases 0-3 and 19 alone
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -325,6 +326,29 @@ Phases (any failure exits non-zero; nothing is caught):
    with a growing dict, fused (K1 and K2 once per image) and hybrid: the
    same images and dict; each epoch's new chunks beside its
    ``shared_fraction``.
+19. registry and tarfs manager — an in-process OCI registry on
+   127.0.0.1 (``OciRegistry``: manifests, configs, blobs with ``Range``)
+   serves a three-layer image: phase 4's tar as a plain layer, a gzip'd
+   ``TARFS_L2_MIB`` tar and a gzip'd ``TARFS_L3_MIB`` tar that whites out
+   one of L1's files and makes one of its directories opaque. A
+   ``tarfs.Manager(engine=ChunkDigestEngine(device=<the card>),
+   validate_diff_id=True, export_mode="image_block_with_verity")`` prepares
+   the three layers at once (its ``Remote`` switched to plain HTTP, as the
+   reference's tests do): each READY, K2 launched once per layer index
+   build (three ``digest_many`` calls, one per layer thread), each
+   ``layer.boot`` equal to a host-route ``Manager(engine=None)``'s from the
+   same registry (no launch). ``merge_layers`` equals the host route's
+   ``image.boot`` (L3's whiteout and opaque directory applied);
+   ``export_block_data`` writes the EROFS disk whose dm-verity tree
+   ``tarfs.verity.verify`` accepts; ``mount_tar_erofs`` with recording loop
+   and mount backends (``utils.losetup`` / ``utils.mount``'s seams, as the
+   reference's tests replace them: the operating system, not the card, is
+   stood in for) attaches the three tars and the meta image and mounts
+   EROFS with their ``device=`` list; ``umount_tar_erofs`` and
+   ``detach_layer`` leave nothing behind. A layer whose config names a
+   wrong diff ID ends FAILED with the reference's logged message and no
+   launch. Printed: the pulls, each index build, the merge and the export
+   with the card's name and power limit.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -4100,16 +4124,446 @@ def convert_phase(dev, tar, kernels) -> dict:
     return out_d
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the registry read path and the tarfs manager
+# ---------------------------------------------------------------------------
+
+TARFS_L2_MIB = 32  # phase 19's gzip'd second layer
+TARFS_L3_MIB = 8  # its gzip'd top layer (a whiteout and an opaque directory over L1's paths)
+TARFS_REPO = "library/tarfs"
+
+
+class OciRegistry:
+    """A small in-process OCI distribution registry on 127.0.0.1: manifests
+    by tag or digest, configs and blobs by digest, ``Range`` on blobs, no
+    auth; every request counted."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.blobs: dict[str, bytes] = {}
+        self.manifests: dict[str, bytes] = {}
+        self.requests: list[str] = []
+        reg = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, body: bytes, media: str = "", head: bool = False, status: int = 200,
+                      extra: dict | None = None):
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.send_header("Docker-Content-Digest", "sha256:" + hashlib.sha256(body).hexdigest())
+                if media:
+                    self.send_header("Content-Type", media)
+                for k, v in (extra or {}).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                if not head:
+                    self.wfile.write(body)
+
+            def _serve(self, head: bool):
+                reg.requests.append(f"{self.command} {self.path}")
+                if "/manifests/" in self.path:
+                    body = reg.manifests.get(self.path.rsplit("/", 1)[-1])
+                    if body is not None:
+                        return self._send(body, "application/vnd.oci.image.manifest.v1+json", head)
+                elif "/blobs/" in self.path:
+                    data = reg.blobs.get(self.path.rsplit("/", 1)[-1])
+                    if data is not None:
+                        rng = self.headers.get("Range")
+                        if rng and rng.startswith("bytes="):
+                            lo, hi = rng[6:].split("-")
+                            lo, hi = int(lo), int(hi or len(data) - 1)
+                            return self._send(data[lo:hi + 1], head=head, status=206, extra={
+                                "Content-Range": f"bytes {lo}-{hi}/{len(data)}"})
+                        return self._send(data, head=head)
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def do_GET(self):
+                self._serve(False)
+
+            def do_HEAD(self):
+                self._serve(True)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    @property
+    def host(self) -> str:
+        return f"127.0.0.1:{self.server.server_address[1]}"
+
+    def add_blob(self, data: bytes) -> str:
+        digest = "sha256:" + hashlib.sha256(data).hexdigest()
+        self.blobs[digest] = data
+        return digest
+
+    def publish(self, tag: str, layers: list[tuple[bytes, str]]) -> tuple[str, list[str]]:
+        """An image of ``(blob, diff_id)`` layers, bottom first, under
+        ``tag`` -> (manifest digest, layer digests)."""
+        cfg = json.dumps({"architecture": "amd64", "os": "linux",
+                          "rootfs": {"type": "layers", "diff_ids": [d for _b, d in layers]}}).encode()
+        descs = [{"mediaType": "application/vnd.oci.image.layer.v1.tar" + ("+gzip" if b[:2] == b"\x1f\x8b" else ""),
+                  "digest": self.add_blob(b), "size": len(b)} for b, _d in layers]
+        body = json.dumps({"schemaVersion": 2, "mediaType": "application/vnd.oci.image.manifest.v1+json",
+                           "config": {"mediaType": "application/vnd.oci.image.config.v1+json",
+                                      "digest": self.add_blob(cfg), "size": len(cfg)},
+                           "layers": descs}).encode()
+        mdigest = self.add_blob(body)
+        self.manifests[tag] = self.manifests[mdigest] = body
+        return mdigest, [d["digest"] for d in descs]
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class LoopRecorder:
+    """Stands in for the operating system's loop devices (``utils.losetup``'s
+    ``backend`` seam, as the reference's tests replace it): records every
+    attach and detach."""
+
+    def __init__(self, losetup):
+        self.losetup = losetup
+        self.attached: dict[int, str] = {}
+        self.log: list[tuple] = []
+        self._next = 0
+
+    def attach(self, blob_path, offset=0, ro=True):
+        dev = self.losetup.LoopDevice(self._next)
+        self.attached[self._next] = blob_path
+        self.log.append(("attach", blob_path, offset, ro))
+        self._next += 1
+        return dev
+
+    def detach(self, dev):
+        self.log.append(("detach", dev.index))
+        self.attached.pop(dev.index, None)
+
+
+class MountRecorder:
+    """Stands in for mount(2) (``utils.mount``'s ``backend`` seam)."""
+
+    def __init__(self):
+        self.mounts: dict[str, tuple[str, str, str]] = {}
+        self.log: list[tuple] = []
+
+    def mount(self, source, target, fstype, options=""):
+        self.log.append(("mount", source, target, fstype, options))
+        self.mounts[target] = (source, fstype, options)
+
+    def umount(self, target, flags=0):
+        self.log.append(("umount", target))
+        self.mounts.pop(target, None)
+
+
+def tarfs_layers(tar: bytes) -> list[tuple[bytes, bytes]]:
+    """Phase 19's three layers, bottom first, as (blob, tar): phase 4's tar
+    served plain; a gzip'd tar of ``TARFS_L2_MIB``; a gzip'd tar of
+    ``TARFS_L3_MIB`` that whites out one of L1's files and makes one of its
+    directories opaque (the directory entries precede the marker, as in a
+    container engine's layer diff)."""
+    import gzip
+
+    gen = FileGen(SEED + 19)
+    l2 = named_tar([(f"app/d{fi % 31}/g{fi}.bin", f) for fi, f in enumerate(gen.pool(TARFS_L2_MIB))])
+    top = [(f"layer0/d7/n{fi}.bin", f) for fi, f in enumerate(gen.pool(TARFS_L3_MIB))]
+    l3 = named_tar(top, ("layer0/", "layer0/d5/", "layer0/d5/.wh.f5.bin", "layer0/d7/",
+                         "layer0/d7/.wh..wh..opq"))
+    return [(tar, tar), (gzip.compress(l2, compresslevel=1, mtime=0), l2),
+            (gzip.compress(l3, compresslevel=1, mtime=0), l3)]
+
+
+@contextlib.contextmanager
+def plain_http_remote(remote_mod):
+    """``Remote`` speaks plain HTTP to the in-process registry, the way the
+    reference's tests switch it (tests/test_tarfs.py's ``plain_http``)."""
+    orig = remote_mod.Remote.__init__
+
+    def patched(self, keychain=None, insecure=False):
+        orig(self, keychain=keychain, insecure=insecure)
+        self.with_plain_http = True
+
+    remote_mod.Remote.__init__ = patched
+    try:
+        yield
+    finally:
+        remote_mod.Remote.__init__ = orig
+
+
+def tarfs_manager_phase(dev, tar: bytes, kernels) -> dict:
+    """Phase 19: pull a three-layer image from an in-process registry through
+    the tarfs manager, every layer indexed on the card (K2 once per layer),
+    held against a host-route manager; merge, export with dm-verity, mount
+    with recorded loop and mount backends, and a wrong diff ID."""
+    import gzip
+    import logging
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from nydus_snapshotter_tpu_torch import constants as C
+    from nydus_snapshotter_tpu_torch import tarfs
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    import torch
+
+    from nydus_snapshotter_tpu_torch.ops import fused_convert, sha256_cuda
+    from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
+    from nydus_snapshotter_tpu_torch.remote import remote as remote_mod
+    from nydus_snapshotter_tpu_torch.tarfs import tarfs as manager_mod
+    from nydus_snapshotter_tpu_torch.tarfs import verity
+    from nydus_snapshotter_tpu_torch.utils import errdefs, losetup
+    from nydus_snapshotter_tpu_torch.tensors import to_u32
+    from nydus_snapshotter_tpu_torch.utils import mount as mount_utils
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    t0 = time.perf_counter()
+    layers = tarfs_layers(tar)
+    reg = OciRegistry()
+    mdigest, ldigests = reg.publish(
+        "v1", [(blob, "sha256:" + hashlib.sha256(raw).hexdigest()) for blob, raw in layers])
+    ref = f"{reg.host}/{TARFS_REPO}:v1"
+    log(f"[19] image: {len(layers)} layers, blobs of "
+        + ", ".join(f"{len(b)} bytes ({len(t)} as tar)" for b, t in layers)
+        + f", made and published on {reg.host} in {time.perf_counter() - t0:.1f} s")
+    sids = [str(len(layers) - i) for i in range(len(layers))]  # the bottom layer takes the highest id
+    loops, mounts = LoopRecorder(losetup), MountRecorder()
+    saved = (losetup.backend, mount_utils.backend)
+    losetup.backend, mount_utils.backend = loops, mounts
+    log("[19] loop devices and mount(2) are recorders here (utils.losetup / utils.mount "
+        "backends replaced, as the reference's tests do): the disk image is real and verified, "
+        "the index is built on the card")
+    w = Path(tempfile.mkdtemp(prefix="ntpu-tarfs-"))
+    try:
+        with plain_http_remote(remote_mod):
+            eng = ChunkDigestEngine(device=dev)
+            calls, times = [], {}
+            digest_many = eng.digest_many
+
+            def timed_digest_many(datas):
+                t = time.perf_counter()
+                out = digest_many(datas)
+                calls.append((threading.current_thread().name, len(datas), time.perf_counter() - t))
+                return out
+
+            eng.digest_many = timed_digest_many
+
+            def manager(name: str, engine):
+                mgr = tarfs.Manager(cache_dir_path=str(w / name / "cache"), validate_diff_id=True,
+                                    export_mode="image_block_with_verity", engine=engine)
+                gen = mgr._generate_bootstrap
+
+                def timed_gen(tar_bytes, snapshot_id, blob_id, upper):
+                    t = time.perf_counter()
+                    gen(tar_bytes, snapshot_id, blob_id, upper)
+                    times[(name, snapshot_id)] = time.perf_counter() - t
+
+                mgr._generate_bootstrap = timed_gen
+                return mgr
+
+            def pull(name: str, engine):
+                mgr = manager(name, engine)
+                uppers = {}
+                t = time.perf_counter()
+                for sid, ld in zip(sids, ldigests):
+                    upper = w / name / "snap" / sid / "fs"
+                    upper.mkdir(parents=True)
+                    uppers[sid] = str(upper)
+                    mgr.prepare_layer({C.CRI_IMAGE_REF: ref, C.CRI_MANIFEST_DIGEST: mdigest,
+                                       C.CRI_LAYER_DIGEST: ld}, sid, str(upper))
+                for sid in sids:
+                    mgr.wait_layer_ready(sid, timeout=600)
+                return mgr, uppers, time.perf_counter() - t
+
+            for k in kernels.values():
+                k.launches = 0
+            mgr, uppers, pull_s = pull("card", eng)
+            launches = {key: k.launches for key, k in kernels.items() if k.launches}
+            for sid in sids:
+                if mgr._get_status(sid).status != tarfs.TARFS_STATUS_READY:
+                    raise AssertionError(f"tarfs layer {sid} is not READY")
+            by_thread = sorted(c[0] for c in calls)
+            if launches != {"sha": len(layers)} or by_thread != sorted(f"tarfs-blob-{s}" for s in sids):
+                raise AssertionError(f"index builds launched {launches} over digest_many calls "
+                                     f"{calls}; want K2 once per layer ({len(layers)})")
+            for k in kernels.values():
+                k.launches = 0
+            host, host_uppers, host_s = pull("host", None)
+            if any(k.launches for k in kernels.values()):
+                raise AssertionError("the host-route manager launched a kernel")
+            for sid in sids:
+                got = Path(mgr.layer_meta_file_path(uppers[sid])).read_bytes()
+                want = Path(host.layer_meta_file_path(host_uppers[sid])).read_bytes()
+                if got != want:
+                    raise AssertionError(f"layer {sid}: the card's layer.boot differs from the host route's")
+            boots = [Bootstrap.from_bytes(Path(mgr.layer_meta_file_path(uppers[s])).read_bytes()) for s in sids]
+            regions = [len(b.chunks) for b in boots]
+            # K2 through its wrapper on each layer's regions, the tar already
+            # on the card (these launches compare, they are not the path's):
+            # the digests the layer.boot holds; median of 3 calls between
+            # CUDA events
+            k2 = {}
+            for sid, (_blob, raw), bs in zip(sids, layers, boots):
+                offs = torch.tensor([c.uncompressed_offset for c in bs.chunks], dtype=torch.int32)
+                sizes = torch.tensor([c.uncompressed_size for c in bs.chunks], dtype=torch.int32)
+                staged = np.zeros(-(-len(raw) // 16) * 16, dtype=np.uint8)
+                staged[:len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+                buf = torch.from_numpy(staged).to(dev)
+                got = sha256_cuda.sha256_chunks(buf, offs, sizes)
+                if fused_convert.state_bytes(to_u32(got), "sha256") != b"".join(c.digest for c in bs.chunks):
+                    raise AssertionError(f"layer {sid}: K2 over its regions differs from its layer.boot")
+                if dev.type == "cuda":
+                    ms = cuda_ms(lambda: sha256_cuda.sha256_chunks(buf, offs, sizes), 3)
+                else:
+                    t = time.perf_counter()
+                    sha256_cuda.sha256_chunks(buf, offs, sizes)
+                    ms = (time.perf_counter() - t) * 1e3
+                k2[sid] = {"call_ms": ms, "regions": len(bs.chunks), "bytes": int(sizes.sum()),
+                           "longest_blocks": int(sizes.max()) // 64 + 1}
+                del buf
+            log(f"[19] pull + index of {len(layers)} layers at once: {pull_s:.2f} s on the card's engine "
+                f"(launches {launches}: K2 once per layer, {len(calls)} digest_many calls, one per "
+                f"layer thread), {host_s:.2f} s on the host route (hashlib); layer.boot of each == the "
+                f"host route's")
+            for sid, ld, n_reg in zip(sids, ldigests, regions):
+                call = next(c for c in calls if c[0] == f"tarfs-blob-{sid}")
+                log(f"[19]   layer {sid} ({ld[:19]}): {n_reg} regions; index build (tar written, "
+                    f"regions digested, layer.boot written) {times[('card', sid)]:.3f} s card / "
+                    f"{times[('host', sid)]:.3f} s host; digest_many {call[2]:.3f} s over {call[1]} "
+                    f"regions (staging, K2, download); K2 call {k2[sid]['call_ms']:.3f} ms over "
+                    f"{k2[sid]['bytes']} bytes (longest region {k2[sid]['longest_blocks']} blocks)")
+
+            snap = type("Snap", (), {"id": "0", "parent_ids": sids[::-1]})()
+            t = time.perf_counter()
+            mgr.merge_layers(snap, lambda sid: uppers[sid])
+            merge_s = time.perf_counter() - t
+            host.merge_layers(snap, lambda sid: host_uppers[sid])
+            merged = Path(mgr.image_meta_file_path(uppers[sids[-1]])).read_bytes()
+            if merged != Path(host.image_meta_file_path(host_uppers[sids[-1]])).read_bytes():
+                raise AssertionError("merged image.boot differs from the host route's")
+            paths = {i.path for i in Bootstrap.from_bytes(merged).inodes}
+            if "/layer0/d5/f5.bin" in paths or any(p.startswith("/layer0/d7/f") for p in paths) \
+                    or "/layer0/d7/n0.bin" not in paths or "/app/d0/g0.bin" not in paths:
+                raise AssertionError("the merged tree does not apply L3's whiteout and opaque directory")
+
+            top_blob = ldigests[-1].split(":")[1]
+            labels = {C.NYDUS_TARFS_LAYER: top_blob}
+            t = time.perf_counter()
+            fields = mgr.export_block_data(snap, False, labels, lambda sid: uppers[sid])
+            export_s = time.perf_counter() - t
+            if fields != ["labels." + C.NYDUS_IMAGE_BLOCK_INFO]:
+                raise AssertionError(f"export_block_data updated {fields}")
+            info = verity.parse_block_info_label(labels[C.NYDUS_IMAGE_BLOCK_INFO])
+            disk = Path(mgr.image_disk_file_path(top_blob)).read_bytes()
+            t = time.perf_counter()
+            if not verity.verify(disk[: info.data_blocks * verity.DATA_BLOCK_SIZE], info,
+                                 disk[info.hash_offset:]):
+                raise AssertionError("the exported disk's dm-verity tree does not verify")
+            verify_s = time.perf_counter() - t
+            log(f"[19] merge {merge_s:.3f} s ({len(paths)} paths; == the host route's image.boot, "
+                f"L3's whiteout and opaque directory applied); export {export_s:.2f} s: {len(disk)} "
+                f"bytes, {info.data_blocks} data blocks, root {info.root_hash[:16]}..., verified "
+                f"with tarfs.verity.verify in {verify_s:.2f} s")
+
+            mgr.mount_on_host = True
+            rafs = type("Rafs", (), {"snapshot_dir": str(w / "card" / "snap" / sids[-1]),
+                                     "mountpoint": "", "annotations": {}})()
+            mgr.mount_tar_erofs(sids[-1], snap, labels, rafs)
+            mnt = os.path.join(rafs.snapshot_dir, "mnt")
+            meta_image = mgr.image_meta_file_path(uppers[sids[-1]]) + ".erofs"
+            merged_bs = Bootstrap.from_bytes(merged)
+            want_tars = [mgr.layer_tar_file_path(b.blob_id) for b in merged_bs.blobs]
+            attach_paths = [e[1] for e in loops.log if e[0] == "attach"]
+            if attach_paths != want_tars + [meta_image] or rafs.mountpoint != mnt:
+                raise AssertionError(f"loop attaches {attach_paths}; want {want_tars} then {meta_image}")
+            src, fstype, opts = mounts.mounts[mnt]
+            want_opts = ",".join(f"device=/dev/loop{i}" for i in range(len(want_tars)))
+            if (src, fstype, opts) != (f"/dev/loop{len(want_tars)}", "erofs", want_opts):
+                raise AssertionError(f"mount recorded {(src, fstype, opts)}")
+            if rafs.annotations.get(C.NYDUS_IMAGE_BLOCK_INFO) != labels[C.NYDUS_IMAGE_BLOCK_INFO]:
+                raise AssertionError("the mount did not carry the block-info annotation")
+            mgr.umount_tar_erofs(sids[-1])
+            for sid in sids:
+                mgr.detach_layer(sid)
+            if mounts.mounts or loops.attached:
+                raise AssertionError(f"left mounted {mounts.mounts}, attached {loops.attached}")
+            log(f"[19] mount_tar_erofs: {len(want_tars)} layer tars + the EROFS meta image attached "
+                f"(recorded), mount {fstype} {src} -o {opts}; umount_tar_erofs and detach_layer "
+                f"left nothing attached or mounted")
+
+            # a config that names a wrong diff ID
+            bad_tar = named_tar([("x/f", np.frombuffer(b"wrong diff id", dtype=np.uint8))])
+            bad_blob = gzip.compress(bad_tar, mtime=0)
+            wrong = "sha256:" + "0" * 64
+            bad_m, bad_l = reg.publish("bad", [(bad_blob, wrong)])
+            records: list[str] = []
+
+            class Grab(logging.Handler):
+                def emit(self, record):
+                    records.append(record.getMessage())
+
+            grab = Grab(level=logging.ERROR)
+            manager_mod.logger.addHandler(grab)
+            try:
+                for k in kernels.values():
+                    k.launches = 0
+                bad_mgr = tarfs.Manager(cache_dir_path=str(w / "bad" / "cache"), engine=eng)
+                (w / "bad" / "fs").mkdir(parents=True)
+                bad_mgr.prepare_layer({C.CRI_IMAGE_REF: f"{reg.host}/{TARFS_REPO}:bad",
+                                       C.CRI_MANIFEST_DIGEST: bad_m, C.CRI_LAYER_DIGEST: bad_l[0]},
+                                      "99", str(w / "bad" / "fs"))
+                try:
+                    bad_mgr.wait_layer_ready("99", timeout=120)
+                    raise AssertionError("a layer with a wrong diff ID became ready")
+                except errdefs.Unavailable:
+                    pass
+            finally:
+                manager_mod.logger.removeHandler(grab)
+            want_msg = ("prepare tarfs layer for snapshot 99: layer diffID mismatch: sha256:"
+                        f"{hashlib.sha256(bad_tar).hexdigest()} != {wrong}")
+            if bad_mgr._get_status("99").status != tarfs.TARFS_STATUS_FAILED or records != [want_msg]:
+                raise AssertionError(f"wrong diff ID: status {bad_mgr._get_status('99').status}, "
+                                     f"logged {records}")
+            if any(k.launches for k in kernels.values()):
+                raise AssertionError("the refused layer launched a kernel")
+            log(f"[19] wrong diff ID: FAILED, logged {want_msg[:60]}... (the reference's message), "
+                f"no launch")
+    finally:
+        losetup.backend, mount_utils.backend = saved
+        reg.close()
+        shutil.rmtree(w, ignore_errors=True)
+    out = {
+        "layers": len(layers), "launches": launches, "pull_index_s": pull_s, "host_pull_index_s": host_s,
+        "index_build_s": {sid: times[("card", sid)] for sid in sids},
+        "host_index_build_s": {sid: times[("host", sid)] for sid in sids},
+        "digest_many_s": {c[0]: c[2] for c in calls}, "regions": dict(zip(sids, regions)),
+        "k2_call": k2,
+        "merge_s": merge_s, "export_s": export_s, "verify_s": verify_s, "disk_bytes": len(disk),
+        "phase_s": time.perf_counter() - t_phase, "device": smi,
+    }
+    log(f"[19] {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"]):
-        print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only]", file=sys.stderr)
+    if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"], ["--registry-only"]):
+        print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only | --registry-only]",
+              file=sys.stderr)
         return 2
     mesh_only = args == ["--mesh-only"]
     ha_only = args == ["--ha-only"]
     convert_only = args == ["--convert-only"]
+    registry_only = args == ["--registry-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -4386,6 +4840,14 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                   "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if registry_only:  # phases 0-3, then 19 on phase 4's tar
+        tm = tarfs_manager_phase(dev, layer_tar(FileGen(SEED + 3).pool(PACK_MIB)), all_kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--registry-only: phases 0-3 and 19)")
+        print(smi, flush=True)
+        print(json.dumps({"tarfs_manager": tm}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4574,6 +5036,9 @@ def main() -> int:
     # -- 18. the converter CLI, tar-tarfs and the exports, the scenario corpora --
     conv = convert_phase(dev, tar, all_kernels)
 
+    # -- 19. the registry read path and the tarfs manager, every layer indexed on K2 --
+    tm = tarfs_manager_phase(dev, tar, all_kernels)
+
     def convert_launches(*keys):  # phase 18: per CLI pack, tarfs, corpus layer, batch
         def n(launched):
             return sum(launched.get(k, 0) for k in keys)
@@ -4643,6 +5108,7 @@ def main() -> int:
             codec_cipher_launches=cc_launches("sha"), mesh_launches=mesh_launches("sha"),
             ha_batch_launches=ha["batch_launches"]["sha"], ociref_launches=ociref_launches("sha"),
             convert_launches=convert_launches("sha"),
+            tarfs_manager_launches=tm["launches"].get("sha", 0), tarfs_manager_layers=tm["layers"],
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),

@@ -31,7 +31,6 @@ from nydus_snapshotter_tpu_torch.failpoint.spec import (
     Panic,
     SpecError,
     build_error,
-    check_portable,
     parse_action,
     parse_spec,
 )
@@ -171,8 +170,6 @@ def inject(site: str, action: Union[str, Action]) -> None:
     """Arm one site. ``action`` is an Action or a spec like ``"error(OSError)*2"``."""
     if isinstance(action, str):
         action = parse_action(action)
-    else:
-        check_portable(action)
     with _lock:
         _active[site] = action
 

@@ -11,13 +11,10 @@ Grammar (informal)::
     KIND   := 'error' | 'delay' | 'panic' | 'off'
 
 ``error(ExcName[:detail])`` raises the named exception at the site —
-builtins (``OSError``, ``TimeoutError``, ``ConnectionResetError``, …)
-or any :mod:`nydus_snapshotter_tpu_torch.utils.errdefs` class; unknown
-names fall back to ``RuntimeError``. ``HTTPError:<code>`` names the
-registry client's error (``remote.registry.HTTPError``), whose plane this
-package does not have: arming it raises :class:`SpecError` (a
-``ValueError``) rather than injecting some other exception.
-``delay(seconds)`` sleeps. ``panic`` raises
+builtins (``OSError``, ``TimeoutError``, ``ConnectionResetError``, …),
+``HTTPError:<code>`` from the registry client, or any
+:mod:`nydus_snapshotter_tpu_torch.utils.errdefs` class; unknown names fall back
+to ``RuntimeError``. ``delay(seconds)`` sleeps. ``panic`` raises
 :class:`Panic`, which derives from ``BaseException`` so ordinary
 ``except Exception`` recovery code cannot swallow it (Go-panic
 semantics). ``%p`` fires with probability ``p``; ``*n`` disarms the site
@@ -48,16 +45,6 @@ class Panic(BaseException):
 
 class SpecError(ValueError):
     pass
-
-
-HTTP_ERROR = "remote.registry.HTTPError (the registry client plane, remote/, is not ported)"
-
-
-def check_portable(action: "Action") -> None:
-    """Refuse ``error(HTTPError…)``: its exception lives in a plane this
-    package does not have."""
-    if action.kind == "error" and action.arg.partition(":")[0].strip() == "HTTPError":
-        raise SpecError(f"failpoint error({action.arg}) needs {HTTP_ERROR}")
 
 
 @dataclass
@@ -100,9 +87,7 @@ def parse_action(text: str) -> Action:
             float(arg)
         except ValueError:
             raise SpecError(f"delay needs a numeric argument, got {arg!r}") from None
-    act = Action(kind=kind, arg=arg, prob=prob, count=count)
-    check_portable(act)
-    return act
+    return Action(kind=kind, arg=arg, prob=prob, count=count)
 
 
 def parse_spec(spec: str) -> dict[str, Action]:
@@ -128,7 +113,13 @@ def build_error(arg: str, site: str) -> BaseException:
     name = name.strip() or "RuntimeError"
     detail = detail.strip()
     if name == "HTTPError":
-        raise SpecError(f"failpoint {site}: error({arg}) needs {HTTP_ERROR}")
+        from nydus_snapshotter_tpu_torch.remote.registry import HTTPError
+
+        try:
+            code = int(detail or 503)
+        except ValueError:
+            code = 503
+        return HTTPError(code, f"failpoint://{site}")
     exc = getattr(builtins, name, None)
     if not (isinstance(exc, type) and issubclass(exc, BaseException)):
         from nydus_snapshotter_tpu_torch.utils import errdefs

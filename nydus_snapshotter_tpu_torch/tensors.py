@@ -27,8 +27,14 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device {dev} requested but this host has "
+                f"{torch.cuda.device_count()} CUDA device(s)"
+            )
     return dev
 
 

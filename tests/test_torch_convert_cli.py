@@ -13,6 +13,7 @@ the file.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import hashlib
 import io
@@ -319,6 +320,40 @@ class TestDeviceFlag:
             rc = port_cli.main(["--device", dev, "check", "--boot", str(tmp_path / "x")])
             err = capsys.readouterr().err
             assert rc == 1 and "CUDA is not available" in err and err.count("\n") == 1
+
+    def test_named_ordinal_must_exist(self, capsys, tmp_path, monkeypatch):
+        """On a one-card host ``cuda:1`` names no card: ``resolve_device``
+        raises, feature detection reports no DEVICE_DIGEST and the CLI
+        exits 1 with one stderr line; ``cuda:0`` and ``cuda`` pass all
+        three."""
+        from nydus_snapshotter_tpu_torch import tensors
+        from nydus_snapshotter_tpu_torch.converter import feature
+
+        src = tmp_path / "layer.tar"
+        src.write_bytes(mk_tar({"f": b"ordinal"}))
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert port_cli.main(["pack", "--backend", "numpy", "--in", str(src),
+                                  "--out", str(tmp_path / "l.nydus")]) == 0
+            assert port_cli.main(["merge", str(tmp_path / "l.nydus"), "--out", str(tmp_path / "i.boot")]) == 0
+        capsys.readouterr()
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        monkeypatch.setattr(feature, "_detected", {})
+        with pytest.raises(RuntimeError, match="1 CUDA device"):
+            tensors.resolve_device("cuda:1")
+        assert tensors.resolve_device("cuda:0") == torch.device("cuda", 0)
+        assert tensors.resolve_device("cuda") == torch.device("cuda")
+        assert not detect_features(force=True, device="cuda:1").contains(Feature.DEVICE_DIGEST)
+        for dev in ("cuda:0", "cuda"):
+            assert detect_features(force=True, device=dev).contains(Feature.DEVICE_DIGEST)
+        rc = port_cli.main(["--device", "cuda:1", "check", "--boot", str(tmp_path / "i.boot")])
+        cap = capsys.readouterr()
+        assert rc == 1 and cap.out == "" and cap.err.count("\n") == 1
+        assert cap.err.startswith("ntpu-convert:") and "1 CUDA device" in cap.err
+        for dev in ("cuda:0", "cuda"):
+            rc = port_cli.main(["--device", dev, "check", "--boot", str(tmp_path / "i.boot")])
+            cap = capsys.readouterr()
+            assert rc == 0 and cap.err == "" and cap.out.count("\n") == 1
 
     def test_host_lanes_need_no_device(self, capsys, tmp_path):
         """``hybrid`` (the default) and ``numpy`` are host lanes: no card

@@ -272,6 +272,112 @@ _CHILD = textwrap.dedent(
         assert int.from_bytes(erofs_image.erofs_from_rafs(bs)[1024:1028], "little") == erofs_image.EROFS_MAGIC
     assert spec.list_specs(os.path.join(os.getcwd(), "misc", "scenarios"))
     assert 0 < evolution.shared_fraction(corpus.load_manifest(), 23, 0.08, 8) < 1
+    # the registry read path and the tarfs manager, against a small
+    # in-process registry over plain HTTP
+    import base64, gzip, threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from nydus_snapshotter_tpu_torch import failpoint
+    from nydus_snapshotter_tpu_torch.api.filters import compile_filters
+    from nydus_snapshotter_tpu_torch.auth import keychain
+    from nydus_snapshotter_tpu_torch.backend import new_backend
+    from nydus_snapshotter_tpu_torch.backend.oss import OSSBackend
+    from nydus_snapshotter_tpu_torch.backend.s3 import S3Backend
+    from nydus_snapshotter_tpu_torch.config import daemonconfig, mirrors
+    from nydus_snapshotter_tpu_torch.remote import (
+        MirrorRouter, Pool, RegistryClient, Remote, Resolver, parse_docker_ref, registry, schema1)
+    from nydus_snapshotter_tpu_torch.utils import losetup, mount, retry, singleflight
+    blobs = {}
+
+    class H(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            key = self.path.rsplit("/", 1)[-1]
+            body = blobs.get(key)
+            if body is None:
+                self.send_response(404); self.end_headers(); return
+            rng = self.headers.get("Range")
+            if rng:
+                lo, hi = (int(x) for x in rng[6:].split("-"))
+                body = body[lo:hi + 1]
+            self.send_response(206 if rng else 200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), H)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    host = f"127.0.0.1:{srv.server_address[1]}"
+
+    def add(body):
+        d = "sha256:" + hashlib.sha256(body).hexdigest()
+        blobs[d] = body
+        return d
+
+    ltar = buf.getvalue()
+    ldig = add(gzip.compress(ltar))
+    cfg = json.dumps({"rootfs": {"diff_ids": ["sha256:" + hashlib.sha256(ltar).hexdigest()]}}).encode()
+    mdig = add(json.dumps({"schemaVersion": 2, "config": {"digest": add(cfg)},
+                           "layers": [{"digest": ldig}]}).encode())
+    client = RegistryClient(host, plain_http=True)
+    r = client.fetch_blob("x/y", mdig, byte_range=(0, 9)); assert len(r.read()) == 10; r.close()
+    assert Pool(plain_http=True).resolve(parse_docker_ref(f"{host}/x/y:v1"), ldig)[0].endswith(ldig)
+    r = Resolver(plain_http=True).resolve(f"{host}/x/y:v1", ldig, labels={}); r.read(); r.close()
+    failpoint.inject("transport.fetch_blob", "error(HTTPError:503)*1")
+    try:
+        client.fetch_blob("x/y", ldig)
+        raise AssertionError("failpoint did not fire")
+    except registry.HTTPError as e:
+        assert e.code == 503
+    assert schema1.is_schema1("application/vnd.docker.distribution.manifest.v1+json")
+    assert retry.do_with_deadline(lambda: 7, deadline=1.0, attempts=2, delay=0.0) == 7
+    assert singleflight.Group().do("k", lambda: 3) == (3, False)
+    assert compile_filters(["name==a"])(type("I", (), {"name": "a", "labels": {}})())
+    assert keychain.from_labels({}) is None
+    with tempfile.TemporaryDirectory() as t:
+        os.makedirs(os.path.join(t, "m", "docker.io"))
+        open(os.path.join(t, "m", "docker.io", "hosts.toml"), "w").write('[host."https://m.example"]\\n')
+        assert [m.host for m in MirrorRouter(os.path.join(t, "m")).candidates("docker.io")] == ["https://m.example"]
+        assert mirrors.load_mirrors_config(os.path.join(t, "m"), "docker.io")[0].failure_limit == 5
+        assert daemonconfig.DaemonRuntimeConfig.from_dict({}, "fusedev").to_dict()
+        b = new_backend("localfs", {"dir": os.path.join(t, "b")}); b.push(b"x", add(b"x")); b.check(add(b"x"))
+        assert S3Backend({"bucket_name": "b", "region": "r"}).type() == "s3"
+        assert OSSBackend({"endpoint": "e.example", "bucket_name": "b"}).type() == "oss"
+        orig = Remote.__init__
+        def plain(self, keychain=None, insecure=False):
+            orig(self, keychain=keychain, insecure=insecure)
+            self.with_plain_http = True
+        Remote.__init__ = plain
+
+        class Rec:
+            def attach(self, path, offset=0, ro=True):
+                return losetup.LoopDevice(0)
+            def detach(self, dev):
+                pass
+            def mount(self, source, target, fstype, options=""):
+                pass
+            def umount(self, target, flags=0):
+                pass
+        losetup.backend = mount.backend = Rec()
+        mgr = tarfs.Manager(os.path.join(t, "cache"), export_mode="image_block_with_verity",
+                            engine=ChunkDigestEngine(chunk_size=0x1000, device="cpu"))
+        upper = os.path.join(t, "s", "1", "fs")
+        os.makedirs(upper)
+        from nydus_snapshotter_tpu_torch import constants as C
+        mgr.prepare_layer({C.CRI_IMAGE_REF: f"{host}/x/y:v1", C.CRI_MANIFEST_DIGEST: mdig,
+                           C.CRI_LAYER_DIGEST: ldig}, "1", upper)
+        mgr.wait_layer_ready("1")
+        snap = type("S", (), {"id": "0", "parent_ids": ["1"]})()
+        mgr.merge_layers(snap, lambda sid: upper)
+        labels = {C.NYDUS_TARFS_LAYER: ldig.split(":")[1]}
+        mgr.export_block_data(snap, False, labels, lambda sid: upper)
+        assert tarfs.parse_block_info_label(labels[C.NYDUS_IMAGE_BLOCK_INFO]).data_blocks > 0
+        mgr.mount_on_host = True
+        rafs = type("R", (), {"snapshot_dir": os.path.join(t, "s", "1"), "mountpoint": "", "annotations": {}})()
+        mgr.mount_tar_erofs("1", snap, labels, rafs)
+        mgr.umount_tar_erofs("1"); mgr.detach_layer("1")
+    srv.shutdown(); srv.server_close()
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
     print("LEAKED", bad)

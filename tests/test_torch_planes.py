@@ -62,6 +62,7 @@ PORTED_SITES = {
     "pipeline.assemble", "fused.dispatch", "dict.insert", "dict.rebuild", "dict.rpc",
     "dict.shard", "chunk.vec", "compress.probe", "compress.train", "compress.encode",
     "compress.batch", "ha.place", "ha.replicate", "ha.promote",
+    "transport.probe", "transport.resolve", "transport.fetch_blob",
 }
 
 
@@ -129,18 +130,28 @@ class TestFailpointSpec:
 
 
 def test_http_error_refused_at_arming():
-    """``error(HTTPError:…)`` raises the reference's registry-client error,
-    a plane this package lacks: arming it is a ValueError naming it, not a
-    silent RuntimeError at the site."""
-    assert jspec.parse_action("error(HTTPError:503)").arg == "HTTPError:503"
-    for arm in (lambda: tspec.parse_spec("transport.fetch_blob=error(HTTPError:503)"),
-                lambda: tfp.inject("x", "error(HTTPError:429)"),
-                lambda: tfp.inject("x", tspec.Action(kind="error", arg="HTTPError")),
-                lambda: tfp.configure("x=error(HTTPError)")):
-        with pytest.raises(ValueError, match="remote.registry.HTTPError"):
-            arm()
-    assert tfp.active() == {}
-    assert not tfp.configure_from_env({tfp.ENV_VAR: "x=error(HTTPError:503)"})
+    """``error(HTTPError:<code>)`` arms alike in both packages (the port
+    has the registry client since its read path was ported), and each
+    raises its own ``remote.registry.HTTPError`` with that code at the
+    site; a code that is not a number falls back to 503 in both."""
+    from nydus_snapshotter_tpu.remote import registry as jregistry
+    from nydus_snapshotter_tpu_torch.remote import registry as tregistry
+
+    for spec in ("error(HTTPError:503)", "error(HTTPError:429)*2", "error(HTTPError)%0.5"):
+        assert str(tspec.parse_action(spec)) == str(jspec.parse_action(spec))
+    table = "transport.fetch_blob=error(HTTPError:503);transport.probe=error(HTTPError:429)*1"
+    assert {k: str(a) for k, a in tspec.parse_spec(table).items()} == \
+        {k: str(a) for k, a in jspec.parse_spec(table).items()}
+    for p, registry in ((PKG["port"], tregistry), (PKG["ref"], jregistry)):
+        for arg, code in (("HTTPError:503", 503), ("HTTPError:429", 429), ("HTTPError", 503),
+                          ("HTTPError:teapot", 503)):
+            p.fp.inject("x", f"error({arg})*1")
+            with pytest.raises(registry.HTTPError) as ei:
+                p.fp.hit("x")
+            assert ei.value.code == code and ei.value.url == "failpoint://x"
+        assert p.fp.configure_from_env({p.fp.ENV_VAR: "x=error(HTTPError:503)"})
+        assert p.fp.active() == {"x": "error(HTTPError:503)"}
+        p.fp.clear()
 
 
 @pytest.mark.parametrize("pkg", ["port", "ref"])
@@ -220,7 +231,7 @@ def test_catalog_equal_and_ported_sites_wired():
     assert wired == PORTED_SITES
     assert PORTED_SITES <= set(tfp.KNOWN_SITES)
     not_ported = set(tfp.KNOWN_SITES) - PORTED_SITES
-    assert "transport.fetch_blob" in not_ported and "fleet.collect" in not_ported
+    assert "fleet.collect" in not_ported
 
 
 def _drive_pack(pkg):
@@ -362,6 +373,48 @@ def _drive_promote(pkg):
     return _ha_mods(pkg)[1].HaAgent(_service(pkg), role="replica").promote()
 
 
+def _registry_mods(pkg):
+    from nydus_snapshotter_tpu.remote import reference as jreference
+    from nydus_snapshotter_tpu.remote import registry as jregistry
+    from nydus_snapshotter_tpu.remote import transport as jtransport
+    from nydus_snapshotter_tpu_torch.remote import reference as treference
+    from nydus_snapshotter_tpu_torch.remote import registry as tregistry
+    from nydus_snapshotter_tpu_torch.remote import transport as ttransport
+
+    if pkg == "port":
+        return treference, tregistry, ttransport
+    return jreference, jregistry, jtransport
+
+
+def _with_registry(fn):
+    from tests.test_remote import FakeRegistry
+
+    reg = FakeRegistry(require_auth=False)
+    try:
+        return fn(reg, reg.add_blob(b"site-blob" * 10))
+    finally:
+        reg.close()
+
+
+def _drive_fetch_blob(pkg):
+    _ref, registry, _tr = _registry_mods(pkg)
+
+    def fetch(reg, digest):
+        r = registry.RegistryClient(reg.host, plain_http=True).fetch_blob("x/y", digest)
+        try:
+            return r.read()
+        finally:
+            r.close()
+
+    return _with_registry(fetch)
+
+
+def _drive_pool(pkg):
+    reference, _reg, transport = _registry_mods(pkg)
+    return _with_registry(lambda reg, digest: transport.Pool(plain_http=True).resolve(
+        reference.parse_docker_ref(f"{reg.host}/x/y:v1"), digest))
+
+
 DRIVERS = {
     "converter.pack": _drive_pack,
     "pipeline.chunk": _drive_pack,
@@ -381,6 +434,9 @@ DRIVERS = {
     "ha.place": _drive_place,
     "ha.replicate": _drive_replicate,
     "ha.promote": _drive_promote,
+    "transport.probe": _drive_pool,
+    "transport.resolve": _drive_pool,
+    "transport.fetch_blob": _drive_fetch_blob,
 }
 
 
