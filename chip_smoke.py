@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ha-only     # phases 0-3, 16 and 17 alone
     python3 chip_smoke.py --convert-only  # phases 0-3 and 18 alone
     python3 chip_smoke.py --registry-only  # phases 0-3 and 19 alone
+    python3 chip_smoke.py --formats-only  # phases 0-3 and 20 alone
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -349,6 +350,31 @@ Phases (any failure exits non-zero; nothing is caught):
    wrong diff ID ends FAILED with the reference's logged message and no
    launch. Printed: the pulls, each index build, the merge and the export
    with the card's name and power limit.
+20. lazy formats — phase 4's tar as four layers on an in-process registry
+   (``OciRegistry``, which also serves the referrers API): gzip level 1 in
+   8 members, seekable zstd -3 in 1 MiB frames (``zframe.write_seekable``),
+   zstd:chunked over its files (``toc.write_zstd_chunked``) and eStargz
+   over ``FORMATS_ESTARGZ_FILES`` of its files (``estargz_blob``, the shape
+   of tests/test_stargz.py's ``build_estargz``), and a single-frame zstd
+   layer. ``SociResolver.get_blob`` routes them over HTTP ranges to
+   zran-index, seekable-index and toc-adopt (twice); the single-frame
+   layer's prepare raises ``SociError`` (rafs-convert), and
+   ``route_counts`` moves by exactly those. ``SociAdaptor`` prepares the
+   four layers and merges them on the host with no launch; the persisted
+   ``.soci.idx`` and ``.soci.zidx`` reload through ``find_index`` /
+   ``find_zindex`` into the indexes it built. ``pack_gzip_layer`` /
+   ``pack_zstd_layer`` on a ``ChunkDigestEngine(backend="jax",
+   digest_backend="jax")`` on the card: K2 once per SHA-256 pack, K4's two
+   launches once each per BLAKE3 pack, each bootstrap equal to the host's
+   (the adaptor's for SHA-256). ``FORMATS_READS`` seeded files read in
+   descending offsets through ``BlobReader`` over the card's bootstrap with
+   ``SociStreamReader`` / ``ZstdStreamReader`` mounted (from memory and
+   over the registry's ranges) and through the sequential readers (all of
+   them for gzip, ``FORMATS_SEQ_ZSTD_READS`` for zstd), each equal to the
+   tar's bytes: s and compressed bytes fetched per read. A
+   ``ReferrerManager`` finds a nydus bootstrap layer behind the referrers
+   API (its second lookup cached) and ``fetch_metadata`` writes the merged
+   ``image.boot``.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -4135,8 +4161,9 @@ TARFS_REPO = "library/tarfs"
 
 class OciRegistry:
     """A small in-process OCI distribution registry on 127.0.0.1: manifests
-    by tag or digest, configs and blobs by digest, ``Range`` on blobs, no
-    auth; every request counted."""
+    by tag or digest, configs and blobs by digest, ``Range`` on blobs, the
+    referrers API (``referrers``: subject digest -> manifest descriptors),
+    no auth; every request counted."""
 
     def __init__(self):
         import threading
@@ -4144,6 +4171,7 @@ class OciRegistry:
 
         self.blobs: dict[str, bytes] = {}
         self.manifests: dict[str, bytes] = {}
+        self.referrers: dict[str, list[dict]] = {}
         self.requests: list[str] = []
         reg = self
 
@@ -4166,6 +4194,10 @@ class OciRegistry:
 
             def _serve(self, head: bool):
                 reg.requests.append(f"{self.command} {self.path}")
+                if "/referrers/" in self.path:
+                    subject = self.path.split("/referrers/")[-1].split("?")[0]
+                    body = json.dumps({"schemaVersion": 2, "manifests": reg.referrers.get(subject, [])})
+                    return self._send(body.encode(), "application/vnd.oci.image.index.v1+json", head)
                 if "/manifests/" in self.path:
                     body = reg.manifests.get(self.path.rsplit("/", 1)[-1])
                     if body is not None:
@@ -4552,18 +4584,404 @@ def tarfs_manager_phase(dev, tar: bytes, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the lazy formats (soci/, stargz/, referrer/)
+# ---------------------------------------------------------------------------
+
+FORMATS_READS = 64  # seeded files read backward through each index
+FORMATS_SEQ_ZSTD_READS = 8  # of them through the sequential zstd reader
+FORMATS_FRAME_USIZE = 1 << 20  # the seekable zstd layer's frames
+FORMATS_ESTARGZ_FILES = 3000  # files of phase 4's tar in the eStargz layer
+FORMATS_ESTARGZ_MAX = 256 << 10  # the largest file it takes
+FORMATS_REPO = "library/formats"
+ESTARGZ_TOC = "stargz.index.json"
+
+
+def _gzip_member(data: bytes, extra: bytes = b"") -> bytes:
+    """One gzip member at level 9 with an optional FEXTRA field."""
+    import struct
+    import zlib
+
+    head = bytes([0x1F, 0x8B, 0x08, 0x04 if extra else 0x00, 0, 0, 0, 0, 0, 0xFF])
+    if extra:
+        head += struct.pack("<H", len(extra)) + extra
+    if data:
+        comp = zlib.compressobj(9, zlib.DEFLATED, -15)
+        body = comp.compress(data) + comp.flush()
+    else:
+        body = b"\x01\x00\x00\xff\xff"  # a final stored empty block
+    return head + body + struct.pack("<II", zlib.crc32(data) & 0xFFFFFFFF, len(data) & 0xFFFFFFFF)
+
+
+def _tar_member(name: str, data: bytes) -> bytes:
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:", format=tarfile.GNU_FORMAT) as tf:
+        info = tarfile.TarInfo(name)
+        info.size = len(data)
+        tf.addfile(info, io.BytesIO(data))
+    raw = buf.getvalue()
+    while raw.endswith(b"\x00" * 512):  # members concatenate
+        raw = raw[:-512]
+    return raw
+
+
+def estargz_blob(files: dict[str, bytes]) -> bytes:
+    """An eStargz layer of ``files`` (path -> content), the shape
+    tests/test_stargz.py's ``build_estargz`` makes: each regular file's tar
+    header ends one gzip member and its data starts the next, so a TOC
+    entry's ``offset`` inflates straight to the file's bytes; then the TOC
+    (``stargz.index.json``) in a member of its own and the 51-byte footer.
+    The members are independent, so 8 threads compress them."""
+    import struct
+    from concurrent.futures import ThreadPoolExecutor
+
+    payloads = []
+    for name, data in files.items():
+        full = _tar_member(name, b"\xaa" * len(data))
+        pad = (-len(data)) % 512
+        payloads += [full[: len(full) - len(data) - pad], data + b"\0" * pad]
+    with ThreadPoolExecutor(8) as pool:
+        members = list(pool.map(_gzip_member, payloads))
+    out = io.BytesIO()
+    entries = [{"name": "./", "type": "dir", "mode": 0o755}]
+    for i, (name, data) in enumerate(files.items()):
+        out.write(members[2 * i])
+        offset = out.tell()
+        out.write(members[2 * i + 1])
+        digest = "sha256:" + hashlib.sha256(data).hexdigest()
+        entries.append({"name": name, "type": "reg", "size": len(data), "mode": 0o644,
+                        "offset": offset, "chunkDigest": digest, "digest": digest})
+    toc_offset = out.tell()
+    out.write(_gzip_member(_tar_member(ESTARGZ_TOC, json.dumps({"version": 1, "entries": entries}).encode())))
+    payload = b"%016x" % toc_offset + b"STARGZ"
+    out.write(_gzip_member(b"", extra=b"SG" + struct.pack("<H", len(payload)) + payload))
+    return out.getvalue()
+
+
+def formats_phase(dev, tar: bytes, kernels) -> dict:
+    """Phase 20: phase 4's tar as gzip, seekable zstd, zstd:chunked and
+    eStargz layers on an in-process registry, routed and prepared by the
+    soci adaptor on the host (no launch), the gzip and zstd ref packs on the
+    card (K2, K4) equal to the host's bootstraps, the persisted indexes
+    reloaded, backward reads through the indexes against the sequential
+    readers, and a referrer's bootstrap fetched."""
+    import gzip
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nydus_snapshotter_tpu_torch.constants import LAYER_ANNOTATION_NYDUS_BOOTSTRAP
+    from nydus_snapshotter_tpu_torch.converter import PackOption, convert, zran, zstd_ref
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.ops.chunker import ChunkDigestEngine
+    from nydus_snapshotter_tpu_torch.referrer import METADATA_NAME_IN_LAYER, Referrer, ReferrerManager
+    from nydus_snapshotter_tpu_torch.remote import remote as remote_mod
+    from nydus_snapshotter_tpu_torch.remote import transport
+    from nydus_snapshotter_tpu_torch.soci import (
+        SociAdaptor, SociResolver, SociStreamReader, ZstdStreamReader, router, zframe,
+    )
+    from nydus_snapshotter_tpu_torch.soci import adaptor as adaptor_mod
+    from nydus_snapshotter_tpu_torch.soci import blob as soci_blob
+    from nydus_snapshotter_tpu_torch.soci import toc as ztoc
+    from nydus_snapshotter_tpu_torch.soci import zblob
+    from nydus_snapshotter_tpu_torch.soci import zran as soci_zran
+    from nydus_snapshotter_tpu_torch.utils import zstd
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    if not (zframe.available() and soci_zran.available()):
+        raise AssertionError("the system libzstd frame API or libz inflatePrime is missing: "
+                             "the seekable and zran routes cannot run")
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, {key: k.launches for key, k in kernels.items() if k.launches}
+
+    # -- the layers, made in parallel -------------------------------------------
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        members = [m for m in tf if m.isreg()]
+    files = {m.name: tar[m.offset_data:m.offset_data + m.size] for m in members}
+    small = {n: d for n, d in files.items() if len(d) <= FORMATS_ESTARGZ_MAX}
+    est_files = dict(list(small.items())[:FORMATS_ESTARGZ_FILES])
+    t0 = time.perf_counter()
+    step = -(-len(tar) // OCIREF_GZIP_MEMBERS)
+    single_tar = named_tar([(f"one/f{i}.bin", np.frombuffer(d, dtype=np.uint8))
+                            for i, d in enumerate(list(files.values())[:64])])
+    make_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        make_s[name] = time.perf_counter() - t
+        return out
+
+    def gzip_members():
+        with ThreadPoolExecutor(OCIREF_GZIP_MEMBERS) as members:
+            return b"".join(members.map(lambda i: gzip.compress(tar[i:i + step], compresslevel=1, mtime=0),
+                                        range(0, len(tar), step)))
+
+    with ThreadPoolExecutor(5) as pool:  # each layer on a thread; gzip and eStargz fan out again
+        jobs = {"estargz": pool.submit(timed, "estargz", estargz_blob, est_files),
+                "gzip": pool.submit(timed, "gzip", gzip_members),
+                "seekable": pool.submit(timed, "seekable", zframe.write_seekable, tar, FORMATS_FRAME_USIZE, 3),
+                "chunked": pool.submit(timed, "chunked", ztoc.write_zstd_chunked, files),
+                "single": pool.submit(timed, "single", zstd.compress_block, single_tar, 3)}
+        layers = {k: f.result() for k, f in jobs.items()}
+    single = layers.pop("single")
+    layers = {k: layers[k] for k in ("gzip", "seekable", "chunked", "estargz")}
+    t_make = time.perf_counter() - t0
+    log(f"[20] layers from phase 4's {len(tar)} byte tar ({len(files)} files) in {t_make:.2f} s "
+        f"(a thread each): gzip level 1 in {OCIREF_GZIP_MEMBERS} members {len(layers['gzip'])} bytes "
+        f"({make_s['gzip']:.2f} s); seekable zstd -3 in {FORMATS_FRAME_USIZE >> 20} MiB frames "
+        f"{len(layers['seekable'])} bytes ({make_s['seekable']:.2f} s); zstd:chunked "
+        f"{len(layers['chunked'])} bytes ({make_s['chunked']:.2f} s); eStargz of {len(est_files)} "
+        f"files ({sum(map(len, est_files.values()))} bytes, level-9 members on 8 threads) "
+        f"{len(layers['estargz'])} bytes ({make_s['estargz']:.2f} s); a single-frame zstd layer "
+        f"{len(single)} bytes ({len(single_tar)} as tar)")
+
+    reg = OciRegistry()
+    digests = {k: reg.add_blob(b) for k, b in layers.items()}
+    digests["single"] = reg.add_blob(single)
+    ref = f"{reg.host}/{FORMATS_REPO}:v1"
+    w = Path(tempfile.mkdtemp(prefix="ntpu-formats-"))
+    cache = str(w / "cache")
+    try:
+        # -- route: SociResolver.get_blob over HTTP ranges ----------------------
+        want_route = {"gzip": router.BACKEND_ZRAN, "seekable": router.BACKEND_SEEKABLE,
+                      "chunked": router.BACKEND_TOC_ADOPT, "estargz": router.BACKEND_TOC_ADOPT}
+        before = router.route_counts()
+        resolver = SociResolver(pool=transport.Pool(plain_http=True))
+        blobs, routes = {}, {}
+        t0 = time.perf_counter()
+        for kind in want_route:
+            blobs[kind] = resolver.get_blob(ref, digests[kind])
+            routes[kind] = blobs[kind].route
+            if routes[kind].backend != want_route[kind]:
+                raise AssertionError(f"{kind} routed {routes[kind].describe()}; want {want_route[kind]}")
+        t_route = time.perf_counter() - t0
+        one = resolver.get_blob(ref, digests["single"])  # opaque zstd: indexable until its frames are seen
+        adaptor = SociAdaptor(lambda sid: str(w / "snap" / sid / "fs"), cache_dir=cache,
+                              chunk_size=CHUNK_SIZE)
+        try:
+            adaptor.prepare_meta_layer(one, str(w / "snap" / "single" / "fs"))
+            raise AssertionError("a single-frame zstd layer was prepared")
+        except adaptor_mod.SociError as e:
+            single_msg = str(e)
+        after = router.route_counts()
+        moved = {b: after.get(b, 0) - before.get(b, 0) for b in after if after.get(b, 0) != before.get(b, 0)}
+        want_moved = {router.BACKEND_ZRAN: 1, router.BACKEND_SEEKABLE: 2, router.BACKEND_TOC_ADOPT: 2,
+                      router.BACKEND_RAFS: 1}
+        if moved != want_moved:
+            raise AssertionError(f"route_counts moved {moved}; want {want_moved}")
+        log(f"[20] SociResolver.get_blob over HTTP ranges in {t_route:.3f} s: "
+            + "; ".join(f"{k} -> {r.describe()}" for k, r in routes.items())
+            + f"; the single-frame zstd layer raised SociError ({single_msg[:70]}...); route_counts "
+            f"moved {moved}")
+
+        # -- prepare and merge on the host: no launch ---------------------------
+        built = {}
+        orig_gz, orig_zs = soci_blob.build_index_from_gzip, zblob.build_zindex_from_zstd
+
+        def keep(name, fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                built[name] = out[0]
+                return out
+            return wrapped
+
+        soci_blob.build_index_from_gzip = keep("gzip", orig_gz)
+        zblob.build_zindex_from_zstd = keep("seekable", orig_zs)
+        kinds = list(want_route)  # bottom first
+        sids = {kind: str(len(kinds) - i) for i, kind in enumerate(kinds)}
+        prep_s, prep_fetch = {}, {}
+        try:
+            for kind in kinds:
+                fetched = []
+                b = blobs[kind]
+                read_at = b._read_at  # under Blob.read_at, read_toc and the TOC probes
+                b._read_at = lambda o, n, read_at=read_at, fetched=fetched: (
+                    fetched.append(n), read_at(o, n))[1]
+                _, prep_s[kind], launched = counted(
+                    lambda: adaptor.prepare_meta_layer(b, str(w / "snap" / sids[kind] / "fs")))
+                prep_fetch[kind] = sum(fetched)
+                if launched:
+                    raise AssertionError(f"the adaptor's {kind} prepare launched {launched}")
+        finally:
+            soci_blob.build_index_from_gzip, zblob.build_zindex_from_zstd = orig_gz, orig_zs
+        snap = type("Snap", (), {"parent_ids": [sids[k] for k in kinds[::-1]]})()
+        _, merge_s, launched = counted(lambda: adaptor.merge_meta_layer(snap))
+        if launched:
+            raise AssertionError(f"merge_meta_layer launched {launched}")
+        host_boot = {k: (w / "snap" / sids[k] / "fs" / digests[k].split(":")[1]).read_bytes() for k in kinds}
+        merged = (w / "snap" / sids[kinds[-1]] / "fs" / "image.boot").read_bytes()
+        merged_bs = Bootstrap.from_bytes(merged)
+        paths = {i.path for i in merged_bs.inodes}
+        missing = [n for n in files if "/" + n not in paths]
+        if missing:
+            raise AssertionError(f"the merged image.boot lacks {len(missing)} files, e.g. {missing[:3]}")
+        for kind in ("chunked", "estargz"):
+            if prep_fetch[kind] > len(layers[kind]) // 4:
+                raise AssertionError(f"toc-adopt of {kind} fetched {prep_fetch[kind]} bytes")
+        log(f"[20] SociAdaptor.prepare_meta_layer on the host, 0 launches: "
+            + "; ".join(f"{k} {prep_s[k]:.2f} s, {prep_fetch[k]} bytes fetched" for k in kinds)
+            + f"; merge_meta_layer {merge_s:.3f} s, 0 launches ({len(merged_bs.inodes)} inodes, "
+            f"{len(merged_bs.blobs)} blobs)")
+
+        # -- the persisted indexes reload into equal objects --------------------
+        gz_id, zs_id = digests["gzip"].split(":")[1], digests["seekable"].split(":")[1]
+        t0 = time.perf_counter()
+        gidx, gbad = soci_blob.find_index([cache], gz_id, csize=len(layers["gzip"]))
+        zidx, zbad = zblob.find_zindex([cache], zs_id, csize=len(layers["seekable"]))
+        t_load = time.perf_counter() - t0
+        if (gbad, zbad) != (0, 0) or gidx != built["gzip"] or zidx != built["seekable"]:
+            raise AssertionError("a persisted index does not reload into the index the adaptor built")
+        idx_bytes = {k: os.path.getsize(p) for k, p in (("soci.idx", soci_blob.index_path(cache, gz_id)),
+                                                        ("soci.zidx", zblob.zindex_path(cache, zs_id)))}
+        log(f"[20] find_index / find_zindex reload == the built indexes in {t_load:.3f} s: "
+            f"{len(gidx.checkpoints)} checkpoints at stride {gidx.stride >> 10} KiB, {len(gidx.files)} "
+            f"files ({idx_bytes['soci.idx']} bytes); {len(zidx.frames)} frames from the "
+            f"{zidx.source_name} ({idx_bytes['soci.zidx']} bytes)")
+
+        # -- the card's ref packs equal the host's bootstraps -------------------
+        packs, dev_boot = {}, {}
+        for kind, raw, pack_fn in (("gzip", layers["gzip"], zran.pack_gzip_layer),
+                                   ("seekable", layers["seekable"], zstd_ref.pack_zstd_layer)):
+            for digester in ("sha256", "blake3"):
+                opt = PackOption(oci_ref=True, chunk_size=CHUNK_SIZE, digester=digester)
+                eng = ChunkDigestEngine(chunk_size=CHUNK_SIZE, backend="jax", digest_backend="jax",
+                                        digester=digester, device=dev)
+                bs, dev_s, launched = counted(lambda: pack_fn(raw, opt, engine=eng, tar_bytes=tar))
+                want_l = {"sha": 1} if digester == "sha256" else {"b3_leaves": 1, "b3_parents": 1}
+                if launched != want_l:
+                    raise AssertionError(f"the card's {kind}/{digester} ref pack launched {launched}; "
+                                         f"want {want_l}")
+                if digester == "sha256":
+                    want = host_boot[kind]
+                else:
+                    want = pack_fn(raw, opt, tar_bytes=tar).to_bytes()
+                if bs.to_bytes() != want:
+                    raise AssertionError(f"{kind}/{digester}: the card's bootstrap differs from the host's")
+                packs[f"{kind}/{digester}"] = {"s": dev_s, "launches": launched}
+                dev_boot[(kind, digester)] = bs
+        log("[20] ref packs on the card == the host's bootstraps (the adaptor's for SHA-256): "
+            + "; ".join(f"{k} {p['s']:.2f} s ({', '.join(f'{n} {c}' for n, c in p['launches'].items())})"
+                        for k, p in packs.items()))
+
+        # -- backward reads through the indexes, against the sequential readers --
+        reads = {}
+        for kind, reader_cls, idx in (("gzip", SociStreamReader, gidx), ("seekable", ZstdStreamReader, zidx)):
+            raw = layers[kind]
+            bs = dev_boot[(kind, "sha256")]
+            regs = [i for i in bs.inodes if i.chunk_count]
+            pick = np.random.default_rng(SEED + 20).choice(len(regs), FORMATS_READS, replace=False)
+            order = sorted((regs[k] for k in pick), key=lambda i: -bs.chunks[i.chunk_index].uncompressed_offset)
+            mount = "mount_gzip_stream" if kind == "gzip" else "mount_zstd_stream"
+
+            def read_files(reader, inodes, pulled):
+                per = []
+                for ino in inodes:
+                    recs = bs.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]
+                    lo = recs[0].uncompressed_offset
+                    f0, p0, t = soci_blob.FETCH_BYTES.value(), sum(pulled), time.perf_counter()
+                    got = b"".join(reader.chunk_data(c) for c in recs)
+                    per.append((time.perf_counter() - t, soci_blob.FETCH_BYTES.value() - f0 + sum(pulled) - p0,
+                                len(recs)))
+                    if got != tar[lo:lo + ino.size]:
+                        raise AssertionError(f"{kind} {ino.path}: the read differs from the tar's bytes")
+                return per
+
+            arms = {}
+            for arm, read_comp in (("memory", lambda o, n, raw=raw: raw[o:o + n]),
+                                   ("registry", blobs[kind].read_at)):
+                br = convert.BlobReader(bs, 0, lambda o, n, raw=raw: raw[o:o + n])
+                getattr(br, mount)(reader_cls(idx, read_comp))
+                arms[arm] = read_files(br, order, [])
+            pulled = []
+            seq = convert.BlobReader(bs, 0, lambda o, n, raw=raw: (pulled.append(n), raw[o:o + n])[1])
+            n_seq = FORMATS_READS if kind == "gzip" else FORMATS_SEQ_ZSTD_READS
+            arms["sequential"] = read_files(seq, order[:n_seq], pulled)
+            reads[kind] = {arm: {"files": len(per), "chunks": sum(p[2] for p in per),
+                                 "s_per_read": sum(p[0] for p in per) / len(per),
+                                 "s_per_chunk": sum(p[0] for p in per) / sum(p[2] for p in per),
+                                 "fetch_bytes_per_read": sum(p[1] for p in per) / len(per),
+                                 "max_fetch_bytes": max(p[1] for p in per)}
+                           for arm, per in arms.items()}
+            if kind == "gzip":
+                cuts = [0] + [cp.cin for cp in idx.checkpoints] + [len(raw)]
+                widest = max(b - a for a, b in zip(cuts, cuts[1:]))
+            else:
+                widest = max(f.csize for f in idx.frames)
+            reads[kind]["widest_span_bytes"] = widest
+            r = reads[kind]
+            log(f"[20] {kind}: {FORMATS_READS} seeded files in descending offsets, bytes == the tar's: "
+                + "; ".join(f"{arm} {v['s_per_read'] * 1e3:.2f} ms a read ({v['chunks']} chunks, "
+                            f"{v['s_per_chunk'] * 1e3:.2f} ms a chunk), {v['fetch_bytes_per_read']:.0f} "
+                            f"compressed bytes a read (largest {v['max_fetch_bytes']})"
+                            for arm, v in r.items() if isinstance(v, dict))
+                + f"; the index's widest span {widest} bytes"
+                + ("" if kind == "gzip" else f" (sequential: the first {FORMATS_SEQ_ZSTD_READS} files)"))
+
+        # -- the referrer: a nydus bootstrap layer behind the OCI referrers API --
+        meta = io.BytesIO()
+        with tarfile.open(fileobj=meta, mode="w:") as tf:
+            ti = tarfile.TarInfo(METADATA_NAME_IN_LAYER)
+            ti.size = len(merged)
+            tf.addfile(ti, io.BytesIO(merged))
+        layer = gzip.compress(meta.getvalue(), compresslevel=1, mtime=0)
+        man = json.dumps({"schemaVersion": 2, "layers": [{
+            "mediaType": "application/vnd.oci.image.layer.v1.tar+gzip", "digest": reg.add_blob(layer),
+            "size": len(layer), "annotations": {LAYER_ANNOTATION_NYDUS_BOOTSTRAP: "true"}}]}).encode()
+        image_digest = digests["gzip"]
+        reg.referrers[image_digest] = [{"mediaType": "application/vnd.oci.image.manifest.v1+json",
+                                        "digest": reg.add_blob(man), "size": len(man)}]
+        t0 = time.perf_counter()
+        with plain_http_remote(remote_mod):
+            mgr = ReferrerManager()
+            desc = mgr.check_referrer(ref, image_digest)
+            n_req = len(reg.requests)
+            if mgr.check_referrer(ref, image_digest).digest != desc.digest or len(reg.requests) != n_req:
+                raise AssertionError("the referrer manager's second lookup was not served from its cache")
+            Referrer().fetch_metadata(ref, desc, str(w / "referrer.boot"))
+            mgr.try_fetch_metadata(ref, image_digest, str(w / "manager.boot"))
+        t_ref = time.perf_counter() - t0
+        if (w / "referrer.boot").read_bytes() != merged or (w / "manager.boot").read_bytes() != merged:
+            raise AssertionError("the referrer's bootstrap differs from the merged image.boot")
+        log(f"[20] referrer: ReferrerManager.check_referrer -> {desc.digest[:19]}.. (cached on the second "
+            f"lookup), Referrer.fetch_metadata and try_fetch_metadata wrote the merged image.boot "
+            f"({len(merged)} bytes) in {t_ref:.3f} s")
+    finally:
+        reg.close()
+        shutil.rmtree(w, ignore_errors=True)
+    out = {
+        "layers": {k: len(b) for k, b in layers.items()}, "make_s": t_make, "layer_make_s": make_s,
+        "route_s": t_route,
+        "routes": {k: r.backend for k, r in routes.items()}, "route_counts": moved,
+        "prepare_s": prep_s, "prepare_fetch_bytes": prep_fetch, "merge_s": merge_s,
+        "index_files": idx_bytes, "index_load_s": t_load, "packs": packs, "reads": reads,
+        "referrer_s": t_ref, "phase_s": time.perf_counter() - t_phase, "device": smi,
+    }
+    log(f"[20] {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"], ["--registry-only"]):
-        print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only | --registry-only]",
-              file=sys.stderr)
+    if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"], ["--registry-only"],
+                    ["--formats-only"]):
+        print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only | --registry-only | "
+              "--formats-only]", file=sys.stderr)
         return 2
     mesh_only = args == ["--mesh-only"]
     ha_only = args == ["--ha-only"]
     convert_only = args == ["--convert-only"]
     registry_only = args == ["--registry-only"]
+    formats_only = args == ["--formats-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -4848,6 +5266,14 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                   "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if formats_only:  # phases 0-3, then 20 on phase 4's tar
+        fm = formats_phase(dev, layer_tar(FileGen(SEED + 3).pool(PACK_MIB)), all_kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--formats-only: phases 0-3 and 20)")
+        print(smi, flush=True)
+        print(json.dumps({"formats": fm}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -5039,6 +5465,14 @@ def main() -> int:
     # -- 19. the registry read path and the tarfs manager, every layer indexed on K2 --
     tm = tarfs_manager_phase(dev, tar, all_kernels)
 
+    # -- 20. the lazy formats: soci routes, indexes and readers, stargz, referrer --
+    fm = formats_phase(dev, tar, all_kernels)
+
+    def formats_launches(*keys):  # phase 20: per card ref pack; the adaptor path launches none
+        out = {name: sum(p["launches"].get(k, 0) for k in keys) for name, p in fm["packs"].items()}
+        out["adaptor_prepare_and_merge"] = 0
+        return out
+
     def convert_launches(*keys):  # phase 18: per CLI pack, tarfs, corpus layer, batch
         def n(launched):
             return sum(launched.get(k, 0) for k in keys)
@@ -5109,6 +5543,7 @@ def main() -> int:
             ha_batch_launches=ha["batch_launches"]["sha"], ociref_launches=ociref_launches("sha"),
             convert_launches=convert_launches("sha"),
             tarfs_manager_launches=tm["launches"].get("sha", 0), tarfs_manager_layers=tm["layers"],
+            formats_launches=formats_launches("sha"),
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -5149,6 +5584,7 @@ def main() -> int:
             + cc["adaptive"]["blake3_launches"]["b3_parents"],
             ociref_launches=ociref_launches("b3_leaves", "b3_parents"),
             convert_launches=convert_launches("b3_leaves", "b3_parents"),
+            formats_launches=formats_launches("b3_leaves", "b3_parents"),
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

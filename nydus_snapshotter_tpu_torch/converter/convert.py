@@ -30,8 +30,10 @@ It reads the OCIRef stream chunks of converter/zran.py
 ``GzipStreamReader``) and converter/zstd_ref.py
 (``CHUNK_FLAG_ZSTD_STREAM``: the sequential ``ZstdSequentialReader``), and
 takes an indexed reader through ``mount_gzip_stream`` /
-``mount_zstd_stream``; the reference's soci index readers that those
-receive are not in this package yet. ``Merge`` and ``Unpack`` take layers
+``mount_zstd_stream``: soci/blob.py's ``SociStreamReader`` (a gzip
+checkpoint index) and soci/zblob.py's ``ZstdStreamReader`` (a zstd frame
+index), whose reads cost one checkpoint span or the covering frames in
+any order. ``Merge`` and ``Unpack`` take layers
 that mix OCIRef and packed layers; ``Unpack`` reads the stream chunks in
 ascending offset order, one decode pass per blob.
 """

@@ -378,6 +378,32 @@ _CHILD = textwrap.dedent(
         mgr.mount_tar_erofs("1", snap, labels, rafs)
         mgr.umount_tar_erofs("1"); mgr.detach_layer("1")
     srv.shutdown(); srv.server_close()
+    # the lazy formats: a gzip layer routed, indexed and prepared by the
+    # soci adaptor, its index reloaded and read; a seekable zstd layer
+    # routed; an eStargz TOC built into a bootstrap; the referrer manager
+    from nydus_snapshotter_tpu_torch import referrer, soci, stargz
+    from nydus_snapshotter_tpu_torch.soci import toc as ztoc, zblob, zframe
+    mtar = many.getvalue()
+    gzl = gzip.compress(mtar, mtime=0)
+    hexd = hashlib.sha256(gzl).hexdigest()
+    with tempfile.TemporaryDirectory() as t:
+        ad = soci.SociAdaptor(lambda s: os.path.join(t, "up", s), cache_dir=os.path.join(t, "cache"),
+                              chunk_size=0x1000)
+        ad.prepare_meta_layer(stargz.Blob("r", "sha256:" + hexd, lambda o, n: gzl[o:o + n], len(gzl)),
+                              os.path.join(t, "up", "1"))
+        idx, outcome = soci.load_or_build_index([os.path.join(t, "cache")], hexd, csize=len(gzl))
+        assert outcome == "loaded"
+        assert soci.SociStreamReader(idx, lambda o, n: gzl[o:o + n]).read_range(700, 9000) == mtar[700:9700]
+    zs = zframe.write_seekable(mtar, frame_usize=16 << 10)
+    assert soci.FormatRouter().route(lambda o, n: zs[o:o + n], len(zs)).backend == "seekable-index"
+    zidx, _ = zblob.build_zindex_from_zstd("ef" * 32, zs)
+    assert soci.ZstdStreamReader(zidx, lambda o, n: zs[o:o + n]).read_range(30_000, 5000) == mtar[30_000:35_000]
+    chunked = ztoc.write_zstd_chunked({"m0": data}, chunk_size=0x2000)
+    assert ztoc.read_toc(lambda o, n: chunked[o:o + n], len(chunked))
+    toc = {"version": 1, "entries": [{"name": "a/b", "type": "reg", "size": 3, "offset": 0,
+                                      "chunkDigest": "sha256:" + hashlib.sha256(b"abc").hexdigest()}]}
+    assert "/a/b" in {i.path for i in stargz.bootstrap_from_toc(toc, "cd" * 32).inodes}
+    assert referrer.ReferrerManager().insecure is False
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
     print("LEAKED", bad)

@@ -10,6 +10,7 @@ workers, ``BatchConverter`` layers and the dict service's RPCs, the
 Chrome export, and the registry's exposition text.
 """
 
+import gzip
 import io
 import json
 import os
@@ -63,6 +64,7 @@ PORTED_SITES = {
     "dict.shard", "chunk.vec", "compress.probe", "compress.train", "compress.encode",
     "compress.batch", "ha.place", "ha.replicate", "ha.promote",
     "transport.probe", "transport.resolve", "transport.fetch_blob",
+    "soci.index", "soci.resolve", "soci.fetch",
 }
 
 
@@ -415,6 +417,32 @@ def _drive_pool(pkg):
         reference.parse_docker_ref(f"{reg.host}/x/y:v1"), digest))
 
 
+SOCI_TAR = _tar(n_files=8, size=(40_000, 90_000))
+SOCI_GZ = b"".join(gzip.compress(SOCI_TAR[i:i + 200_000], 1, mtime=0)
+                   for i in range(0, len(SOCI_TAR), 200_000))
+
+
+def _soci_blob(pkg):
+    from nydus_snapshotter_tpu.soci import blob as jblob
+    from nydus_snapshotter_tpu_torch.soci import blob as tblob
+
+    return tblob if pkg == "port" else jblob
+
+
+def _drive_soci_index(pkg):
+    return _soci_blob(pkg).build_index_from_gzip("ab" * 32, SOCI_GZ, stride=64 << 10)
+
+
+def _drive_soci_read(pkg):
+    """A checkpoint-indexed read: ``soci.resolve`` then ``soci.fetch``."""
+    blob = _soci_blob(pkg)
+    idx, _ = blob.build_index_from_gzip("ab" * 32, SOCI_GZ, stride=64 << 10)
+    reader = blob.SociStreamReader(idx, lambda o, n: SOCI_GZ[o:o + n])
+    off = len(SOCI_TAR) // 2
+    if reader.read_range(off, 5000) != SOCI_TAR[off:off + 5000]:
+        raise AssertionError("indexed read differs")
+
+
 DRIVERS = {
     "converter.pack": _drive_pack,
     "pipeline.chunk": _drive_pack,
@@ -437,6 +465,9 @@ DRIVERS = {
     "transport.probe": _drive_pool,
     "transport.resolve": _drive_pool,
     "transport.fetch_blob": _drive_fetch_blob,
+    "soci.index": _drive_soci_index,
+    "soci.resolve": _drive_soci_read,
+    "soci.fetch": _drive_soci_read,
 }
 
 
@@ -454,6 +485,8 @@ def test_each_ported_site_fires_in_both_packages(monkeypatch, tmp_path, site):
         with pytest.raises(OSError, match="site-chaos|status 500"):
             run()
         assert fp.counts().get(site) == 1, pkg
+        other = PKG["ref" if pkg == "port" else "port"].fp
+        assert site not in other.counts(), pkg  # never the other package's site
         run()  # one shot spent: the next call goes through
         fp.clear()
 
