@@ -7,6 +7,7 @@
     python3 chip_smoke.py --convert-only  # phases 0-3 and 18 alone
     python3 chip_smoke.py --registry-only  # phases 0-3 and 19 alone
     python3 chip_smoke.py --formats-only  # phases 0-3 and 20 alone
+    python3 chip_smoke.py --fetch-only    # phases 0-3 and 21 alone
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -375,6 +376,37 @@ Phases (any failure exits non-zero; nothing is caught):
    ``ReferrerManager`` finds a nydus bootstrap layer behind the referrers
    API (its second lookup cached) and ``fetch_metadata`` writes the merged
    ``image.boot``.
+21. lazy fetch — the daemon's fetch side at the reference's defaults
+   (``FetchConfig()``: 4 fetch workers, 128 KiB merge gap, 1 MiB readahead,
+   a 64 MiB budget) over phase 4's tar packed on the card:
+   ``pack_layer(backend="fused", compressor="lz4_block")`` with a prefetch
+   table of ``FETCH_PREFETCH_FILES`` seeded files launches K1 and K2 once
+   each and equals the hybrid lane's blob, bootstrap and blob id (no
+   launch); the blob's data section is served by ``OciRegistry`` with
+   ``Range``, every ranged GET counted. Node A: ``CachedBlob`` over
+   ``RegistryBlobFetcher`` reads ``FETCH_READS`` seeded files chunk by chunk
+   (``BlobReader.chunk_data`` over ``read_at``) from ``FETCH_THREADS``
+   threads, each equal to the tar's bytes; the provenance ledger conserves
+   the fetched bytes, one GET per flight; a first node with merge gap 0
+   fetches no byte twice, and at the defaults the bytes that coalesced
+   flights fetched again are counted. A second pass is all hits (any GET a
+   readahead flight). Node B reads the same files through
+   ``PeerAwareFetcher`` from A's ``PeerChunkServer`` over UDS: every
+   demand flight served by the peer (the ledger's cause and tier rows),
+   registry GETs only for readahead windows A never fetched; with A's
+   server stopped, ``FETCH_AFTER_READS`` new files fall back to the
+   registry, still equal. Node C's ``PrefetchReplayer`` warms the
+   bootstrap's prefetch table at the prefetch lane; its files then read as
+   hits. ``compile_heat`` on A's ledger writes a ``.heat`` artifact that
+   ``load_or_adopt_heat`` adopts in a fresh cache dir with equal extents.
+   ``CacheManager`` counts A's and C's entries with their companions, and
+   ``gc_watermark`` evicts A's under its live ``CachedBlob``, whose next
+   reads re-fetch, still equal. The tar's gzip layer (8 members) reads
+   ``FETCH_SOCI_READS`` files in descending offsets through
+   ``SociStreamReader`` over a ``CachedBlob``, equal to the tar; a second
+   pass fetches nothing. Printed: ms a read, GETs, bytes fetched against
+   requested, coalesced flights and singleflight joins of every pass, with
+   the card's name and power limit.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -3630,6 +3662,18 @@ OCIREF_GZIP_MEMBERS = 8  # the tar compressed as concatenated gzip members, in p
 OCIREF_HOOK_LAYER_MIB = 2
 
 
+def gzip_members(tar: bytes) -> bytes:
+    """The tar as ``OCIREF_GZIP_MEMBERS`` concatenated gzip members (level 1),
+    compressed in parallel."""
+    import gzip
+    from concurrent.futures import ThreadPoolExecutor
+
+    step = -(-len(tar) // OCIREF_GZIP_MEMBERS)
+    with ThreadPoolExecutor(OCIREF_GZIP_MEMBERS) as pool:
+        return b"".join(pool.map(lambda i: gzip.compress(tar[i:i + step], compresslevel=1, mtime=0),
+                                 range(0, len(tar), step)))
+
+
 def ociref_phase(dev, tar, kernels) -> dict:
     """Phase 17: the OCIRef conversion of phase 4's tar as gzip and zstd
     layers on the card's digest kernels, lazy reads, Unpack, and the
@@ -4708,7 +4752,6 @@ def formats_phase(dev, tar: bytes, kernels) -> dict:
     small = {n: d for n, d in files.items() if len(d) <= FORMATS_ESTARGZ_MAX}
     est_files = dict(list(small.items())[:FORMATS_ESTARGZ_FILES])
     t0 = time.perf_counter()
-    step = -(-len(tar) // OCIREF_GZIP_MEMBERS)
     single_tar = named_tar([(f"one/f{i}.bin", np.frombuffer(d, dtype=np.uint8))
                             for i, d in enumerate(list(files.values())[:64])])
     make_s = {}
@@ -4719,14 +4762,9 @@ def formats_phase(dev, tar: bytes, kernels) -> dict:
         make_s[name] = time.perf_counter() - t
         return out
 
-    def gzip_members():
-        with ThreadPoolExecutor(OCIREF_GZIP_MEMBERS) as members:
-            return b"".join(members.map(lambda i: gzip.compress(tar[i:i + step], compresslevel=1, mtime=0),
-                                        range(0, len(tar), step)))
-
     with ThreadPoolExecutor(5) as pool:  # each layer on a thread; gzip and eStargz fan out again
         jobs = {"estargz": pool.submit(timed, "estargz", estargz_blob, est_files),
-                "gzip": pool.submit(timed, "gzip", gzip_members),
+                "gzip": pool.submit(timed, "gzip", gzip_members, tar),
                 "seekable": pool.submit(timed, "seekable", zframe.write_seekable, tar, FORMATS_FRAME_USIZE, 3),
                 "chunked": pool.submit(timed, "chunked", ztoc.write_zstd_chunked, files),
                 "single": pool.submit(timed, "single", zstd.compress_block, single_tar, 3)}
@@ -4968,20 +5006,359 @@ def formats_phase(dev, tar: bytes, kernels) -> dict:
     return out
 
 
+FETCH_READS = 256  # seeded files node A reads cold and warm, node B through the peer
+FETCH_AFTER_READS = 64  # more seeded files node B reads once the peer is gone
+FETCH_THREADS = 8
+FETCH_PREFETCH_FILES = 64  # the pack's prefetch table
+FETCH_SOCI_READS = 64  # gzip-layer files read backward through SociStreamReader over a CachedBlob
+FETCH_REPO = "library/fetch"
+
+
+def fetch_phase(dev, tar: bytes, kernels) -> dict:
+    """Phase 21: the daemon's fetch side over blobs packed on the card. The
+    tar's fused lz4 pack (K1, K2 once each; equal to the hybrid lane's) is
+    served by an in-process registry with ``Range``; node A reads seeded
+    files cold through ``CachedBlob`` over ``RegistryBlobFetcher`` from 8
+    threads, then warm; node B reads them through ``PeerAwareFetcher`` from
+    A's ``PeerChunkServer`` and falls back to the registry once A's server
+    stops; node C replays the bootstrap's prefetch table; A's ledger
+    compiles a ``.heat`` artifact a fresh cache dir adopts; ``CacheManager``
+    accounts both caches and evicts A's entry under its live ``CachedBlob``;
+    the tar's gzip layer reads backward through ``SociStreamReader`` over a
+    ``CachedBlob``."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    from nydus_snapshotter_tpu_torch import cache, provenance
+    from nydus_snapshotter_tpu_torch.converter import PackOption, convert, pack_layer
+    from nydus_snapshotter_tpu_torch.daemon import blobcache, fetch_sched, peer
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.soci import SociStreamReader
+    from nydus_snapshotter_tpu_torch.soci import blob as soci_blob
+    from nydus_snapshotter_tpu_torch.soci import zran as soci_zran
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    cfg = fetch_sched.FetchConfig()
+    if (cfg.fetch_workers, cfg.merge_gap, cfg.readahead, cfg.budget_bytes) != (4, 128 << 10, 1 << 20, 64 << 20):
+        raise AssertionError(f"the fetch scheduler's defaults moved: {cfg}")
+    if not soci_zran.available():
+        raise AssertionError("the system libz lacks inflatePrime: the gzip index cannot run")
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, {key: k.launches for key, k in kernels.items()}
+
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        members = [m for m in tf if m.isreg()]
+    files = {"/" + m.name: tar[m.offset_data:m.offset_data + m.size] for m in members}
+    rng = np.random.default_rng(SEED + 21)
+    nonempty = [n for n in files if files[n]]
+    prefetch = [nonempty[i] for i in sorted(rng.choice(len(nonempty), FETCH_PREFETCH_FILES, replace=False))]
+
+    # -- 1. pack on the card -----------------------------------------------------
+    opt = dict(chunk_size=CHUNK_SIZE, compressor="lz4_block", prefetch_patterns="\n".join(prefetch))
+    (blob_f, res_f), pack_s, launches = counted(
+        lambda: pack_layer(tar, PackOption(backend="fused", **opt), device=dev))
+    want_l = {k: 0 for k in kernels}
+    want_l.update(gear=1, sha=1)
+    if launches != want_l:
+        raise AssertionError(f"the fused lz4 pack launched {launches}; want {want_l}")
+    (blob_h, res_h), hybrid_s, launched_h = counted(
+        lambda: pack_layer(tar, PackOption(backend="hybrid", **opt)))
+    if any(launched_h.values()):
+        raise AssertionError(f"the hybrid pack launched {launched_h}")
+    if (blob_f, res_f.bootstrap, res_f.blob_id) != (blob_h, res_h.bootstrap, res_h.blob_id):
+        raise AssertionError("the fused and hybrid lz4 packs differ")
+    data = convert.blob_data_from_layer_blob(blob_f)
+    blob_id = res_f.blob_id
+    if hashlib.sha256(data).hexdigest() != blob_id:
+        raise AssertionError("the blob id is not the data section's SHA-256")
+    bs = Bootstrap.from_bytes(res_f.bootstrap)
+    if list(bs.prefetch) != prefetch:
+        raise AssertionError(f"the bootstrap's prefetch table holds {len(bs.prefetch)} paths, not the pattern's")
+    by_path = {i.path: i for i in bs.inodes}
+    readable = [i for i in bs.inodes if i.chunk_count and not i.hardlink_target and i.path in files]
+    pick = rng.choice(len(readable), FETCH_READS + FETCH_AFTER_READS, replace=False)
+    reads = [readable[k] for k in pick[:FETCH_READS]]
+    after = [readable[k] for k in pick[FETCH_READS:]]
+    log(f"[21] fused lz4 pack on the card {pack_s:.2f} s (launches {launches}), == the hybrid lane "
+        f"({hybrid_s:.2f} s, no launch): {len(data)} byte blob {blob_id[:16]}.., {len(bs.chunks)} chunks, "
+        f"prefetch table of {len(bs.prefetch)} files")
+
+    reg = OciRegistry()
+    reg.add_blob(data)
+    backend = SimpleNamespace(host=reg.host, repo=FETCH_REPO, scheme="http", auth="", skip_verify=False,
+                              mirrors=[])
+
+    def gets(digest_hex: str = blob_id) -> int:
+        return sum(1 for r in reg.requests if r.startswith("GET ") and f"/blobs/sha256:{digest_hex}" in r)
+
+    def delta(before: dict) -> dict:
+        now = fetch_sched.snapshot_counters()
+        return {k: now[k] - before[k] for k in ("hit_bytes", "miss_bytes", "fetch_requests",
+                                                "coalesced_requests", "readahead_bytes",
+                                                "singleflight_waits", "prefetch_bytes")}
+
+    def settle(cb) -> None:
+        """Wait out the readahead flights a pass left in flight, so its
+        counters and GETs are read whole."""
+        while cb.sched.overlapping_flights(0, cb.blob_size):
+            time.sleep(0.001)
+
+    def read_files(cb, inodes, threads: int = FETCH_THREADS) -> dict:
+        """Each file chunk by chunk through its compressed extents
+        (``BlobReader.chunk_data`` over ``cb.read_at``), one reader a thread."""
+
+        def work(k):
+            reader = convert.BlobReader(bs, 0, cb.read_at)
+            out = []
+            for ino in inodes[k::threads]:
+                recs = bs.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]
+                t0 = time.perf_counter()
+                got = b"".join(reader.chunk_data(r) for r in recs)
+                dt = time.perf_counter() - t0
+                if got != files[ino.path]:
+                    raise AssertionError(f"{ino.path}: the chunks do not decompress to the tar's bytes")
+                out.append((dt, sum(r.compressed_size for r in recs), len(recs)))
+            return out
+
+        c0, g0, t0 = fetch_sched.snapshot_counters(), gets(), time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            per = [x for part in pool.map(work, range(threads)) for x in part]
+        wall = time.perf_counter() - t0
+        settle(cb)
+        return {"files": len(per), "chunks": sum(p[2] for p in per), "wall_s": wall,
+                "ms_per_read": 1e3 * sum(p[0] for p in per) / len(per),
+                "requested_bytes": sum(p[1] for p in per), "gets": gets() - g0, **delta(c0)}
+
+    def fmt(r: dict) -> str:
+        return (f"{r['files']} files / {r['chunks']} chunks in {r['wall_s']:.3f} s, {r['ms_per_read']:.3f} "
+                f"ms a read, {r['gets']} GETs, {r['miss_bytes']} bytes fetched for {r['requested_bytes']} "
+                f"requested ({r['hit_bytes']} hit), {r['fetch_requests']} flights ({r['coalesced_requests']} "
+                f"coalesced, {r['readahead_bytes']} readahead bytes), {r['singleflight_waits']} singleflight joins")
+
+    # The caches live on tmpfs: on a 9p root (the card machine's) an open
+    # file keeps st_nlink 1 after its unlink, so a CachedBlob cannot see a
+    # watermark eviction (PERF.md §7); a node's local disk behaves as tmpfs.
+    w = Path(tempfile.mkdtemp(prefix="ntpu-fetch-", dir="/dev/shm" if os.path.isdir("/dev/shm") else None))
+    sockdir = tempfile.mkdtemp(prefix="f", dir="/tmp")
+    out: dict = {"launches": launches, "pack_s": pack_s, "hybrid_pack_s": hybrid_s, "blob_bytes": len(data),
+                 "chunks": len(bs.chunks), "config": dataclasses.asdict(cfg)}
+    opened = []
+    try:
+        # -- 2. node A, cold then warm -------------------------------------------
+        # The ledger is process-wide and keyed by blob id: each node's
+        # conservation is read between resets. A node that coalesces nothing
+        # (merge_gap 0) reads first: no byte may be fetched twice there. At
+        # the defaults a flight coalesced across a hole that is cached or in
+        # flight fetches that hole again; those bytes are counted, not refused.
+        cold = {}
+        for arm, arm_cfg in (("merge_gap_0", dataclasses.replace(cfg, merge_gap=0)), ("defaults", cfg)):
+            provenance.reset()
+            cb = blobcache.CachedBlob(str(w / ("a" if arm == "defaults" else "a0")), blob_id,
+                                      blobcache.RegistryBlobFetcher(backend, blob_id).read_range,
+                                      blob_size=len(data), config=arm_cfg)
+            opened.append(cb)
+            r = read_files(cb, reads)
+            cons = provenance.conservation(blob_id)
+            r["ledger_fetched_bytes"] = cons["fetched_bytes"]
+            r["duplicate_bytes"] = cons["fetched_bytes"] - cb.coverage_bytes()
+            if not cons["exact"] or cons["fetched_bytes"] != r["miss_bytes"]:
+                raise AssertionError(f"node A ({arm}): the ledger does not conserve the fetched bytes: {cons}, {r}")
+            if r["gets"] != r["fetch_requests"]:
+                raise AssertionError(f"node A ({arm}): {r['gets']} GETs for {r['fetch_requests']} flights")
+            if arm == "merge_gap_0" and (r["duplicate_bytes"] or r["coalesced_requests"]):
+                raise AssertionError(f"node A (merge_gap 0) fetched {r['duplicate_bytes']} bytes twice")
+            log(f"[21] node A cold, {arm}: {fmt(r)}; the ledger conserves {cons['fetched_bytes']} bytes, "
+                f"{r['duplicate_bytes']} of them fetched twice")
+            cold[arm] = r
+        cb_a = opened[-1]
+        warm = read_files(cb_a, reads)
+        if warm["hit_bytes"] != warm["requested_bytes"] or warm["miss_bytes"] != warm["readahead_bytes"]:
+            raise AssertionError(f"node A's second pass missed: {warm}")
+        if warm["gets"] != warm["fetch_requests"]:
+            raise AssertionError(f"node A's second pass: {warm['gets']} GETs for {warm['fetch_requests']} "
+                                 "readahead flights")
+        log(f"[21] node A warm: {fmt(warm)} (every read a hit; any GET is a readahead flight)")
+        out.update(cold=cold["defaults"], cold_merge_gap_0=cold["merge_gap_0"], warm=warm)
+        art = provenance.compile_heat(blob_id, str(w / "a"), source_size=len(data))
+        if art is None or not art.extents:
+            raise AssertionError("node A's ledger compiled no heat artifact")
+
+        # -- 3. node B through A's chunk server, then without it -----------------
+        sock_a = os.path.join(sockdir, "a.sock")
+        export = peer.PeerExport()
+        export.register(blob_id, cb_a)
+        server = peer.PeerChunkServer(export, pull_through=False)
+        server.run(sock_a)
+        # Node B serves no region itself (no self address): every extent's
+        # owner is A, a cover-only server. B's readahead windows are its own
+        # (the 8 threads interleave differently than on A), so a window A
+        # never fetched falls back to the registry; a demand read never may.
+        origin_b = blobcache.RegistryBlobFetcher(backend, blob_id)
+        router = peer.PeerRouter([sock_a])
+        cb_b = blobcache.CachedBlob(str(w / "b"), blob_id,
+                                    peer.PeerAwareFetcher(blob_id, origin_b.read_range, router).read_range,
+                                    blob_size=len(data), config=cfg)
+        opened.append(cb_b)
+        provenance.reset()
+        p0 = peer.FETCH_BYTES.value()
+        via_peer = read_files(cb_b, reads)
+        via_peer["peer_bytes"] = peer.FETCH_BYTES.value() - p0
+        rows = provenance.waterfall(blob_id)
+        server.stop()
+        by = {}
+        for r in rows:
+            key = (r["cause"], r["tier"] or "registry")
+            by[key] = by.get(key, 0) + r["bytes"]
+        via_peer["bytes_by_cause_and_tier"] = {f"{c}/{t}": n for (c, t), n in sorted(by.items())}
+        demand_origin = sum(n for (c, t), n in by.items() if c == "demand" and t != peer.TIER_FLAT)
+        origin_rows = [r for r in rows if r["tier"] != peer.TIER_FLAT]
+        if len(rows) != via_peer["fetch_requests"] or sum(r["bytes"] for r in rows) != via_peer["miss_bytes"]:
+            raise AssertionError(f"node B's ledger rows do not match its flights: {len(rows)}, {via_peer}")
+        if demand_origin or via_peer["gets"] != len(origin_rows):
+            raise AssertionError(f"node B's demand reads went to the registry: {via_peer}")
+        if via_peer["peer_bytes"] != sum(r["bytes"] for r in rows if r["tier"] == peer.TIER_FLAT):
+            raise AssertionError(f"node B's peer bytes disagree with its ledger: {via_peer}")
+        log(f"[21] node B through A's PeerChunkServer (UDS): {fmt(via_peer)}; bytes by cause/tier "
+            f"{via_peer['bytes_by_cause_and_tier']} (every demand flight from the peer)")
+        g0 = gets()
+        fallback = read_files(cb_b, after)
+        if fallback["gets"] == 0 or gets() == g0:
+            raise AssertionError("node B read uncached extents with the peer gone and made no GET")
+        log(f"[21] node B with A's server stopped, {FETCH_AFTER_READS} new files: {fmt(fallback)}")
+        out.update(peer=via_peer, origin_fallback=fallback)
+
+        # -- 4. node C: prefetch replay, heat adoption ---------------------------
+        cb_c = blobcache.CachedBlob(str(w / "c"), blob_id, blobcache.RegistryBlobFetcher(backend, blob_id).read_range,
+                                    blob_size=len(data), config=cfg)
+        opened.append(cb_c)
+
+        def warm_chunk(rec) -> int:
+            flights = cb_c.warm(rec.compressed_offset, rec.compressed_size)
+            for f in flights:
+                f.wait()
+            return 0 if any(f.error for f in flights) else rec.compressed_size
+
+        replayer = fetch_sched.PrefetchReplayer(bs, by_path, warm_chunk, on_file=cb_c.flush_map)
+        c0, g0, t0 = fetch_sched.snapshot_counters(), gets(), time.perf_counter()
+        warmed = replayer.replay(list(bs.prefetch))
+        replay = {"s": time.perf_counter() - t0, "warmed_bytes": warmed, "files": replayer.files_replayed,
+                  "gets": gets() - g0, **delta(c0)}
+        if replayer.files_replayed != len(bs.prefetch) or replay["prefetch_bytes"] != warmed:
+            raise AssertionError(f"prefetch replay: {replay}")
+        pf_inodes = [by_path[p] for p in bs.prefetch if by_path[p].chunk_count and not by_path[p].hardlink_target]
+        after_replay = read_files(cb_c, pf_inodes)
+        if (after_replay["hit_bytes"] != after_replay["requested_bytes"]
+                or after_replay["miss_bytes"] != after_replay["readahead_bytes"]):
+            raise AssertionError(f"reads after the prefetch replay missed: {after_replay}")
+        heat_dir = w / "fresh"
+        heat_dir.mkdir()
+        raw_heat = Path(provenance.heat_path(str(w / "a"), blob_id)).read_bytes()
+        adopted = provenance.load_or_adopt_heat([str(heat_dir)], blob_id, source_size=len(data),
+                                                fetch_remote=lambda: raw_heat)
+        if adopted is None or adopted.extents != art.extents:
+            raise AssertionError("the adopted heat artifact's extents differ from node A's")
+        log(f"[21] node C: PrefetchReplayer warmed {warmed} bytes of {replayer.files_replayed} files at the "
+            f"prefetch lane in {replay['s']:.3f} s ({replay['gets']} GETs, {replay['fetch_requests']} flights); "
+            f"then {fmt(after_replay)}; A's .heat ({len(raw_heat)} bytes, {len(art.extents)} extents, "
+            f"{art.total_bytes()} bytes) adopted in a fresh cache dir with equal extents")
+        out.update(prefetch_replay=replay, after_replay=after_replay,
+                   heat={"bytes": len(raw_heat), "extents": len(art.extents), "heat_bytes": art.total_bytes()})
+
+        # -- 5. the cache manager: accounting, eviction under a live CachedBlob ----
+        usage = {}
+        for node, cb in (("a", cb_a), ("c", cb_c)):
+            cb.flush_map()
+            mgr = cache.CacheManager(str(w / node))
+            present = [n for n in os.listdir(w / node) if n.startswith(blob_id)]
+            got = mgr.cache_usage(blob_id)
+            size = sum(os.lstat(w / node / n).st_size for n in present)
+            if (got.inodes, got.size) != (len(present), size):
+                raise AssertionError(f"node {node}: CacheManager counts {got}, the dir holds {present}")
+            usage[node] = {"inodes": got.inodes, "bytes": got.size, "files": sorted(n[64:] for n in present)}
+        if ".heat" not in usage["a"]["files"]:
+            raise AssertionError(f"node A's entry lacks its .heat companion: {usage['a']}")
+        ev0 = fetch_sched.EVICTED_BYTES.value()
+        removed = cache.CacheManager(str(w / "a")).gc_watermark(1)
+        evicted = fetch_sched.EVICTED_BYTES.value() - ev0
+        if sorted(os.path.basename(p)[64:] for p in removed) != usage["a"]["files"] or evicted != usage["a"]["bytes"]:
+            raise AssertionError(f"the watermark eviction removed {removed} ({evicted} bytes)")
+        # The entry is gone: a byte this pass hits was fetched again in it.
+        again = read_files(cb_a, reads[:FETCH_THREADS * 4])
+        if again["gets"] == 0 or again["hit_bytes"] > again["miss_bytes"]:
+            raise AssertionError(f"node A's reads after the eviction did not re-fetch: {again}")
+        log(f"[21] CacheManager: node A {usage['a']}, node C {usage['c']}; gc_watermark(1) evicted A's "
+            f"{len(removed)} files ({evicted} bytes) under its live CachedBlob; its next reads: {fmt(again)}")
+        out.update(cache_usage=usage, evicted_files=len(removed), after_eviction=again)
+
+        # -- 6. soci over the cache: the gzip layer read backward -------------------
+        t0 = time.perf_counter()
+        gz = gzip_members(tar)
+        gz_id = reg.add_blob(gz).split(":")[1]
+        idx, _ = soci_blob.build_index_from_gzip(gz_id, gz)
+        t_idx = time.perf_counter() - t0
+        cb_s = blobcache.CachedBlob(str(w / "s"), gz_id, blobcache.RegistryBlobFetcher(backend, gz_id).read_range,
+                                    blob_size=len(gz), config=cfg)
+        opened.append(cb_s)
+        reader = SociStreamReader(idx, cb_s.read_at)
+        names = sorted(idx.files)
+        chosen = [names[k] for k in np.random.default_rng(SEED + 22).choice(len(names), FETCH_SOCI_READS,
+                                                                             replace=False)]
+        chosen.sort(key=lambda n: -idx.files[n][0])
+        passes = []
+        for _ in range(2):
+            c0, g0, t0, per = fetch_sched.snapshot_counters(), gets(gz_id), time.perf_counter(), []
+            for n in chosen:
+                uoff, usize = idx.files[n]
+                t1 = time.perf_counter()
+                if reader.read_range(uoff, usize) != tar[uoff:uoff + usize] or tar[uoff:uoff + usize] != files[n]:
+                    raise AssertionError(f"{n}: the gzip layer's read through the cache differs from the tar")
+                per.append(time.perf_counter() - t1)
+            passes.append({"s": time.perf_counter() - t0, "ms_per_read": 1e3 * sum(per) / len(per),
+                           "gets": gets(gz_id) - g0, **delta(c0)})
+        if passes[1]["miss_bytes"] or passes[1]["gets"]:
+            raise AssertionError(f"the second soci pass fetched: {passes[1]}")
+        log(f"[21] soci: the gzip layer ({len(gz)} bytes, {OCIREF_GZIP_MEMBERS} members; index of "
+            f"{len(idx.checkpoints)} checkpoints built with the layer in {t_idx:.2f} s) read backward, "
+            f"{FETCH_SOCI_READS} files == the tar through SociStreamReader over a CachedBlob: first pass "
+            f"{passes[0]['ms_per_read']:.3f} ms a read, {passes[0]['gets']} GETs, {passes[0]['miss_bytes']} "
+            f"bytes; second pass {passes[1]['ms_per_read']:.3f} ms a read, 0 GETs, 0 bytes")
+        out["soci"] = {"layer_bytes": len(gz), "index_s": t_idx, "passes": passes}
+    finally:
+        for cb in opened:
+            cb.close()
+        reg.close()
+        shutil.rmtree(w, ignore_errors=True)
+        shutil.rmtree(sockdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["device"] = smi
+    log(f"[21] {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
     if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"], ["--registry-only"],
-                    ["--formats-only"]):
+                    ["--formats-only"], ["--fetch-only"]):
         print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only | --registry-only | "
-              "--formats-only]", file=sys.stderr)
+              "--formats-only | --fetch-only]", file=sys.stderr)
         return 2
     mesh_only = args == ["--mesh-only"]
     ha_only = args == ["--ha-only"]
     convert_only = args == ["--convert-only"]
     registry_only = args == ["--registry-only"]
     formats_only = args == ["--formats-only"]
+    fetch_only = args == ["--fetch-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -5274,6 +5651,14 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                   "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if fetch_only:  # phases 0-3, then 21 on phase 4's tar
+        fe = fetch_phase(dev, layer_tar(FileGen(SEED + 3).pool(PACK_MIB)), all_kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--fetch-only: phases 0-3 and 21)")
+        print(smi, flush=True)
+        print(json.dumps({"fetch": fe}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -5468,6 +5853,9 @@ def main() -> int:
     # -- 20. the lazy formats: soci routes, indexes and readers, stargz, referrer --
     fm = formats_phase(dev, tar, all_kernels)
 
+    # -- 21. the lazy fetch side: blob cache, peer tier, prefetch, heat, cache manager --
+    fe = fetch_phase(dev, tar, all_kernels)
+
     def formats_launches(*keys):  # phase 20: per card ref pack; the adaptor path launches none
         out = {name: sum(p["launches"].get(k, 0) for k in keys) for name, p in fm["packs"].items()}
         out["adaptor_prepare_and_merge"] = 0
@@ -5525,7 +5913,7 @@ def main() -> int:
             image_batch_launches=images["launches"]["gear"], image_batch_layers=images["layers"],
             codec_cipher_launches=cc_launches("gear"), mesh_launches=mesh_launches("gear"),
             ha_batch_launches=ha["batch_launches"]["gear"], ociref_launches=ociref_launches("gear"),
-            convert_launches=convert_launches("gear"),
+            convert_launches=convert_launches("gear"), fetch_launches=fe["launches"]["gear"],
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -5543,7 +5931,7 @@ def main() -> int:
             ha_batch_launches=ha["batch_launches"]["sha"], ociref_launches=ociref_launches("sha"),
             convert_launches=convert_launches("sha"),
             tarfs_manager_launches=tm["launches"].get("sha", 0), tarfs_manager_layers=tm["layers"],
-            formats_launches=formats_launches("sha"),
+            formats_launches=formats_launches("sha"), fetch_launches=fe["launches"]["sha"],
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -5554,7 +5942,7 @@ def main() -> int:
             growth_launches_per_lookup=growth["launches_per_lookup"],
             service_probe_launches=service["probe_launches"],
             fused_after_insert_launches=fused_grown["launches"]["probe"],
-            mesh_launches=mesh_launches("probe"),
+            mesh_launches=mesh_launches("probe"), fetch_launches=fe["launches"]["probe"],
             ha_replica_probe_launches=ha["replica_probe_launches"],
             ha_promoted_probe_launches=ha["promoted_probe_launches"],
             ha={k: v for k, v in ha.items() if k != "batch_launches"},
@@ -5585,6 +5973,7 @@ def main() -> int:
             ociref_launches=ociref_launches("b3_leaves", "b3_parents"),
             convert_launches=convert_launches("b3_leaves", "b3_parents"),
             formats_launches=formats_launches("b3_leaves", "b3_parents"),
+            fetch_launches=fe["launches"]["b3_leaves"] + fe["launches"]["b3_parents"],
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

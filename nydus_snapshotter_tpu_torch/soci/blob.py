@@ -6,7 +6,8 @@ gzip-stream blob when a persisted index exists: ``read_range`` resolves a
 decompressed extent to its compressed byte range through the index
 geometry, pulls exactly those bytes through the caller-supplied
 compressed-domain reader — a registry-backed
-blob cache's ``read_at`` in the deployed stack, so singleflight, coalescing, readahead, watermark
+:class:`~nydus_snapshotter_tpu_torch.daemon.blobcache.CachedBlob`'s ``read_at``
+in the deployed stack, so singleflight, coalescing, readahead, watermark
 eviction, the peer tier and QoS admission all apply untouched — and
 inflates from the nearest checkpoint. Unlike the in-process
 ``GzipStreamReader`` it replaces, every call owns its own inflate state:
@@ -141,16 +142,10 @@ def _global_soci_config():
         return None
 
 
-def _env_int(name: str, default: int) -> int:
-    try:
-        v = int(os.environ.get(name, ""))
-        return v if v >= 0 else default
-    except ValueError:
-        return default
-
-
 def resolve_soci_config() -> SociRuntimeConfig:
     """env (``NTPU_SOCI*``) > ``[soci]`` global config > defaults."""
+    from nydus_snapshotter_tpu_torch.daemon.fetch_sched import _env_int
+
     sc = _global_soci_config()
 
     def _bool(name: str, default: bool) -> bool:

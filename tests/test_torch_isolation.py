@@ -377,6 +377,49 @@ _CHILD = textwrap.dedent(
         rafs = type("R", (), {"snapshot_dir": os.path.join(t, "s", "1"), "mountpoint": "", "annotations": {}})()
         mgr.mount_tar_erofs("1", snap, labels, rafs)
         mgr.umount_tar_erofs("1"); mgr.detach_layer("1")
+    # the fetch side: a CachedBlob over RegistryBlobFetcher against the
+    # registry above, its ledger and heat; a peer server and the waterfall
+    # fetcher over UDS; prefetch replay; the cache manager; the SLO loop
+    from types import SimpleNamespace
+    from nydus_snapshotter_tpu_torch import cache, daemon, prefetch, provenance
+    from nydus_snapshotter_tpu_torch.daemon import blobcache, fetch_sched, peer
+    from nydus_snapshotter_tpu_torch.metrics import slo
+    from nydus_snapshotter_tpu_torch.metrics.registry import Histogram, Registry
+    gzb = blobs[ldig]
+    lhex = ldig.split(":")[1]
+    fetcher = blobcache.RegistryBlobFetcher(SimpleNamespace(host=host, repo="x/y", scheme="http", auth="",
+                                                            skip_verify=False, mirrors=[]), lhex)
+    with tempfile.TemporaryDirectory(prefix="i", dir="/tmp") as t:
+        cb = blobcache.CachedBlob(os.path.join(t, "a"), lhex, fetcher.read_range, blob_size=len(gzb))
+        assert cb.read_at(3, 40) == gzb[3:43] and cb.read_at(0, len(gzb)) == gzb
+        cons = provenance.conservation(lhex)
+        assert cons["exact"] and cons["fetched_bytes"] >= cb.coverage_bytes() == len(gzb)
+        assert provenance.compile_heat(lhex, os.path.join(t, "a"), source_size=len(gzb)) is not None
+        assert provenance.load_or_adopt_heat([os.path.join(t, "a")], lhex, source_size=len(gzb))
+        export = peer.PeerExport(); export.register(lhex, cb)
+        server = peer.PeerChunkServer(export, pull_through=False)
+        server.run(os.path.join(t, "p.sock"))
+        router = peer.PeerRouter([os.path.join(t, "p.sock")], region_bytes=4096)
+        pf = peer.PeerAwareFetcher(lhex, lambda o, n: 1 / 0, router)
+        cb2 = blobcache.CachedBlob(os.path.join(t, "b"), lhex, pf.read_range, blob_size=len(gzb))
+        assert cb2.read_at(0, len(gzb)) == gzb
+        server.stop(); cb2.close()
+        rec = SimpleNamespace(compressed_offset=0, compressed_size=16)
+        bs = SimpleNamespace(chunks=[rec])
+        ino = SimpleNamespace(chunk_index=0, chunk_count=1, hardlink_target="")
+        warm = lambda r: ([f.wait() for f in cb.warm(r.compressed_offset, r.compressed_size)], 16)[1]
+        assert fetch_sched.PrefetchReplayer(bs, {"/f": ino}, warm).replay(["/f"]) == 16
+        cb.close()
+        mgr = cache.CacheManager(os.path.join(t, "a"))
+        assert mgr.cache_usage(lhex).inodes == 3
+        mgr.gc_watermark(1)
+        assert mgr.cache_usage(lhex).inodes == 0
+    assert prefetch.Pm.paths_for("none") == [] and daemon.DaemonState
+    hist = Histogram("op_ms", "t", buckets=(100,)); reg = Registry(); reg.register(hist)
+    eng = slo.SloEngine([slo.SloObjective(name="o", metric="op_ms", threshold_ms=100.0, target=0.9,
+                                          window_secs=10.0)], source=slo.local_source(reg))
+    eng.tick()
+    slo.SloActuator(eng, gate=fetch_sched.AdmissionGate(name="iso")).tick()
     srv.shutdown(); srv.server_close()
     # the lazy formats: a gzip layer routed, indexed and prepared by the
     # soci adaptor, its index reloaded and read; a seekable zstd layer

@@ -65,6 +65,9 @@ PORTED_SITES = {
     "compress.batch", "ha.place", "ha.replicate", "ha.promote",
     "transport.probe", "transport.resolve", "transport.fetch_blob",
     "soci.index", "soci.resolve", "soci.fetch",
+    "blobcache.fetch", "blobcache.coalesce", "blobcache.readahead", "blobcache.evict",
+    "blobcache.replay", "peer.serve", "peer.fetch", "peer.admit", "peer.member", "peer.tier",
+    "peer.hedge", "prov.record", "prov.compile", "prov.adopt", "slo.actuate", "soak.scaleup",
 }
 
 
@@ -471,9 +474,142 @@ DRIVERS = {
 }
 
 
+def _fetch_side(pkg):
+    import importlib
+
+    root = "nydus_snapshotter_tpu_torch" if pkg == "port" else "nydus_snapshotter_tpu"
+    return SimpleNamespace(**{name: importlib.import_module(f"{root}.{mod}") for name, mod in (
+        ("blobcache", "daemon.blobcache"), ("fs", "daemon.fetch_sched"), ("peer", "daemon.peer"),
+        ("prov", "provenance"), ("cache", "cache.manager"), ("slo", "metrics.slo"))})
+
+
+FETCH_BLOB = np.random.default_rng(18).integers(0, 256, 64 << 10, dtype=np.uint8).tobytes()
+
+
+def _drive_blobcache(pkg, tmp_path):
+    """A read that plans a fetch, one that coalesces two gaps around a
+    cached hole, and a sequential one that plans readahead."""
+    m = _fetch_side(pkg)
+    cb = m.blobcache.CachedBlob(str(tmp_path / pkg), "fc" * 32, lambda o, n: FETCH_BLOB[o:o + n],
+                                blob_size=len(FETCH_BLOB),
+                                config=m.fs.FetchConfig(fetch_workers=1, merge_gap=4096, readahead=4096))
+    try:
+        for off, n in ((1000, 10), (0, 3000), (3000, 100)):
+            try:
+                cb.read_at(off, n)
+            except OSError:
+                pass
+    finally:
+        cb.close()
+
+
+def _drive_evict(pkg, tmp_path):
+    d = tmp_path / pkg
+    d.mkdir(exist_ok=True)
+    (d / ("ee" * 32 + ".blob.data")).write_bytes(b"x" * 100)
+    _fetch_side(pkg).cache.CacheManager(str(d)).gc_watermark(1)
+
+
+def _drive_replay(pkg, tmp_path):
+    ino = SimpleNamespace(chunk_index=0, chunk_count=1, hardlink_target="")
+    bs = SimpleNamespace(chunks=[SimpleNamespace(compressed_offset=0, compressed_size=1)])
+    _fetch_side(pkg).fs.PrefetchReplayer(bs, {"/a": ino}, lambda rec: 1).replay(["/a"])
+
+
+def _drive_peer(pkg, tmp_path):
+    """A serve request, and a waterfall read whose peer is gone."""
+    m = _fetch_side(pkg)
+    export = m.peer.PeerExport()
+    m.peer.PeerChunkServer(export, pull_through=False).handle(
+        "GET", f"/api/v1/peer/blob/{'ab' * 32}?offset=0&size=10", {})
+    router = m.peer.PeerRouter([str(tmp_path / "gone.sock")])
+    m.peer.PeerAwareFetcher("ab" * 32, lambda o, n: FETCH_BLOB[o:o + n], router).read_range(0, 10)
+
+
+def _drive_admit(pkg, tmp_path):
+    m = _fetch_side(pkg)
+    gate = m.fs.AdmissionGate(budget=m.fs.MemoryBudget(1 << 20), name="site")
+    gate.acquire(10)
+    gate.release(10)
+
+
+def _drive_member(pkg, tmp_path):
+    _fetch_side(pkg).peer.PeerMembership(seed=["/tmp/s.sock"], fetch=lambda: [], refresh_secs=0.0).addresses()
+
+
+def _drive_hedge(pkg, tmp_path):
+    m = _fetch_side(pkg)
+    h = m.fs.Hedger(gate=m.fs.AdmissionGate(budget=m.fs.MemoryBudget(1 << 20), name="site"), name="site")
+    for _ in range(m.fs.HEDGE_MIN_SAMPLES + 5):
+        h.record("rack", 1.0)
+    h.fetch(64, "rack", lambda: (time.sleep(0.03), b"P")[1], "zone", lambda: b"H")
+
+
+def _drive_prov(pkg, tmp_path):
+    prov = _fetch_side(pkg).prov
+    bid = "9d" * 32
+    prov.record_fetch(bid, 0, 10, prov.CAUSE_DEMAND)
+    prov.record_read(bid, 0, 10)
+    prov.compile_heat(bid, str(tmp_path))
+    prov.load_or_adopt_heat([], bid, fetch_remote=lambda: b"")
+
+
+def _drive_slo(pkg, tmp_path):
+    m = _fetch_side(pkg)
+    engine = SimpleNamespace(breached=lambda: ["o"], max_burn_short=lambda: 9.0,
+                             record_event=lambda *a, **k: {})
+    gate = m.fs.AdmissionGate(budget=m.fs.MemoryBudget(1 << 20), name="site")
+    try:
+        m.slo.SloActuator(engine, gate=gate).tick()
+    except OSError:
+        pass
+    engine.breached = lambda: []
+    m.slo.SloScaleUp(engine, lambda: {"queued": 9}, lambda n: None).tick()
+
+
+# The fetch side's sites: most are contained by design (a failed readahead,
+# replay file, attribution, heat compile or adoption, membership refresh,
+# peer tier or hedge degrades and the read goes on), so their cases arm a
+# site, drive it and count its one fire rather than expect an error.
+FETCH_DRIVERS = {
+    "blobcache.fetch": _drive_blobcache,
+    "blobcache.coalesce": _drive_blobcache,
+    "blobcache.readahead": _drive_blobcache,
+    "blobcache.evict": _drive_evict,
+    "blobcache.replay": _drive_replay,
+    "peer.serve": _drive_peer,
+    "peer.fetch": _drive_peer,
+    "peer.tier": _drive_peer,
+    "peer.admit": _drive_admit,
+    "peer.member": _drive_member,
+    "peer.hedge": _drive_hedge,
+    "prov.record": _drive_prov,
+    "prov.compile": _drive_prov,
+    "prov.adopt": _drive_prov,
+    "slo.actuate": _drive_slo,
+    "soak.scaleup": _drive_slo,
+}
+
+
+@pytest.mark.parametrize("site", sorted(FETCH_DRIVERS))
+def test_each_fetch_side_site_fires_in_both_packages(tmp_path, site):
+    assert set(DRIVERS) | set(FETCH_DRIVERS) == PORTED_SITES
+    for pkg in ("port", "ref"):
+        fp = PKG[pkg].fp
+        fp.inject(site, "error(OSError:site-chaos)*1")
+        try:
+            FETCH_DRIVERS[site](pkg, tmp_path)
+        except OSError as e:
+            assert "site-chaos" in str(e), (pkg, e)
+        assert fp.counts().get(site) == 1, pkg
+        other = PKG["ref" if pkg == "port" else "port"].fp
+        assert site not in other.counts(), pkg
+        fp.clear()
+
+
 @pytest.mark.parametrize("site", sorted(DRIVERS))
 def test_each_ported_site_fires_in_both_packages(monkeypatch, tmp_path, site):
-    assert set(DRIVERS) == PORTED_SITES
+    assert set(DRIVERS) | set(FETCH_DRIVERS) == PORTED_SITES
     monkeypatch.setenv("NTPU_PACK_THREADS", "4")
     monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
     for pkg in ("port", "ref"):

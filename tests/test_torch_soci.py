@@ -3,12 +3,15 @@ index, the zstd frame index, the zstd:chunked TOC, the indexed stream
 readers, the format router and the adaptor.
 
 Every portable case of tests/test_soci_formats.py and
-tests/test_soci_backend.py runs in both packages (``pkg``). Left out, as
-ROADMAP.md A14/A15 lists, are the cases that need modules the port does
-not have: the peer tier (``daemon.peer``), the blob cache under the
-readers (``daemon.blobcache``, ``daemon.fetch_sched``; the readers run
-here over a plain ``read_at``), ``cache.manager``, the daemon's
-``_Instance`` and the gRPC snapshotter. Cross-package cases feed both
+tests/test_soci_backend.py runs in both packages (``pkg``): the readers
+over a plain ``read_at`` and over the blob cache's ``CachedBlob.read_at``
+(``daemon.blobcache``, ``daemon.fetch_sched``), the index artifacts
+replicated through the peer tier (``daemon.peer``) and the cache
+manager's accounting of the index companions (``cache.manager``). Left
+out, as ROADMAP.md A14(b)/A15 lists, are the cases that need modules the
+port does not have: ``TestChaos::test_daemon_store_chaos_degrades_to_sequential``
+(the serving daemon's ``_Instance``) and ``TestSociOverGrpc`` (the gRPC
+snapshotter). Cross-package cases feed both
 packages the same numpy-seeded layers and hold equal: the index files'
 bytes, a file written by one package and loaded by the other, the
 router's decisions, the parsed TOCs, the adaptor's bootstraps and merged
@@ -26,7 +29,9 @@ import importlib
 import io
 import os
 import random
+import shutil
 import tarfile
+import tempfile
 import threading
 from types import SimpleNamespace
 
@@ -60,6 +65,10 @@ MODULES = {
     "zstd_ref": "converter.zstd_ref",
     "zstd": "utils.zstd",
     "bootstrap": "models.bootstrap",
+    "blobcache": "daemon.blobcache",
+    "fetch_sched": "daemon.fetch_sched",
+    "peer": "daemon.peer",
+    "cache_manager": "cache.manager",
 }
 
 
@@ -1110,3 +1119,293 @@ def test_backward_ref_reads_fetch_one_span(np_layers, fmt):
         lo = recs[0].uncompressed_offset
         assert b"".join(seq.chunk_data(c) for c in recs) == tar[lo : lo + ino.size]
     assert sum(pulled) >= len(blob) / 2
+
+
+# ---------------------------------------------------------------------------
+# The readers over the blob cache, the index artifacts over the peer tier,
+# the cache manager's companions (test_soci_backend.TestPrefetchFromIndex,
+# TestFullStackIdentity, TestPeerReplication, TestChaos; test_soci_formats
+# TestZstdIndexPersistence, TestPeerReplication, TestChaos)
+# ---------------------------------------------------------------------------
+
+CONFIG_MATRIX = [(1, 0, 0), (4, 0, 0), (4, 64 << 10, 256 << 10), (2, 128 << 10, 1 << 20)]
+
+
+def _cached_blob(pkg, tmp_path, blob, blob_id, tag, workers, gap=0, ra=0):
+    return pkg.blobcache.CachedBlob(
+        os.path.join(str(tmp_path), tag),
+        blob_id,
+        _reader_for(blob),
+        blob_size=len(blob),
+        config=pkg.fetch_sched.FetchConfig(fetch_workers=workers, merge_gap=gap, readahead=ra),
+    )
+
+
+@pytest.fixture()
+def peer_server(pkg):
+    export = pkg.peer.PeerExport()
+    server = pkg.peer.PeerChunkServer(export, pull_through=False)
+    sock = os.path.join(tempfile.mkdtemp(prefix="p", dir="/tmp"), "peer.sock")
+    server.run(sock)
+    yield export, server, sock
+    server.stop()
+    shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+
+
+class TestOverCachedBlob:
+    def test_warm_ranges_through_cached_blob_at_prefetch_lane(self, pkg, tmp_path, glayer):
+        raw, gz, contents = glayer
+        idx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        cb = _cached_blob(pkg, tmp_path, gz, GBLOB_ID, "pf", 2)
+        try:
+            paths = [f"/usr/lib/f{i:04d}.so" for i in range(0, 40, 5)]
+            warms, missing = pkg.blob.warm_list_from_index(idx, paths)
+            assert not missing
+            for _path, c0, c1 in warms:
+                for f in cb.warm(c0, c1 - c0):  # PREFETCH lane inside
+                    assert f.wait(10)
+                    assert f.error is None
+            calls = []
+            reader = pkg.blob.SociStreamReader(
+                idx, lambda o, s: (calls.append((o, s)), cb.read_at(o, s))[1]
+            )
+            for p in paths:
+                uoff, usize = idx.file_extent(p)
+                assert reader.read_range(uoff, usize) == contents[p]
+            for off, size in calls:
+                assert cb.covered(off, size)  # cache-resident, pre-warmed
+        finally:
+            cb.close()
+
+    @pytest.mark.parametrize("workers,gap,ra", CONFIG_MATRIX)
+    def test_byte_identity_property(self, pkg, tmp_path, glayer, workers, gap, ra):
+        raw, gz, contents = glayer
+        idx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        cb = _cached_blob(pkg, tmp_path, gz, GBLOB_ID, f"w{workers}g{gap}r{ra}", workers, gap, ra)
+        try:
+            reader = pkg.blob.SociStreamReader(idx, cb.read_at)
+            with tarfile.open(fileobj=io.BytesIO(raw)) as tf:
+                for m in tf.getmembers()[::7]:
+                    if not m.isreg():
+                        continue
+                    off, size = idx.files["/" + m.name]
+                    assert reader.read_range(off, size) == contents["/" + m.name]
+            rng = random.Random(workers)
+            for _ in range(10):
+                off = rng.randrange(0, len(raw) - 1)
+                size = rng.randrange(1, min(150_000, len(raw) - off))
+                assert reader.read_range(off, size) == raw[off : off + size]
+        finally:
+            cb.close()
+
+    def test_concurrent_readers_lock_free_cached_blob(self, pkg, tmp_path, glayer):
+        """test_soci_backend's case as written: four threads share one
+        reader over one ``CachedBlob``."""
+        raw, gz, _ = glayer
+        idx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        cb = _cached_blob(pkg, tmp_path, gz, GBLOB_ID, "conc", 4)
+        reader = pkg.blob.SociStreamReader(idx, cb.read_at)
+        assert reader.concurrent
+        errors = []
+
+        def worker(seed):
+            rng = random.Random(seed)
+            try:
+                for _ in range(12):
+                    off = rng.randrange(0, len(raw) - 1)
+                    size = rng.randrange(1, min(100_000, len(raw) - off))
+                    assert reader.read_range(off, size) == raw[off : off + size]
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        cb.close()
+        assert not errors, errors
+
+    def test_eviction_while_reading_indexed_layer(self, pkg, tmp_path, glayer):
+        """A watermark eviction unlinking the blob's cache files (and the
+        index companion) under a live indexed reader never gives wrong
+        bytes: the ``CachedBlob`` revalidates and re-fetches."""
+        raw, gz, _ = glayer
+        idx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        cb = _cached_blob(pkg, tmp_path, gz, GBLOB_ID, "evict", 2)
+        reader = pkg.blob.SociStreamReader(idx, cb.read_at)
+        rng = random.Random(3)
+        for i in range(15):
+            if i % 5 == 2:
+                for sfx in (".blob.data", ".chunk_map", ".soci.idx"):
+                    try:
+                        os.unlink(os.path.join(str(tmp_path), "evict", GBLOB_ID + sfx))
+                    except FileNotFoundError:
+                        pass
+            off = rng.randrange(0, len(raw) - 1)
+            size = rng.randrange(1, min(100_000, len(raw) - off))
+            assert reader.read_range(off, size) == raw[off : off + size]
+        cb.close()
+
+    def test_fetch_site_fails_read_then_recovers_cached_blob(self, pkg, tmp_path, glayer):
+        raw, gz, _ = glayer
+        idx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        cb = _cached_blob(pkg, tmp_path, gz, GBLOB_ID, "chaos", 2)
+        reader = pkg.blob.SociStreamReader(idx, cb.read_at)
+        with pkg.failpoint.injected("soci.fetch", "error(OSError)*1"):
+            with pytest.raises(OSError):
+                reader.read_range(0, 1000)
+        assert reader.read_range(0, 1000) == raw[:1000]
+        cb.close()
+
+    def test_zstd_fetch_site_fails_read_then_recovers_cached_blob(self, pkg, tmp_path, zlayer, seekable):
+        idx, _ = pkg.zblob.build_zindex_from_zstd(ZBLOB_ID, seekable)
+        cb = pkg.blobcache.CachedBlob(
+            os.path.join(str(tmp_path), "chaos"), ZBLOB_ID, _reader_for(seekable),
+            blob_size=len(seekable), config=pkg.fetch_sched.FetchConfig(fetch_workers=2),
+        )
+        reader = pkg.zblob.ZstdStreamReader(idx, cb.read_at)
+        with pkg.failpoint.injected("soci.fetch", "error(OSError)*1"):
+            with pytest.raises(OSError):
+                reader.read_range(0, 1000)
+        assert reader.read_range(0, 1000) == zlayer[0][:1000]
+        cb.close()
+
+    @pytest.mark.parametrize("suffix", [".soci.idx", ".soci.zidx"])
+    def test_cache_manager_accounts_companion(self, pkg, tmp_path, suffix):
+        """test_cache_manager_accounts_{index,zidx}_companion."""
+        mgr = pkg.cache_manager.CacheManager(str(tmp_path / "cache"))
+        for sfx in ("", ".blob.data", suffix):
+            with open(os.path.join(mgr.cache_dir, "aa" * 32 + sfx), "wb") as f:
+                f.write(b"x" * 10)
+        assert mgr.cache_usage("aa" * 32).inodes == 3
+        mgr.remove_blob_cache("aa" * 32)
+        assert mgr.cache_usage("aa" * 32).inodes == 0
+
+
+class TestPeerReplication:
+    def test_index_replicates_from_owner(self, pkg, tmp_path, glayer, peer_server):
+        _, gz, _ = glayer
+        export, _server, sock = peer_server
+        idx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        path = pkg.index.index_path(os.path.join(str(tmp_path), "owner"), GBLOB_ID)
+        idx.save(path)
+        export.register_soci(GBLOB_ID, path)
+        local_dir = os.path.join(str(tmp_path), "local")
+        os.makedirs(local_dir)
+        got, outcome = pkg.blob.load_or_build_index(
+            [local_dir], GBLOB_ID, csize=len(gz),
+            fetch_remote=lambda: pkg.peer.PeerClient(sock).fetch_soci_index(GBLOB_ID),
+        )
+        assert outcome == "replicated"
+        assert len(got.checkpoints) == len(idx.checkpoints)
+        _, outcome2 = pkg.blob.load_or_build_index([local_dir], GBLOB_ID, csize=len(gz))
+        assert outcome2 == "loaded"
+
+    def test_corrupt_replica_falls_back_to_build(self, pkg, tmp_path, glayer, peer_server):
+        raw, gz, _ = glayer
+        export, _server, sock = peer_server
+        idx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        path = pkg.index.index_path(os.path.join(str(tmp_path), "owner"), GBLOB_ID)
+        idx.save(path)
+        blob = bytearray(open(path, "rb").read())
+        blob[len(blob) // 2] ^= 0xFF  # the owner's artifact is corrupt
+        open(path, "wb").write(bytes(blob))
+        export.register_soci(GBLOB_ID, path)
+        local_dir = os.path.join(str(tmp_path), "local")
+        os.makedirs(local_dir)
+        builds = []
+
+        def builder():
+            builds.append(1)
+            return gz
+
+        got, outcome = pkg.blob.load_or_build_index(
+            [local_dir], GBLOB_ID, csize=len(gz),
+            fetch_remote=lambda: pkg.peer.PeerClient(sock).fetch_soci_index(GBLOB_ID),
+            builder=builder, stride=STRIDE,
+        )
+        assert outcome == "built" and len(builds) == 1
+        reader = pkg.blob.SociStreamReader(got, _reader_for(gz))
+        assert reader.read_range(500, 4000) == raw[500:4500]
+
+    def test_peer_miss_walks_to_builder(self, pkg, tmp_path, glayer, peer_server):
+        _, gz, _ = glayer
+        _export, _server, sock = peer_server  # nothing registered
+        local_dir = os.path.join(str(tmp_path), "local")
+        os.makedirs(local_dir)
+        got, outcome = pkg.blob.load_or_build_index(
+            [local_dir], GBLOB_ID, csize=len(gz),
+            fetch_remote=lambda: pkg.peer.PeerClient(sock).fetch_soci_index(GBLOB_ID),
+            builder=lambda: gz, stride=STRIDE,
+        )
+        assert outcome == "built" and got is not None
+
+    def test_zindex_replicates_from_owner(self, pkg, tmp_path, seekable, peer_server):
+        export, _server, sock = peer_server
+        idx, _ = pkg.zblob.build_zindex_from_zstd(ZBLOB_ID, seekable)
+        path = pkg.zindex.zindex_path(os.path.join(str(tmp_path), "owner"), ZBLOB_ID)
+        idx.save(path)
+        export.register_artifact(pkg.zblob.ZSOCI_ARTIFACT_KIND, ZBLOB_ID, path)
+        local_dir = os.path.join(str(tmp_path), "local")
+        os.makedirs(local_dir)
+        got, outcome = pkg.zblob.load_or_build_zindex(
+            [local_dir], ZBLOB_ID, csize=len(seekable),
+            fetch_remote=lambda: pkg.peer.PeerClient(sock).fetch_artifact(
+                pkg.zblob.ZSOCI_ARTIFACT_KIND, ZBLOB_ID),
+        )
+        assert outcome == "replicated"
+        assert len(got.frames) == len(idx.frames)
+        _, outcome2 = pkg.zblob.load_or_build_zindex([local_dir], ZBLOB_ID, csize=len(seekable))
+        assert outcome2 == "loaded"
+
+    def test_zindex_corrupt_replica_falls_back_to_build(self, pkg, tmp_path, zlayer, seekable, peer_server):
+        raw = zlayer[0]
+        export, _server, sock = peer_server
+        idx, _ = pkg.zblob.build_zindex_from_zstd(ZBLOB_ID, seekable)
+        path = pkg.zindex.zindex_path(os.path.join(str(tmp_path), "owner"), ZBLOB_ID)
+        idx.save(path)
+        blob = bytearray(open(path, "rb").read())
+        blob[len(blob) // 2] ^= 0xFF  # the owner's artifact is corrupt
+        open(path, "wb").write(bytes(blob))
+        export.register_artifact(pkg.zblob.ZSOCI_ARTIFACT_KIND, ZBLOB_ID, path)
+        local_dir = os.path.join(str(tmp_path), "local")
+        os.makedirs(local_dir)
+        builds = []
+
+        def builder():
+            builds.append(1)
+            return seekable
+
+        got, outcome = pkg.zblob.load_or_build_zindex(
+            [local_dir], ZBLOB_ID, csize=len(seekable),
+            fetch_remote=lambda: pkg.peer.PeerClient(sock).fetch_artifact(
+                pkg.zblob.ZSOCI_ARTIFACT_KIND, ZBLOB_ID),
+            builder=builder,
+        )
+        assert outcome == "built" and len(builds) == 1
+        reader = pkg.zblob.ZstdStreamReader(got, _reader_for(seekable))
+        assert reader.read_range(500, 4000) == raw[500:4500]
+
+    def test_artifacts_cross_packages(self, pkg, tmp_path, glayer, seekable, peer_server):
+        """The other package's client replicates both index artifacts from
+        this package's server: same bytes, same outcome."""
+        other = _other(pkg)
+        export, _server, sock = peer_server
+        _, gz, _ = glayer
+        gidx, _ = pkg.blob.build_index_from_gzip(GBLOB_ID, gz, stride=STRIDE)
+        gpath = pkg.index.index_path(os.path.join(str(tmp_path), "owner"), GBLOB_ID)
+        gidx.save(gpath)
+        export.register_soci(GBLOB_ID, gpath)
+        zidx, _ = pkg.zblob.build_zindex_from_zstd(ZBLOB_ID, seekable)
+        zpath = pkg.zindex.zindex_path(os.path.join(str(tmp_path), "owner"), ZBLOB_ID)
+        zidx.save(zpath)
+        export.register_artifact(pkg.zblob.ZSOCI_ARTIFACT_KIND, ZBLOB_ID, zpath)
+        client = other.peer.PeerClient(sock)
+        assert client.fetch_soci_index(GBLOB_ID) == open(gpath, "rb").read()
+        assert client.fetch_artifact(other.zblob.ZSOCI_ARTIFACT_KIND, ZBLOB_ID) == open(zpath, "rb").read()
+        local_dir = os.path.join(str(tmp_path), "local")
+        os.makedirs(local_dir)
+        got, outcome = other.blob.load_or_build_index(
+            [local_dir], GBLOB_ID, csize=len(gz), fetch_remote=lambda: client.fetch_soci_index(GBLOB_ID))
+        assert outcome == "replicated" and len(got.checkpoints) == len(gidx.checkpoints)
