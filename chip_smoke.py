@@ -8,6 +8,7 @@
     python3 chip_smoke.py --registry-only  # phases 0-3 and 19 alone
     python3 chip_smoke.py --formats-only  # phases 0-3 and 20 alone
     python3 chip_smoke.py --fetch-only    # phases 0-3 and 21 alone
+    python3 chip_smoke.py --serve-only    # phases 0-3 and 22 alone
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -407,6 +408,35 @@ Phases (any failure exits non-zero; nothing is caught):
    pass fetches nothing. Printed: ms a read, GETs, bytes fetched against
    requested, coalesced flights and singleflight joins of every pass, with
    the card's name and power limit.
+22. serving — the daemon's serving side over an image packed on the card.
+   Phase 4's tar split into two layers by a seeded half of its files, each
+   ``pack_layer(backend="fused", compressor="lz4_block")`` with its part of
+   a ``SERVE_PREFETCH_FILES``-file prefetch table (K1 and K2 once per
+   layer), ``Merge``d with the whole table; the blobs in a localfs blob dir
+   and behind ``OciRegistry``. The port's ``Daemon`` spawns its server
+   (``DaemonCommand``: ``python -m nydus_snapshotter_tpu_torch.daemon.server``,
+   its command line printed and checked against ``/proc/<pid>/cmdline``)
+   with a port ``Supervisor``; its pid must not be among ``nvidia-smi
+   --query-compute-apps=pid`` (no CUDA context). The merged bootstrap is
+   mounted twice, localfs and registry (the fetch defaults); the daemon
+   makes the kernel FUSE mount where mount(2) is allowed (a probe prints
+   mount(2)'s error where it is not), else serves its HTTP file API only.
+   ``prefetch_data_amount`` grows to the table's bytes with no client read.
+   ``SERVE_READS`` seeded files from ``SERVE_THREADS`` threads through
+   ``/api/v1/fs?op=read``, localfs then registry, cold then warm (and
+   through the kernel mounts where made), each equal to the tar's bytes:
+   ms a read (median, p95), registry GETs, ``/api/v1/metrics/blobcache``;
+   ``/api/v1/provenance`` conserves every blob's fetched bytes. SIGKILL, the
+   successor spawned with ``--upgrade`` takes the state (and FUSE fds) from
+   the supervisor: ms from the kill to its first read served, then every
+   read again equal. fscache: ``bind_blob`` on the daemon's API, and in
+   this process a ``DaemonServer``'s cookies served by the ondemand loop
+   over an injected ``DeviceIO`` pipe: the meta cookie of the two layers'
+   merged tarfs bootstrap equals ``erofs_from_rafs`` of it (the lz4 image's
+   meta cookie gets a negative copen, as EROFS export needs identity-mapped
+   chunks), a blob cookie's READ windows equal the blob's bytes. SIGTERM
+   ends the daemon within ``SERVE_EXIT_S``: its socket removed, no mount
+   left. The launch counters run over the whole phase: K1 and K2 twice.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -5344,14 +5374,515 @@ def fetch_phase(dev, tar: bytes, kernels) -> dict:
     return out
 
 
+SERVE_READS = 256  # seeded files read through the daemon's API (and its FUSE mount), cold and warm
+SERVE_THREADS = 8
+SERVE_PREFETCH_FILES = 64  # the merged bootstrap's prefetch table
+SERVE_REPO = "library/serve"
+SERVE_EXIT_S = 5.0  # SIGTERM must end the daemon within this
+
+
+def split_layers(tar: bytes, seed: int) -> tuple[bytes, bytes]:
+    """The tar's members in two layer tars: a seeded half of its regular
+    files in the first (with every other member), the rest in the second."""
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        members = list(tf)
+    regular = [m for m in members if m.isreg()]
+    picked = np.random.default_rng(seed).choice(len(regular), len(regular) // 2, replace=False)
+    lower = {id(regular[i]) for i in picked.tolist()}
+    out = []
+    for want_lower in (True, False):
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w", format=tarfile.GNU_FORMAT) as tf:
+            for m in members:
+                if m.isreg():
+                    if (id(m) in lower) != want_lower:
+                        continue
+                    tf.addfile(m, io.BytesIO(tar[m.offset_data:m.offset_data + m.size]))
+                elif want_lower:
+                    tf.addfile(m)
+        out.append(buf.getvalue())
+    return out[0], out[1]
+
+
+def probe_fuse_mount() -> str:
+    """'' when this process can complete a FUSE mount(2), else why not
+    (the daemon, a child of this process, has the same rights)."""
+    import os
+    import tempfile
+
+    if not os.path.exists("/dev/fuse"):
+        return "no /dev/fuse"
+    libc = ctypes.CDLL("libc.so.6", use_errno=True)
+    d = tempfile.mkdtemp(prefix="ntpu-fuse-probe-")
+    try:
+        try:
+            fd = os.open("/dev/fuse", os.O_RDWR)
+        except OSError as e:
+            return f"open(/dev/fuse): {e.strerror}"
+        try:
+            opts = f"fd={fd},rootmode=40000,user_id=0,group_id=0".encode()
+            if libc.mount(b"probe", d.encode(), b"fuse.probe", 1, opts) == 0:
+                libc.umount2(d.encode(), 2)
+                return ""
+            return f"mount(2): {os.strerror(ctypes.get_errno())} (euid {os.geteuid()})"
+        finally:
+            os.close(fd)
+    finally:
+        os.rmdir(d)
+
+
+def mounted(paths) -> list[str]:
+    """The paths /proc/mounts lists (no I/O on the mountpoints themselves)."""
+    with open("/proc/mounts") as f:
+        points = {line.split()[1] for line in f}
+    return [p for p in paths if p in points]
+
+
+def serve_phase(dev, tar: bytes, kernels) -> dict:
+    """Phase 22: the daemon's serving side over an image packed on the
+    card. Phase 4's tar split into two layers, each packed fused with lz4
+    (K1, K2 once per layer) and merged, is served by the port's daemon
+    process (``Daemon.spawn``, with a port ``Supervisor``) from a localfs
+    blob dir and from an in-process registry; reads go through the HTTP
+    file API and, where mount(2) is allowed, the kernel FUSE mount; the
+    daemon is SIGKILLed and its successor takes the state (and FUSE fds)
+    over; the fscache ondemand loop runs in this process over a pipe;
+    SIGTERM ends the daemon."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nydus_snapshotter_tpu_torch.converter import Merge, MergeOption, PackOption, convert, pack_layer
+    from nydus_snapshotter_tpu_torch.daemon import Daemon, DaemonState, cachefiles
+    from nydus_snapshotter_tpu_torch.daemon import server as server_mod
+    from nydus_snapshotter_tpu_torch.daemon.daemon import ConfigState
+    from nydus_snapshotter_tpu_torch.fusedev import fuse_available
+    from nydus_snapshotter_tpu_torch.models.bootstrap import Bootstrap
+    from nydus_snapshotter_tpu_torch.models.erofs_image import erofs_from_rafs
+    from nydus_snapshotter_tpu_torch.models.nydus_real import load_any_bootstrap
+    from nydus_snapshotter_tpu_torch.supervisor import Supervisor
+    from nydus_snapshotter_tpu_torch.tarfs import tarfs_bootstrap_from_tar
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    for k in kernels.values():
+        k.launches = 0
+
+    # -- 1. two layers packed on the card, merged --------------------------------
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        files = {"/" + m.name: tar[m.offset_data:m.offset_data + m.size] for m in tf if m.isreg()}
+    rng = np.random.default_rng(SEED + 23)
+    names = sorted(files)
+    nonempty = [n for n in names if files[n]]
+    prefetch = [nonempty[i] for i in sorted(rng.choice(len(nonempty), SERVE_PREFETCH_FILES, replace=False))]
+    layers = split_layers(tar, SEED + 24)
+    t0 = time.perf_counter()
+    packed = []
+    for layer in layers:
+        with tarfile.open(fileobj=io.BytesIO(layer)) as tf:
+            own = {"/" + m.name for m in tf if m.isreg()}
+        pats = "\n".join(p for p in prefetch if p in own)
+        packed.append(pack_layer(layer, PackOption(backend="fused", chunk_size=CHUNK_SIZE, compressor="lz4_block",
+                                                   prefetch_patterns=pats), device=dev))
+    pack_s = time.perf_counter() - t0
+    pack_launches = {key: k.launches for key, k in kernels.items()}
+    want_l = {key: 0 for key in kernels}
+    want_l.update(gear=2, sha=2)
+    if pack_launches != want_l:
+        raise AssertionError(f"the two fused lz4 packs launched {pack_launches}; want {want_l}")
+    merged = Merge([b for b, _r in packed], MergeOption(prefetch_patterns="\n".join(prefetch)))
+    bs = Bootstrap.from_bytes(merged.bootstrap)
+    if list(bs.prefetch) != prefetch:
+        raise AssertionError(f"the merged prefetch table holds {len(bs.prefetch)} paths, not the pattern's")
+    blobs = {r.blob_id: convert.blob_data_from_layer_blob(b) for b, r in packed}
+    if sorted(b.blob_id for b in bs.blobs) != sorted(blobs):
+        raise AssertionError(f"the merged blob table {[b.blob_id for b in bs.blobs]} is not the layers' blobs")
+    by_path = {i.path: i for i in bs.inodes}
+    warmed = set(prefetch)
+    pool = [n for n in nonempty if n not in warmed and not by_path[n].hardlink_target]
+    reads = [pool[i] for i in rng.choice(len(pool), SERVE_READS, replace=False)]
+    pf_bytes = {"localfs": 0, "registry": 0}
+    for p in prefetch:
+        ino = by_path[p]
+        for rec in bs.chunks[ino.chunk_index:ino.chunk_index + ino.chunk_count]:
+            pf_bytes["localfs"] += rec.uncompressed_size
+            pf_bytes["registry"] += rec.compressed_size
+    log(f"[22] two layers ({len(layers[0])} + {len(layers[1])} tar bytes) packed fused with lz4 on the card in "
+        f"{pack_s:.2f} s (launches {pack_launches}), merged: {len(bs.inodes)} inodes, {len(bs.chunks)} chunks, "
+        f"blobs {[len(v) for v in blobs.values()]} bytes, prefetch table of {len(bs.prefetch)} files")
+
+    w = Path(tempfile.mkdtemp(prefix="ntpu-serve-", dir="/dev/shm" if os.path.isdir("/dev/shm") else None))
+    sockdir = tempfile.mkdtemp(prefix="s", dir="/tmp")
+    blob_dir = w / "blobs"
+    blob_dir.mkdir()
+    for bid, data in blobs.items():
+        (blob_dir / bid).write_bytes(data)
+    boot = w / "image.boot"
+    boot.write_bytes(merged.bootstrap)
+    reg = OciRegistry()
+    for data in blobs.values():
+        reg.add_blob(data)
+    mps = {"localfs": str(w / "mnt-local"), "registry": str(w / "mnt-registry")}
+    for mp in mps.values():
+        os.makedirs(mp)
+    cfgs = {
+        "localfs": json.dumps({"device": {"backend": {"type": "localfs", "config": {"blob_dir": str(blob_dir)}}}}),
+        "registry": json.dumps({"device": {"backend": {"type": "registry", "config": {
+            "host": reg.host, "repo": SERVE_REPO, "scheme": "http"}}, "cache": {"config": {
+                "work_dir": str(w / "cache")}}}}),
+    }
+    fuse_why = probe_fuse_mount()
+    log(f"[22] FUSE from this process: fuse_available() {fuse_available()}, mount(2) "
+        f"{'allowed' if not fuse_why else 'refused: ' + fuse_why}")
+
+    def gets() -> int:
+        return sum(1 for r in reg.requests if r.startswith("GET ") and "/blobs/sha256:" in r)
+
+    def read_api(client_fn, mp: str, names_: list) -> dict:
+        def work(k):
+            cli = client_fn()
+            out = []
+            for n in names_[k::SERVE_THREADS]:
+                t1 = time.perf_counter()
+                got = cli.read_file(mp, n)
+                out.append(time.perf_counter() - t1)
+                if got != files[n]:
+                    raise AssertionError(f"{mp}{n}: the daemon's API read differs from the tar")
+            return out
+
+        g0, t1 = gets(), time.perf_counter()
+        with ThreadPoolExecutor(SERVE_THREADS) as ex:
+            per = np.array([x for part in ex.map(work, range(SERVE_THREADS)) for x in part]) * 1e3
+        return {"files": len(per), "wall_s": time.perf_counter() - t1, "ms_median": float(np.median(per)),
+                "ms_p95": float(np.percentile(per, 95)), "ms_mean": float(per.mean()), "gets": gets() - g0,
+                "bytes": sum(len(files[n]) for n in names_)}
+
+    def read_kernel(mp: str, names_: list) -> dict:
+        def work(k):
+            out = []
+            for n in names_[k::SERVE_THREADS]:
+                t1 = time.perf_counter()
+                with open(mp + n, "rb") as f:
+                    got = f.read()
+                out.append(time.perf_counter() - t1)
+                if got != files[n]:
+                    raise AssertionError(f"{mp}{n}: the kernel FUSE read differs from the tar")
+            return out
+
+        g0, t1 = gets(), time.perf_counter()
+        with ThreadPoolExecutor(SERVE_THREADS) as ex:
+            per = np.array([x for part in ex.map(work, range(SERVE_THREADS)) for x in part]) * 1e3
+        return {"files": len(per), "wall_s": time.perf_counter() - t1, "ms_median": float(np.median(per)),
+                "ms_p95": float(np.percentile(per, 95)), "gets": gets() - g0}
+
+    def fmt(r: dict) -> str:
+        return (f"{r['files']} files in {r['wall_s']:.3f} s, {r['ms_median']:.3f} ms a read median, "
+                f"{r['ms_p95']:.3f} ms p95, {r['gets']} registry GETs")
+
+    out: dict = {"pack_s": pack_s, "pack_launches": pack_launches, "blob_bytes": [len(v) for v in blobs.values()],
+                 "chunks": len(bs.chunks), "fuse_probe": fuse_why or "allowed"}
+    sup = Supervisor("serve", os.path.join(sockdir, "sup.sock"))
+    sup.start()
+    states = ConfigState(daemon_id="serve", api_socket=os.path.join(sockdir, "api.sock"), workdir=str(w),
+                         supervisor_path=sup.sock_path, log_file=str(w / "daemon.log"))
+    daemon = Daemon(states)
+    procs = []  # every daemon process this phase started
+    try:
+        # -- 2. the port's daemon process, no CUDA context -------------------------
+        argv = daemon.command().build()
+        t0 = time.perf_counter()
+        daemon.spawn()
+        procs.append(daemon._proc)
+        cli = daemon.client()
+        cli.wait_until_socket_exists(60)
+        daemon.wait_until_state(DaemonState.READY, timeout=30)
+        start_s = time.perf_counter() - t0
+        pid = daemon.pid
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            cmdline = [a.decode() for a in f.read().split(b"\0") if a]
+        if cmdline != argv or cmdline[1:3] != ["-m", "nydus_snapshotter_tpu_torch.daemon.server"]:
+            raise AssertionError(f"the daemon runs {cmdline}, not the port's server {argv}")
+        apps = compute_pids()
+        d_fds, d_libs = cuda_handles(pid)
+        s_fds, s_libs = cuda_handles(os.getpid())
+        if pid in apps or d_fds or any(n.startswith("libcuda.") for n in d_libs):
+            raise AssertionError(f"the daemon (pid {pid}) holds a CUDA context: compute apps {apps}, "
+                                 f"/dev/nvidia files {d_fds}, libraries {d_libs}")
+        log(f"[22] the port's daemon: {' '.join(cmdline)} (pid {pid}, READY {1e3 * start_s:.0f} ms after spawn); "
+            f"compute apps on the card {apps} (this script {os.getpid()}{'' if os.getpid() in apps else ', not listed'})"
+            f"; the daemon has no /dev/nvidia file open and maps {d_libs or 'no CUDA or torch library'} (this "
+            f"script: {len(s_fds)} /dev/nvidia files, {s_libs}): it holds no CUDA context")
+        out["daemon"] = {"ready_ms": 1e3 * start_s, "libs": d_libs}
+
+        # -- 3. mounts: localfs and registry, the kernel mount where allowed --------
+        for kind in ("localfs", "registry"):
+            cli.mount(mps[kind], str(boot), cfgs[kind])
+        cli.start()
+        daemon.wait_until_state(DaemonState.RUNNING, timeout=10)
+        kernel_mounts = mounted(mps.values())
+        log(f"[22] mounted the merged bootstrap twice (localfs blob dir; registry at the fetch defaults): kernel "
+            f"FUSE mounts {'made at ' + str(kernel_mounts) if kernel_mounts else 'not made (mount(2) from this process: ' + (fuse_why or 'allowed') + ')'}; "
+            "the daemon serves its HTTP file API either way")
+        out["kernel_mounts"] = len(kernel_mounts)
+
+        # prefetch grows with no client read
+        t0 = time.perf_counter()
+        want_pf = pf_bytes["localfs"] + pf_bytes["registry"]
+        amount, first_seen = 0, None
+        while time.perf_counter() - t0 < 60:
+            amount = cli.cache_metrics()["prefetch_data_amount"]
+            if amount and first_seen is None:
+                first_seen = time.perf_counter() - t0
+            if amount >= want_pf:
+                break
+            time.sleep(0.01)
+        fsm = cli.fs_metrics()
+        if amount != want_pf or fsm["data_read"] != 0 or first_seen is None:
+            raise AssertionError(f"prefetch_data_amount {amount} (want {want_pf}) with {fsm['data_read']} bytes "
+                                 "of client reads")
+        prefetch_s = time.perf_counter() - t0
+        log(f"[22] prefetch_data_amount grew to {amount} bytes ({pf_bytes['localfs']} localfs, "
+            f"{pf_bytes['registry']} registry compressed) in {prefetch_s:.3f} s with no client read "
+            f"(first bytes after {1e3 * first_seen:.1f} ms)")
+        out["prefetch"] = {"bytes": amount, "s": prefetch_s}
+
+        # -- 4. reads: API (and kernel) cold then warm -----------------------------------
+        passes = {}
+        bc0 = cli.cache_metrics()
+        # localfs first: the registry passes leave readahead flights that
+        # would count as GETs in a later pass
+        for kind in ("localfs", "registry"):
+            for temp in ("cold", "warm"):
+                r = read_api(daemon.client, mps[kind], reads)
+                passes[f"{kind}_{temp}"] = r
+                log(f"[22] API {kind} {temp}: {fmt(r)}")
+        bc1 = cli.cache_metrics()
+        fetched = {k: bc1[k] - bc0[k] for k in ("miss_bytes", "hit_bytes", "fetch_requests", "readahead_bytes",
+                                                "coalesced_requests")}
+        if passes["registry_cold"]["gets"] == 0 or passes["localfs_cold"]["gets"] or passes["localfs_warm"]["gets"]:
+            raise AssertionError(f"registry GETs in the wrong passes: {passes}")
+        log(f"[22] /api/v1/metrics/blobcache over the reads: {fetched}")
+        for bid in blobs:
+            t1 = time.time()
+            while True:  # a readahead flight still landing is not yet accounted
+                code, body = uds_get(states.api_socket, f"/api/v1/provenance?blob={bid}")
+                view = json.loads(body)
+                if code == 200 and view["conservation"]["exact"] or time.time() - t1 > 10:
+                    break
+                time.sleep(0.05)
+            if code != 200 or not view["conservation"]["exact"]:
+                raise AssertionError(f"/api/v1/provenance for {bid[:12]}: {code} {view}")
+            log(f"[22] /api/v1/provenance {bid[:12]}..: conserves {view['conservation']['fetched_bytes']} "
+                "fetched bytes")
+        if kernel_mounts:
+            for kind in ("registry", "localfs"):
+                r = read_kernel(mps[kind], reads)
+                passes[f"{kind}_kernel"] = r
+                log(f"[22] kernel FUSE {kind}: {fmt(r)}")
+        out.update(reads=passes, blobcache=fetched)
+
+        # -- 5. takeover: SIGKILL, the successor takes state and fds ---------------------
+        if not sup.wait_for_state(10):
+            raise AssertionError("the daemon pushed no state to the supervisor")
+        deadline = time.time() + 10
+        while time.time() < deadline:
+            held = {i["mountpoint"] for i in json.loads(sup.fetch_state())["instances"]}
+            if held == set(mps.values()):
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError(f"the supervisor holds {held}")
+        time.sleep(0.2)
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        daemon.wait(timeout=10)
+        daemon.spawn(upgrade=True)
+        procs.append(daemon._proc)
+        cli = daemon.client()
+        cli.wait_until_socket_exists(60)
+        cli.takeover()
+        cli.start()
+        got = cli.read_file(mps["registry"], reads[0])
+        first = time.perf_counter() - t_kill
+        if got != files[reads[0]]:
+            raise AssertionError("the successor's first read differs from the tar")
+        kernel_after = mounted(mps.values())
+        if kernel_after != kernel_mounts:
+            raise AssertionError(f"kernel mounts {kernel_mounts} before the kill, {kernel_after} after")
+        after = {kind: read_api(daemon.client, mps[kind], reads) for kind in ("registry", "localfs")}
+        if kernel_mounts:
+            after.update({f"{kind}_kernel": read_kernel(mps[kind], reads) for kind in ("registry", "localfs")})
+        info = cli.get_daemon_info()
+        log(f"[22] takeover: SIGKILL -> successor (pid {daemon.pid}, {info['state']}) served its first read "
+            f"{1e3 * first:.1f} ms after the kill; then {', '.join(f'{k}: {fmt(r)}' for k, r in after.items())}")
+        out["takeover"] = {"kill_to_first_read_ms": 1e3 * first, "reads": after}
+
+        # -- 6. fscache: bind_blob and the ondemand loop over a pipe ---------------------
+        lower_tarfs = [tarfs_bootstrap_from_tar(io.BytesIO(layer), hashlib.sha256(layer).hexdigest())
+                       for layer in layers]
+        tarfs_boot = w / "tarfs.boot"
+        tarfs_boot.write_bytes(Merge(lower_tarfs, MergeOption()).bootstrap)
+        want_meta = erofs_from_rafs(load_any_bootstrap(tarfs_boot.read_bytes()))
+        backend = {"type": "localfs", "config": {"blob_dir": str(blob_dir)}}
+        if not cachefiles.supported():  # the kernel's own device stays untouched
+            cli.bind_blob(json.dumps({"id": bs.blobs[0].blob_id, "device": {"backend": backend}}))
+            cli.unbind_blob("", bs.blobs[0].blob_id)
+        fs_srv = server_mod.DaemonServer("fscache", os.path.join(sockdir, "fs.sock"), workdir=str(w))
+        r_fd, w_fd = os.pipe()
+
+        class PipeDevice(cachefiles.DeviceIO):
+            def __init__(self, fd: int):
+                super().__init__(fd)
+                self.writes, self.ioctls = [], []
+
+            def write(self, b):
+                self.writes.append(bytes(b))
+                return len(b)
+
+            def ioctl(self, obj_fd, req, arg):
+                self.ioctls.append(arg)
+
+        dev_io = PipeDevice(r_fd)
+        ondemand = cachefiles.CachefilesOndemandDaemon(fs_srv._resolve_cachefiles_cookie, device=dev_io)
+        fs_srv._cachefiles = ondemand  # the injected device: bind_blob finds its ondemand daemon running
+        ondemand.start()
+        fs_srv.bind_blob(json.dumps({"id": bs.blobs[0].blob_id, "metadata_path": str(tarfs_boot),
+                                     "fscache_id": "fsid-tarfs", "device": {"backend": backend}}))
+        fs_srv.bind_blob(json.dumps({"id": bs.blobs[1].blob_id, "metadata_path": str(boot),
+                                     "fscache_id": "fsid-lz4", "device": {"backend": backend}}))
+        objs = {}
+        msg_id = 0
+
+        def send(obj: int, opcode: int, payload: bytes) -> int:
+            nonlocal msg_id
+            msg_id += 1
+            os.write(w_fd, cachefiles._MSG_HDR.pack(msg_id, obj, opcode, 16 + len(payload)) + payload)
+            return msg_id
+
+        def open_obj(obj: int, cookie: str) -> int:
+            path = w / f"obj{obj}"
+            fd = os.open(path, os.O_RDWR | os.O_CREAT | os.O_TRUNC)
+            objs[obj] = path
+            key = cookie.encode() + b"\0"
+            return send(obj, cachefiles.OP_OPEN, cachefiles._OPEN_HDR.pack(6, len(key), fd, 0) + b"erofs\0" + key)
+
+        def wait_for(pred, what: str):
+            t1 = time.time()
+            while not pred():
+                if time.time() - t1 > 30:
+                    raise AssertionError(f"the ondemand loop did not answer {what}: {dev_io.writes}")
+                time.sleep(0.002)
+
+        t0 = time.perf_counter()
+        m1 = open_obj(1, "fsid-tarfs")
+        m2 = open_obj(2, bs.blobs[1].blob_id)
+        m3 = open_obj(3, "fsid-lz4")
+        wait_for(lambda: len(dev_io.writes) == 3, "three OPENs")
+        blob1 = blobs[bs.blobs[1].blob_id]
+        want_copens = [f"copen {m1},{len(want_meta)}".encode(), f"copen {m2},{len(blob1)}".encode(),
+                       f"copen {m3},-2".encode()]
+        if dev_io.writes != want_copens:
+            raise AssertionError(f"copen answers {dev_io.writes}, want {want_copens}")
+        windows = [(0, len(want_meta), 1)]
+        wr = np.random.default_rng(SEED + 25)
+        for _ in range(3):
+            off = int(wr.integers(0, len(blob1)))
+            windows.append((off, int(wr.integers(1, 4 << 20)), 2))
+        for off, ln, obj in windows:
+            send(obj, cachefiles.OP_READ, cachefiles._READ_REQ.pack(off, ln))
+        wait_for(lambda: len(dev_io.ioctls) == len(windows), "the READs")
+        meta = objs[1].read_bytes()
+        if meta != want_meta:
+            raise AssertionError("the meta cookie's bytes differ from erofs_from_rafs of the merged tarfs bootstrap")
+        got2 = objs[2].read_bytes()
+        for off, ln, obj in windows[1:]:
+            end = min(off + ln, len(blob1))
+            if got2[off:end] != blob1[off:end]:
+                raise AssertionError(f"the READ window {off}+{ln} differs from the blob's bytes")
+        send(1, cachefiles.OP_CLOSE, b"")
+        send(2, cachefiles.OP_CLOSE, b"")
+        wait_for(lambda: not ondemand.objects, "the CLOSEs")
+        fscache_s = time.perf_counter() - t0
+        ondemand.stop()
+        os.close(w_fd)
+        log(f"[22] fscache: bind_blob on the daemon's API (204) and in process; the ondemand loop over a pipe "
+            f"answered copen for the meta cookie ({len(want_meta)} bytes == erofs_from_rafs of the two layers' "
+            f"merged tarfs bootstrap; the lz4 image's meta cookie refused, -2: EROFS export needs identity-mapped "
+            f"chunks), the blob cookie ({len(blob1)} bytes) and {len(windows)} READ windows equal to their bytes, "
+            f"in {fscache_s:.3f} s")
+        out["fscache"] = {"meta_bytes": len(want_meta), "windows": len(windows), "s": fscache_s}
+
+        # -- 7. SIGTERM ---------------------------------------------------------------
+        t0 = time.perf_counter()
+        daemon.terminate()
+        daemon._proc.wait(timeout=SERVE_EXIT_S)
+        exit_s = time.perf_counter() - t0
+        left = mounted(mps.values())
+        if exit_s > SERVE_EXIT_S or os.path.exists(states.api_socket) or left:
+            raise AssertionError(f"SIGTERM: exit after {exit_s:.2f} s, socket left "
+                                 f"{os.path.exists(states.api_socket)}, mounts left {left}")
+        log(f"[22] SIGTERM ended the daemon in {1e3 * exit_s:.0f} ms (rc {daemon._proc.returncode}); its socket "
+            "is removed and no mount is left")
+        out["sigterm_ms"] = 1e3 * exit_s
+    except Exception:
+        log_path = w / "daemon.log"
+        if log_path.exists():
+            log("[22] the daemon's log, last 4000 bytes:\n" + log_path.read_text(errors="replace")[-4000:])
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        for mp in mounted(mps.values()):
+            ctypes.CDLL("libc.so.6").umount2(mp.encode(), 2)
+        sup.stop()
+        reg.close()
+        shutil.rmtree(w, ignore_errors=True)
+        shutil.rmtree(sockdir, ignore_errors=True)
+    launches = {key: k.launches for key, k in kernels.items()}
+    if launches != want_l:
+        raise AssertionError(f"phase 22 launched {launches}; the packs only {want_l}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["device"] = smi
+    log(f"[22] {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
+def cuda_handles(pid: int) -> tuple[list[str], list[str]]:
+    """A process's open /dev/nvidia* files and its mapped CUDA or torch
+    libraries: a CUDA context holds the first and maps libcuda."""
+    import os
+
+    fds = []
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        with contextlib.suppress(OSError):
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            if target.startswith("/dev/nvidia"):
+                fds.append(target)
+    with open(f"/proc/{pid}/maps") as f:
+        libs = {line.split()[-1].rsplit("/", 1)[-1] for line in f if ".so" in line}
+    return sorted(set(fds)), sorted(n for n in libs if n.startswith(("libcuda", "libtorch", "libcudart")))
+
+
+def compute_pids() -> list[int]:
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
     if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"], ["--registry-only"],
-                    ["--formats-only"], ["--fetch-only"]):
+                    ["--formats-only"], ["--fetch-only"], ["--serve-only"]):
         print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only | --registry-only | "
-              "--formats-only | --fetch-only]", file=sys.stderr)
+              "--formats-only | --fetch-only | --serve-only]", file=sys.stderr)
         return 2
     mesh_only = args == ["--mesh-only"]
     ha_only = args == ["--ha-only"]
@@ -5359,6 +5890,7 @@ def main() -> int:
     registry_only = args == ["--registry-only"]
     formats_only = args == ["--formats-only"]
     fetch_only = args == ["--fetch-only"]
+    serve_only = args == ["--serve-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -5660,6 +6192,15 @@ def main() -> int:
                                                   "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if serve_only:  # phases 0-3, then 22 on phase 4's tar
+        sv = serve_phase(dev, layer_tar(FileGen(SEED + 3).pool(PACK_MIB)), all_kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--serve-only: phases 0-3 and 22)")
+        print(smi, flush=True)
+        print(json.dumps({"serve": sv}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
     tar = layer_tar(FileGen(SEED + 3).pool(PACK_MIB))
@@ -5856,6 +6397,9 @@ def main() -> int:
     # -- 21. the lazy fetch side: blob cache, peer tier, prefetch, heat, cache manager --
     fe = fetch_phase(dev, tar, all_kernels)
 
+    # -- 22. the serving side: the daemon process, API and FUSE reads, takeover, fscache --
+    sv = serve_phase(dev, tar, all_kernels)
+
     def formats_launches(*keys):  # phase 20: per card ref pack; the adaptor path launches none
         out = {name: sum(p["launches"].get(k, 0) for k in keys) for name, p in fm["packs"].items()}
         out["adaptor_prepare_and_merge"] = 0
@@ -5914,6 +6458,7 @@ def main() -> int:
             codec_cipher_launches=cc_launches("gear"), mesh_launches=mesh_launches("gear"),
             ha_batch_launches=ha["batch_launches"]["gear"], ociref_launches=ociref_launches("gear"),
             convert_launches=convert_launches("gear"), fetch_launches=fe["launches"]["gear"],
+            serve_launches=sv["launches"]["gear"],
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -5932,6 +6477,7 @@ def main() -> int:
             convert_launches=convert_launches("sha"),
             tarfs_manager_launches=tm["launches"].get("sha", 0), tarfs_manager_layers=tm["layers"],
             formats_launches=formats_launches("sha"), fetch_launches=fe["launches"]["sha"],
+            serve_launches=sv["launches"]["sha"],
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -5943,6 +6489,7 @@ def main() -> int:
             service_probe_launches=service["probe_launches"],
             fused_after_insert_launches=fused_grown["launches"]["probe"],
             mesh_launches=mesh_launches("probe"), fetch_launches=fe["launches"]["probe"],
+            serve_launches=sv["launches"]["probe"],
             ha_replica_probe_launches=ha["replica_probe_launches"],
             ha_promoted_probe_launches=ha["promoted_probe_launches"],
             ha={k: v for k, v in ha.items() if k != "batch_launches"},
@@ -5974,6 +6521,7 @@ def main() -> int:
             convert_launches=convert_launches("b3_leaves", "b3_parents"),
             formats_launches=formats_launches("b3_leaves", "b3_parents"),
             fetch_launches=fe["launches"]["b3_leaves"] + fe["launches"]["b3_parents"],
+            serve_launches=sv["launches"]["b3_leaves"] + sv["launches"]["b3_parents"],
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

@@ -52,13 +52,6 @@ from typing import Callable, Optional
 from nydus_snapshotter_tpu_torch import constants
 from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
 from nydus_snapshotter_tpu_torch.converter import crypto
-from nydus_snapshotter_tpu_torch.converter.pack import (  # noqa: F401  (re-exported)
-    Pack,
-    PackResult,
-    _make_compressor,
-    match_prefetch_paths,
-    pack_layer,
-)
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, MergeOption, UnpackOption
 from nydus_snapshotter_tpu_torch.converter.zran import CHUNK_FLAG_GZIP_STREAM, GzipStreamReader
 from nydus_snapshotter_tpu_torch.converter.zstd_ref import (
@@ -79,6 +72,19 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
 from nydus_snapshotter_tpu_torch.models.nydus_real import RealBootstrapError, load_any_bootstrap
 from nydus_snapshotter_tpu_torch.utils import lz4
 
+
+# converter/pack.py's layer lanes and prefetch matcher are re-exported on
+# first use: pack.py imports torch, which a reader of packed images (the
+# daemon, ``Unpack``) does not need.
+_PACK_EXPORTS = ("Pack", "PackResult", "match_prefetch_paths", "pack_layer")
+
+
+def __getattr__(name: str):
+    if name in _PACK_EXPORTS:
+        from nydus_snapshotter_tpu_torch.converter import pack
+
+        return getattr(pack, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class ThreadSafeCompressor:
@@ -105,6 +111,8 @@ class ThreadSafeCompressor:
             return self._codec.encode(data)
         fn = getattr(self._tls, "fn", None)
         if fn is None:
+            from nydus_snapshotter_tpu_torch.converter.pack import _make_compressor
+
             fn = self._tls.fn = _make_compressor(self._kind, self._lz4_accel)
         return fn(data)
 
@@ -529,6 +537,8 @@ def _merge(layers, opt: MergeOption, chunk_dict) -> MergeResult:
         ),
         key=lambda b: (b.blob_index, b.compressed_offset),
     )
+
+    from nydus_snapshotter_tpu_torch.converter.pack import match_prefetch_paths
 
     bootstrap = Bootstrap(
         version=version,

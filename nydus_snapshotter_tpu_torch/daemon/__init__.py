@@ -1,9 +1,11 @@
-"""Daemon subsystem: the fetch side of the nydusd-equivalent data plane.
+"""Daemon subsystem: the nydusd-equivalent process, its client, lifecycle.
 
-This package holds the daemon's types (:mod:`.types`), the fetch scheduler
-and admission gate (:mod:`.fetch_sched`), the local blob cache
-(:mod:`.blobcache`) and the peer chunk tier (:mod:`.peer`). The serving
-daemon and its client are not part of this package.
+The reference forks the external Rust ``nydusd`` and drives it over an
+HTTP-over-UDS API (pkg/daemon/client.go:31-58). This framework ships its own
+daemon process (daemon/server.py) with the same API surface — state machine,
+mounts, metrics, takeover — serving RAFS reads from bootstrap + blob cache
+in userspace. Its fetch side is :mod:`.fetch_sched`, :mod:`.blobcache` and
+:mod:`.peer`; nothing here makes a CUDA context.
 """
 
 from nydus_snapshotter_tpu_torch.daemon.types import (  # noqa: F401
@@ -13,3 +15,5 @@ from nydus_snapshotter_tpu_torch.daemon.types import (  # noqa: F401
     CacheMetrics,
     MountRequest,
 )
+from nydus_snapshotter_tpu_torch.daemon.daemon import Daemon  # noqa: F401
+from nydus_snapshotter_tpu_torch.daemon.client import NydusdClient, ClientError  # noqa: F401

@@ -38,18 +38,38 @@ ROOTS = {"ref": "nydus_snapshotter_tpu", "port": "nydus_snapshotter_tpu_torch"}
 _TESTS = Path(__file__).resolve().parent
 
 
-def port_twin(name: str, keep: tuple[str, ...] = (), host: tuple[str, ...] = ()) -> types.ModuleType:
+def port_twin(
+    name: str,
+    keep: tuple[str, ...] = (),
+    host: tuple[str, ...] = (),
+    twins: tuple[str, ...] = (),
+    subs: tuple[tuple[str, str], ...] = (),
+) -> types.ModuleType:
     """tests/<name>.py compiled again with every ``nydus_snapshotter_tpu``
     module path pointed at the port. ``keep`` lists source fragments, as
     written in the reference file, that stay on the reference package
     (a server half the port does not have, used as a test fixture).
     ``host`` names entry points the file imports that run on the card
-    unless asked otherwise: the twin calls them with ``device="cpu"``."""
+    unless asked otherwise: the twin calls them with ``device="cpu"``.
+    ``twins`` names other test files whose helpers this one imports
+    (``from tests.<twin> import ...``): those imports are pointed at the
+    twins' port twins, which must already be loaded, so a helper that
+    spawns a daemon spawns the port's. ``subs`` lists (fragment,
+    replacement) pairs for the port twin alone: a call of a ``host``
+    entry point that the file imports inside a function gets its
+    ``device="cpu"`` this way."""
     key = f"tests.{name}__port"
     if key in sys.modules:
         return sys.modules[key]
     path = _TESTS / f"{name}.py"
     src = path.read_text()
+    for twin in twins:
+        assert f"tests.{twin}__port" in sys.modules, f"{name}: port twin of {twin} not loaded"
+        assert f"from tests.{twin} import" in src, f"{name}: imports nothing of {twin}"
+        src = src.replace(f"from tests.{twin} import", f"from tests.{twin}__port import")
+    for frag, repl in subs:
+        assert frag in src, f"{name}: {frag!r} not in the reference file"
+        src = src.replace(frag, repl)
     held = {f"\x00{i}\x00": frag for i, frag in enumerate(keep)}
     for mark, frag in held.items():
         assert frag in src, f"{name}: {frag!r} not in the reference file"
@@ -66,6 +86,16 @@ def port_twin(name: str, keep: tuple[str, ...] = (), host: tuple[str, ...] = ())
     for entry in host:
         setattr(mod, entry, functools.partial(getattr(mod, entry), device="cpu"))
     return mod
+
+
+def _per_package_fixture(name: str, attr: str, scope: str):
+    """A fixture that hands a ``pkg`` case its package's ``attr``."""
+
+    def fixture(request, pkg):
+        return request.getfixturevalue(f"_{pkg}_{name}{attr}")
+
+    fixture.__name__ = attr
+    return pytest.fixture(scope=scope, name=attr)(fixture)
 
 
 def _dispatch(mods: dict, path: tuple[str, ...], fn):
@@ -98,19 +128,29 @@ def ported_cases(
     host: tuple[str, ...] = (),
     leave_out: tuple[str, ...] = (),
     only: tuple[str, ...] = (),
+    twins: tuple[str, ...] = (),
+    subs: tuple[tuple[str, str], ...] = (),
 ) -> None:
     """Collect every case of tests/<name>.py into ``ns`` once per package.
     ``leave_out`` names cases (``Class::method`` or ``function``) whose
     modules the port does not have yet; the caller's docstring says why.
     ``only``, when given, names the sole cases to collect. The reference
-    file's autouse fixtures run for both packages."""
-    mods = {"ref": importlib.import_module(f"tests.{name}"), "port": port_twin(name, keep, host)}
+    file's autouse fixtures run for both packages; each of its other
+    fixtures is collected under its own name and, in a case, takes the
+    definition of the case's package."""
+    mods = {"ref": importlib.import_module(f"tests.{name}"), "port": port_twin(name, keep, host, twins, subs)}
     for side, mod in mods.items():
         for attr, obj in list(vars(mod).items()):
             marker = getattr(obj, "_fixture_function_marker", None)
             if marker is not None and marker.autouse:
                 fixture_name = f"_{side}_{name}{attr}"
                 ns[fixture_name] = pytest.fixture(autouse=True, name=fixture_name)(obj._get_wrapped_function())
+            elif marker is not None:
+                fixture_name = f"_{side}_{name}{attr}"
+                ns[fixture_name] = pytest.fixture(scope=marker.scope, name=fixture_name)(obj._get_wrapped_function())
+                if side == "ref":
+                    assert attr not in ns, f"fixture {attr} collected twice"
+                    ns[attr] = _per_package_fixture(name, attr, marker.scope)
     left = set(leave_out)
 
     def wanted(case: str) -> bool:

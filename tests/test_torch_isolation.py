@@ -503,6 +503,120 @@ _HYBRID_CHILD = textwrap.dedent(
 )
 
 
+_DAEMON_CHILD = textwrap.dedent(
+    """
+    import io, json, os, socket, sys, tarfile, tempfile, threading
+    import numpy as np
+    import torch
+
+    def refuse(*a, **k):
+        raise AssertionError("the daemon touched CUDA")
+
+    for name in ("is_available", "init", "current_device", "device_count", "set_device",
+                 "Stream", "Event", "synchronize", "current_stream"):
+        setattr(torch.cuda, name, refuse)
+    os.environ["NTPU_DISABLE_FUSE"] = "1"
+    from nydus_snapshotter_tpu_torch.converter import Merge, MergeOption, PackOption, pack_layer
+    from nydus_snapshotter_tpu_torch.converter.convert import blob_data_from_layer_blob
+    from nydus_snapshotter_tpu_torch.daemon import NydusdClient, cachefiles
+    from nydus_snapshotter_tpu_torch.daemon.server import DaemonServer
+    from nydus_snapshotter_tpu_torch.fusedev import protocol
+    from nydus_snapshotter_tpu_torch.supervisor import Supervisor
+
+    rng = np.random.default_rng(9)
+    files = {f"app/f{i}": rng.integers(0, 256, 30_000 * i + 7, dtype=np.uint8).tobytes() for i in range(4)}
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        for name, data in files.items():
+            ti = tarfile.TarInfo(name); ti.size = len(data); tf.addfile(ti, io.BytesIO(data))
+    blob, res = pack_layer(buf.getvalue(), PackOption(chunk_size=0x1000, backend="numpy",
+                                                      prefetch_patterns="/app/f1"), device="cpu")
+    d = tempfile.mkdtemp(prefix="iso", dir="/tmp")
+    open(os.path.join(d, res.blob_id), "wb").write(blob_data_from_layer_blob(blob))
+    boot = os.path.join(d, "image.boot")
+    open(boot, "wb").write(Merge([blob], MergeOption()).bootstrap)
+    cfg = json.dumps({"device": {"backend": {"type": "localfs", "config": {"blob_dir": d}}}})
+    sup = Supervisor("iso", os.path.join(d, "sup.sock")); sup.start()
+    srv = DaemonServer("iso", os.path.join(d, "api.sock"), supervisor=sup.sock_path, workdir=d)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    cli = NydusdClient(srv.apisock); cli.wait_until_socket_exists(10)
+    cli.mount("/m", boot, cfg); cli.start()
+    assert cli.read_file("/m", "/app/f2") == files["app/f2"]
+    assert cli.read_file("/m", "/app/f3", 1000, 500) == files["app/f3"][1000:1500]
+    assert cli.list_dir("/m", "/app") == sorted(f"f{i}" for i in range(4))
+    assert cli.stat_file("/m", "/app/f1")["size"] == len(files["app/f1"])
+    assert srv.instances["/m"].fuse is None  # API-only under NTPU_DISABLE_FUSE
+    assert sup.wait_for_state(10)
+    srv2 = DaemonServer("iso", os.path.join(d, "api2.sock"), supervisor=sup.sock_path, workdir=d,
+                        upgrade=True)
+    srv2.takeover_from_supervisor()
+    assert srv2.instances["/m"].read("/app/f0", 0, -1, d) == files["app/f0"]
+    r, w = os.pipe()
+    served = cachefiles.CachefilesOndemandDaemon(lambda k: (3, lambda o, n: b"abc"[o:o + n]),
+                                                 device=cachefiles.DeviceIO(r))
+    assert protocol.IN_HEADER.size == 40 and served.objects == {}
+    os.close(w); os.close(r)
+    cli.umount("/m"); srv.shutdown(); srv2.shutdown(); sup.stop()
+    import shutil; shutil.rmtree(d)
+    assert not torch.cuda.is_initialized()
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
+    print("LEAKED", bad)
+    sys.exit(1 if bad else 0)
+    """
+)
+
+
+def test_daemon_server_imports_neither_jax_nor_reference():
+    """The serving daemon in a fresh interpreter: a mount under
+    ``NTPU_DISABLE_FUSE=1``, API reads, a supervisor handoff and the
+    cachefiles and FUSE modules, with every CUDA call refused."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _DAEMON_CHILD], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_daemon_spawn_starts_the_port_server(tmp_path):
+    """``Daemon.spawn`` starts ``python -m nydus_snapshotter_tpu_torch.daemon.server``,
+    from any working directory; the process maps no JAX or torch library
+    and serves the API."""
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch.daemon import Daemon, DaemonState
+    from nydus_snapshotter_tpu_torch.daemon.daemon import ConfigState
+
+    d = tempfile.mkdtemp(prefix="sp", dir="/tmp")
+    cwd = os.getcwd()
+    os.chdir(str(tmp_path))
+    try:
+        daemon = Daemon(ConfigState(daemon_id="spawned", api_socket=os.path.join(d, "api.sock"), workdir=d))
+        pid = daemon.spawn()
+    finally:
+        os.chdir(cwd)
+    try:
+        daemon.wait_until_state(DaemonState.READY, timeout=60)
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            argv = [a.decode() for a in f.read().split(b"\0") if a]
+        assert argv[1:3] == ["-m", "nydus_snapshotter_tpu_torch.daemon.server"], argv
+        assert daemon.client().get_daemon_info()["pid"] == pid
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+        # no JAX, and no torch either: the serving side loads no tensor library
+        assert "jaxlib" not in maps and "libtpu" not in maps and "libtorch" not in maps
+    finally:
+        daemon.terminate()
+        daemon.wait(timeout=20)
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    assert not os.path.exists(os.path.join(d, "api.sock"))
+
+
 def test_hybrid_makes_no_cuda_context():
     """``backend="hybrid"`` runs without a device argument, touches no CUDA
     call (each raises in the child) and imports neither jax nor the

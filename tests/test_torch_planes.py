@@ -11,6 +11,7 @@ Chrome export, and the registry's exposition text.
 """
 
 import gzip
+import importlib
 import io
 import json
 import os
@@ -68,6 +69,7 @@ PORTED_SITES = {
     "blobcache.fetch", "blobcache.coalesce", "blobcache.readahead", "blobcache.evict",
     "blobcache.replay", "peer.serve", "peer.fetch", "peer.admit", "peer.member", "peer.tier",
     "peer.hedge", "prov.record", "prov.compile", "prov.adopt", "slo.actuate", "soak.scaleup",
+    "daemon.spawn", "daemon.rpc",
 }
 
 
@@ -591,9 +593,46 @@ FETCH_DRIVERS = {
 }
 
 
+def _drive_daemon_spawn(pkg, tmp_path):
+    m = importlib.import_module(f"{_root(pkg)}.daemon.daemon")
+    m.Daemon(m.ConfigState(daemon_id="site", api_socket=str(tmp_path / f"{pkg}.sock"))).spawn()
+
+
+def _drive_daemon_rpc(pkg, tmp_path):
+    client = importlib.import_module(f"{_root(pkg)}.daemon.client")
+    client.NydusdClient(str(tmp_path / f"{pkg}-none.sock"), timeout=1.0).get_daemon_info()
+
+
+def _root(pkg):
+    return "nydus_snapshotter_tpu_torch" if pkg == "port" else "nydus_snapshotter_tpu"
+
+
+# The serving daemon's sites: the spawn fails before any process starts,
+# the RPC before it connects.
+DAEMON_DRIVERS = {"daemon.spawn": _drive_daemon_spawn, "daemon.rpc": _drive_daemon_rpc}
+
+
+@pytest.mark.parametrize("site", sorted(DAEMON_DRIVERS))
+def test_each_daemon_site_fires_in_both_packages(tmp_path, site):
+    assert set(DRIVERS) | set(FETCH_DRIVERS) | set(DAEMON_DRIVERS) == PORTED_SITES
+    for pkg in ("port", "ref"):
+        fp = PKG[pkg].fp
+        fp.inject(site, "error(OSError:site-chaos)*1")
+        with pytest.raises(OSError, match="site-chaos"):
+            DAEMON_DRIVERS[site](pkg, tmp_path)
+        assert fp.counts().get(site) == 1, pkg
+        other = PKG["ref" if pkg == "port" else "port"].fp
+        assert site not in other.counts(), pkg
+        if site == "daemon.rpc":  # one shot spent: the next call reaches the socket
+            with pytest.raises(OSError) as exc:
+                DAEMON_DRIVERS[site](pkg, tmp_path)
+            assert "site-chaos" not in str(exc.value), pkg
+        fp.clear()
+
+
 @pytest.mark.parametrize("site", sorted(FETCH_DRIVERS))
 def test_each_fetch_side_site_fires_in_both_packages(tmp_path, site):
-    assert set(DRIVERS) | set(FETCH_DRIVERS) == PORTED_SITES
+    assert set(DRIVERS) | set(FETCH_DRIVERS) | set(DAEMON_DRIVERS) == PORTED_SITES
     for pkg in ("port", "ref"):
         fp = PKG[pkg].fp
         fp.inject(site, "error(OSError:site-chaos)*1")
@@ -609,7 +648,7 @@ def test_each_fetch_side_site_fires_in_both_packages(tmp_path, site):
 
 @pytest.mark.parametrize("site", sorted(DRIVERS))
 def test_each_ported_site_fires_in_both_packages(monkeypatch, tmp_path, site):
-    assert set(DRIVERS) | set(FETCH_DRIVERS) == PORTED_SITES
+    assert set(DRIVERS) | set(FETCH_DRIVERS) | set(DAEMON_DRIVERS) == PORTED_SITES
     monkeypatch.setenv("NTPU_PACK_THREADS", "4")
     monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
     for pkg in ("port", "ref"):

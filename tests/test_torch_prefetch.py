@@ -6,9 +6,11 @@ closing the optimizer loop, and ``PrefetchManager``.
 Every portable case of tests/test_prefetch_table.py runs in both packages
 (``pkg``, through ``ported_cases``; the port's ``pack_layer`` on the
 host, ``device="cpu"``), and so does the ``patterns_from_trace`` case of
-tests/test_zran.py (``test_strip_prefix_is_path_boundary_aware``). Left
-out until the serving daemon is ported (ROADMAP.md A14(b)):
-``TestDaemonWarmup::test_mount_warms_prefetch_and_reports_amount``.
+tests/test_zran.py (``test_strip_prefix_is_path_boundary_aware``).
+``TestDaemonWarmup::test_mount_warms_prefetch_and_reports_amount`` spawns
+each package's own daemon: the port twin imports the spawner of
+tests/test_fusedev.py's port twin, which tests/test_torch_daemon.py checks
+runs ``nydus_snapshotter_tpu_torch.daemon.server``.
 
 Cross-package cases: ``patterns_from_trace`` on numpy-seeded traces gives
 equal patterns; ``PrefetchManager``'s per-image lists and their JSON
@@ -24,14 +26,10 @@ import json
 import numpy as np
 import pytest
 
+import tests.test_torch_daemon as _daemon_cases  # noqa: F401  (loads the checked spawner first)
 from tests.test_torch_fetch_sched import ROOTS, SIDES, other_package_still, ported_cases
 
-ported_cases(
-    "test_prefetch_table",
-    globals(),
-    host=("pack_layer",),
-    leave_out=("TestDaemonWarmup::test_mount_warms_prefetch_and_reports_amount",),
-)
+ported_cases("test_prefetch_table", globals(), host=("pack_layer",), twins=("test_fusedev",))
 ported_cases("test_zran", globals(), only=("test_strip_prefix_is_path_boundary_aware",))
 _other_package_still = other_package_still()
 

@@ -8,10 +8,11 @@ over a plain ``read_at`` and over the blob cache's ``CachedBlob.read_at``
 (``daemon.blobcache``, ``daemon.fetch_sched``), the index artifacts
 replicated through the peer tier (``daemon.peer``) and the cache
 manager's accounting of the index companions (``cache.manager``). Left
-out, as ROADMAP.md A14(b)/A15 lists, are the cases that need modules the
-port does not have: ``TestChaos::test_daemon_store_chaos_degrades_to_sequential``
-(the serving daemon's ``_Instance``) and ``TestSociOverGrpc`` (the gRPC
-snapshotter). Cross-package cases feed both
+out, as ROADMAP.md A15 lists, are the cases that need modules the
+port does not have: ``TestSociOverGrpc`` (the gRPC snapshotter).
+``TestChaos::test_daemon_store_chaos_degrades_to_sequential`` reads through
+each package's serving daemon (``daemon.server._Instance``). Cross-package
+cases feed both
 packages the same numpy-seeded layers and hold equal: the index files'
 bytes, a file written by one package and loaded by the other, the
 router's decisions, the parsed TOCs, the adaptor's bootstraps and merged
@@ -69,6 +70,7 @@ MODULES = {
     "fetch_sched": "daemon.fetch_sched",
     "peer": "daemon.peer",
     "cache_manager": "cache.manager",
+    "server": "daemon.server",
 }
 
 
@@ -589,6 +591,32 @@ class TestChaos:
             with pytest.raises(OSError):
                 reader.read_range(0, 1000)
         assert reader.read_range(0, 1000) == raw[:1000]
+
+    def test_daemon_store_chaos_degrades_to_sequential(self, pkg, tmp_path, glayer):
+        """An armed soci.index site must not fail daemon reads: the
+        instance falls back to the sequential in-process reader."""
+        raw, gz, contents = glayer
+        blob_hex = hashlib.sha256(gz).hexdigest()
+        bs = pkg.czran.pack_gzip_layer(gz, pkg.types.PackOption(chunk_size=0x10000, oci_ref=True),
+                                       tar_bytes=raw)
+        blob_dir = str(tmp_path)
+        with open(os.path.join(blob_dir, blob_hex), "wb") as f:
+            f.write(gz)
+        boot = os.path.join(blob_dir, "boot")
+        with open(boot, "wb") as f:
+            f.write(bs.to_bytes())
+        # Index present next to the blob, but the store is chaos-armed.
+        idx, _ = pkg.blob.build_index_from_gzip(blob_hex, gz, stride=STRIDE)
+        idx.save(pkg.index.index_path(blob_dir, blob_hex))
+        path, want = next(iter(contents.items()))
+        with pkg.failpoint.injected("soci.index", "error(OSError)"):
+            inst = pkg.server._Instance("/mnt/x", boot, "{}")
+            got = inst.read(path, 0, -1, blob_dir)
+            assert got == want  # degraded, correct
+            assert not inst._soci_by_index  # sequential fallback took over
+        assert pkg.failpoint.counts().get("soci.index", 0) >= 1
+        assert _other(pkg).failpoint.counts().get("soci.index", 0) == 0
+        inst.close()
 
     @pytest.mark.parametrize("site", ["soci.index", "soci.resolve", "soci.fetch"])
     def test_site_fires_only_its_own_package(self, pkg, glayer, site):
