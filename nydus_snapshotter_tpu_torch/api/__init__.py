@@ -1,3 +1,4 @@
-"""The snapshotter API surface. Only the list filters
-(:mod:`nydus_snapshotter_tpu_torch.api.filters`) are ported so far; the
-gRPC service and client come with the control plane."""
+"""The snapshotter API surface (containerd snapshots.v1-compatible): the
+list filters (:mod:`.filters`), the generated messages
+(:mod:`.snapshots_pb2`, the reference's descriptor byte for byte), the
+gRPC servicer (:mod:`.service`) and its client (:mod:`.client`)."""

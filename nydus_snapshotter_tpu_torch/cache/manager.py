@@ -17,23 +17,10 @@ from __future__ import annotations
 import os
 import threading
 import time
-from dataclasses import dataclass
 from typing import Optional
 
 from nydus_snapshotter_tpu_torch import failpoint
-
-
-@dataclass
-class Usage:
-    """A du result: the reference package's ``snapshot.metastore.Usage``,
-    copied here until this package has ``snapshot/``."""
-
-    size: int = 0
-    inodes: int = 0
-
-    def add(self, other: "Usage") -> None:
-        self.size += other.size
-        self.inodes += other.inodes
+from nydus_snapshotter_tpu_torch.snapshot.metastore import Usage
 
 # Companion-file suffixes of one blob cache entry (manager.go:99-120,
 # plus the seekable-OCI checkpoint indexes — soci/index.py's gzip zran

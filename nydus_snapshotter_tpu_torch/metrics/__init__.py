@@ -1,7 +1,8 @@
 """Metrics: a dependency-free registry rendering the Prometheus text
-exposition format (:mod:`.registry`). The collectors and the HTTP
-listener of the reference package's ``metrics/`` are not part of this
-package."""
+exposition format (:mod:`.registry`), the snapshotter's metric set
+(:mod:`.data`), the ``/proc`` samplers (:mod:`.tool`) and the periodic
+collectors (:mod:`.collector`). The reference package's HTTP listener
+(``metrics/serve.py``) is not ported yet."""
 
 from nydus_snapshotter_tpu_torch.metrics.registry import (
     Counter,

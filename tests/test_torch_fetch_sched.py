@@ -38,12 +38,28 @@ ROOTS = {"ref": "nydus_snapshotter_tpu", "port": "nydus_snapshotter_tpu_torch"}
 _TESTS = Path(__file__).resolve().parent
 
 
+def port_tool(name: str) -> types.ModuleType:
+    """tools/<name>.py compiled again with every ``nydus_snapshotter_tpu``
+    module path pointed at the port, as ``tools.<name>__port``."""
+    key = f"tools.{name}__port"
+    if key in sys.modules:
+        return sys.modules[key]
+    path = _TESTS.parent / "tools" / f"{name}.py"
+    src = path.read_text().replace(ROOTS["ref"], ROOTS["port"]).replace(ROOTS["port"] + "_torch", ROOTS["port"])
+    mod = types.ModuleType(key)
+    mod.__file__ = str(path)
+    sys.modules[key] = mod
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
 def port_twin(
     name: str,
     keep: tuple[str, ...] = (),
     host: tuple[str, ...] = (),
     twins: tuple[str, ...] = (),
     subs: tuple[tuple[str, str], ...] = (),
+    tools: tuple[str, ...] = (),
 ) -> types.ModuleType:
     """tests/<name>.py compiled again with every ``nydus_snapshotter_tpu``
     module path pointed at the port. ``keep`` lists source fragments, as
@@ -57,7 +73,9 @@ def port_twin(
     spawns a daemon spawns the port's. ``subs`` lists (fragment,
     replacement) pairs for the port twin alone: a call of a ``host``
     entry point that the file imports inside a function gets its
-    ``device="cpu"`` this way."""
+    ``device="cpu"`` this way. ``tools`` names modules of tools/ that the
+    file imports helpers from (``from tools.<name> import ...``): the twin
+    imports them from their port copies (``port_tool``)."""
     key = f"tests.{name}__port"
     if key in sys.modules:
         return sys.modules[key]
@@ -67,6 +85,10 @@ def port_twin(
         assert f"tests.{twin}__port" in sys.modules, f"{name}: port twin of {twin} not loaded"
         assert f"from tests.{twin} import" in src, f"{name}: imports nothing of {twin}"
         src = src.replace(f"from tests.{twin} import", f"from tests.{twin}__port import")
+    for tool in tools:
+        assert f"from tools.{tool} import" in src, f"{name}: imports nothing of tools/{tool}"
+        port_tool(tool)
+        src = src.replace(f"from tools.{tool} import", f"from tools.{tool}__port import")
     for frag, repl in subs:
         assert frag in src, f"{name}: {frag!r} not in the reference file"
         src = src.replace(frag, repl)
@@ -130,6 +152,7 @@ def ported_cases(
     only: tuple[str, ...] = (),
     twins: tuple[str, ...] = (),
     subs: tuple[tuple[str, str], ...] = (),
+    tools: tuple[str, ...] = (),
 ) -> None:
     """Collect every case of tests/<name>.py into ``ns`` once per package.
     ``leave_out`` names cases (``Class::method`` or ``function``) whose
@@ -138,7 +161,7 @@ def ported_cases(
     file's autouse fixtures run for both packages; each of its other
     fixtures is collected under its own name and, in a case, takes the
     definition of the case's package."""
-    mods = {"ref": importlib.import_module(f"tests.{name}"), "port": port_twin(name, keep, host, twins, subs)}
+    mods = {"ref": importlib.import_module(f"tests.{name}"), "port": port_twin(name, keep, host, twins, subs, tools)}
     for side, mod in mods.items():
         for attr, obj in list(vars(mod).items()):
             marker = getattr(obj, "_fixture_function_marker", None)
@@ -156,6 +179,10 @@ def ported_cases(
     def wanted(case: str) -> bool:
         return case not in left and (not only or case in only)
 
+    # The reference file's module-level marks (a skip condition) hold for
+    # every case collected from it.
+    module_marks = getattr(mods["ref"], "pytestmark", [])
+    module_marks = list(module_marks) if isinstance(module_marks, list) else [module_marks]
     for attr, obj in list(vars(mods["ref"]).items()):
         if attr.startswith("Test") and inspect.isclass(obj) and obj.__module__ == mods["ref"].__name__:
             body = {
@@ -164,13 +191,13 @@ def ported_cases(
                 if m.startswith("test") and inspect.isfunction(fn) and wanted(f"{attr}::{m}")
             }
             if body:
-                if hasattr(obj, "pytestmark"):
-                    body["pytestmark"] = list(obj.pytestmark)
+                body["pytestmark"] = module_marks + list(getattr(obj, "pytestmark", []))
                 assert attr not in ns, f"{attr} collected twice"
                 ns[attr] = type(attr, (), body)
         elif attr.startswith("test_") and inspect.isfunction(obj) and wanted(attr):
             assert attr not in ns, f"{attr} collected twice"
             ns[attr] = _dispatch(mods, (attr,), obj)
+            ns[attr].pytestmark = module_marks + ns[attr].pytestmark
 
 
 def _counters(side: str) -> dict:

@@ -567,6 +567,78 @@ _DAEMON_CHILD = textwrap.dedent(
 )
 
 
+_SNAPSHOTTER_CHILD = textwrap.dedent(
+    """
+    import os, shutil, sys, tempfile
+    from nydus_snapshotter_tpu_torch import constants as C
+    from nydus_snapshotter_tpu_torch.api import snapshots_pb2 as pb
+    from nydus_snapshotter_tpu_torch.api.client import SnapshotsClient
+    from nydus_snapshotter_tpu_torch.api.service import serve
+    from nydus_snapshotter_tpu_torch.cache.manager import CacheManager
+    from nydus_snapshotter_tpu_torch.config.config import SnapshotterConfig
+    from nydus_snapshotter_tpu_torch.config.daemonconfig import DaemonRuntimeConfig
+    from nydus_snapshotter_tpu_torch.manager import Manager
+    from nydus_snapshotter_tpu_torch.metrics import collector
+    from nydus_snapshotter_tpu_torch.snapshot.snapshotter import Snapshotter
+    from nydus_snapshotter_tpu_torch.store import Database
+    from nydus_snapshotter_tpu_torch.store import boltdb
+
+    # the snapshot, store, api and manager packages load no tensor library
+    assert "torch" not in sys.modules, "torch imported by the control plane"
+    from nydus_snapshotter_tpu_torch.filesystem import Filesystem
+
+    # a root within the 70-byte limit: the temp directory where it is short
+    base = tempfile.gettempdir()
+    d = tempfile.mkdtemp(prefix="isn", dir=base if len(base) <= 48 else "/tmp")
+    cfg = SnapshotterConfig(root=os.path.join(d, "r"))
+    cfg.daemon_mode = C.DAEMON_MODE_NONE
+    cfg.validate()
+    db = Database(cfg.database_path)
+    mgr = Manager(cfg, db, fs_driver=C.FS_DRIVER_FUSEDEV)
+    fs = Filesystem(managers={C.FS_DRIVER_FUSEDEV: mgr}, cache_mgr=CacheManager(cfg.cache_root),
+                    root=cfg.root, fs_driver=C.FS_DRIVER_FUSEDEV, daemon_mode=C.DAEMON_MODE_NONE,
+                    daemon_config=DaemonRuntimeConfig.from_dict({}, C.FS_DRIVER_FUSEDEV))
+    fs.startup()
+    sn = Snapshotter(root=cfg.root, fs=fs)
+    server = serve(sn, os.path.join(d, "g.sock"))
+    client = SnapshotsClient(os.path.join(d, "g.sock"), timeout=10.0)
+    client.prepare("extract-1", "")
+    client.commit("sha256:l1", "extract-1")
+    client.prepare("ctr", "sha256:l1")
+    assert sorted(i.name for i in client.list()) == ["ctr", "sha256:l1"]
+    assert client.stat("sha256:l1").kind == pb.COMMITTED
+    assert client.mounts("ctr")[0].type in ("bind", "overlay")
+    client.remove("ctr"); client.remove("sha256:l1"); client.cleanup()
+    client.close(); server.stop(grace=None); fs.teardown(); sn.close(); mgr.stop()
+    assert list(db.walk_daemons()) == [] and boltdb.MAGIC == 0xED0CDAED
+    assert collector.snapshot_timer is not None
+    db.close()
+    shutil.rmtree(d)
+    assert "torch" not in sys.modules, "torch imported by the filesystem facade"
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
+    print("LEAKED", bad)
+    sys.exit(1 if bad else 0)
+    """
+)
+
+
+def test_snapshotter_stack_imports_neither_jax_nor_reference_nor_torch():
+    """The snapshotter stack in a fresh interpreter: the snapshots service
+    and client, the snapshotter and its metastore, the daemon store and
+    manager, the filesystem facade and the collectors drive a Prepare,
+    Commit, List, Stat, Mounts, Remove and Cleanup over a UDS without
+    loading jax, the reference package or torch."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _SNAPSHOTTER_CHILD], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 def test_daemon_server_imports_neither_jax_nor_reference():
     """The serving daemon in a fresh interpreter: a mount under
     ``NTPU_DISABLE_FUSE=1``, API reads, a supervisor handoff and the

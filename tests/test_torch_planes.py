@@ -70,6 +70,9 @@ PORTED_SITES = {
     "blobcache.replay", "peer.serve", "peer.fetch", "peer.admit", "peer.member", "peer.tier",
     "peer.hedge", "prov.record", "prov.compile", "prov.adopt", "slo.actuate", "soak.scaleup",
     "daemon.spawn", "daemon.rpc",
+    "metastore.create", "metastore.commit", "metastore.remove", "snapshot.prepare",
+    "snapshot.commit", "snapshot.usage", "snapshot.cleanup", "fs.mount", "fs.umount",
+    "manager.restart",
 }
 
 
@@ -612,9 +615,112 @@ def _root(pkg):
 DAEMON_DRIVERS = {"daemon.spawn": _drive_daemon_spawn, "daemon.rpc": _drive_daemon_rpc}
 
 
+def _snapshotter(pkg, tmp_path, **kw):
+    """A snapshotter over tools/snapshot_profile.py's ``LatencyFs`` (the
+    port's copy of the tool for the port) with every worker inline."""
+    if pkg == "port":
+        from tests.test_torch_fetch_sched import port_tool
+
+        latency_fs = port_tool("snapshot_profile").LatencyFs
+    else:
+        latency_fs = importlib.import_module("tools.snapshot_profile").LatencyFs
+    sn = importlib.import_module(f"{_root(pkg)}.snapshot.snapshotter")
+    return sn.Snapshotter(root=str(tmp_path / f"sn-{pkg}"), fs=latency_fs(0, 0), prepare_fanout=0,
+                          usage_workers=0, **kw)
+
+
+def _drive_metastore(site):
+    def drive(pkg, tmp_path):
+        ms = importlib.import_module(f"{_root(pkg)}.snapshot.metastore")
+        store = ms.MetaStore(str(tmp_path / f"ms-{pkg}-{site}.db"))
+        try:
+            store.create_snapshot(ms.KIND_ACTIVE, "k")
+            store.commit_active("k", "layer", ms.Usage())
+            store.remove("layer")
+        finally:
+            store.close()
+
+    return drive
+
+
+def _drive_snapshotter(pkg, tmp_path):
+    C = importlib.import_module(f"{_root(pkg)}.constants")
+    s = _snapshotter(pkg, tmp_path)
+    try:
+        meta = {C.NYDUS_META_LAYER: "true", C.CRI_IMAGE_REF: "img"}
+        s.prepare("p-m", "", {C.TARGET_SNAPSHOT_REF: "r", **meta})
+        s.commit("meta-c", "p-m", meta)
+        s.prepare("rw", "meta-c")
+        s.remove("rw")
+        s.cleanup()
+    finally:
+        s.close()
+
+
+def _filesystem(pkg, tmp_path):
+    m = lambda name: importlib.import_module(f"{_root(pkg)}.{name}")
+    C = m("constants")
+    return m("filesystem").Filesystem(
+        managers={}, cache_mgr=m("cache.manager").CacheManager(str(tmp_path / f"c-{pkg}")),
+        root=str(tmp_path / f"fs-{pkg}"), fs_driver=C.FS_DRIVER_FUSEDEV,
+        daemon_mode=C.DAEMON_MODE_NONE,
+        daemon_config=m("config.daemonconfig").DaemonRuntimeConfig.from_dict({}, C.FS_DRIVER_FUSEDEV),
+    )
+
+
+def _drive_fs_mount(pkg, tmp_path):
+    _filesystem(pkg, tmp_path).mount("1", {})
+
+
+def _drive_fs_umount(pkg, tmp_path):
+    _filesystem(pkg, tmp_path).umount("1")
+
+
+def _drive_manager_restart(pkg, tmp_path):
+    importlib.import_module(f"{_root(pkg)}.manager.manager").Manager.do_daemon_restart(object(), object())
+
+
+# The control plane's sites: each fires at its entry, before any state
+# changes, and its error reaches the caller (the usage scan runs inline).
+CONTROL_DRIVERS = {
+    "metastore.create": _drive_metastore("metastore.create"),
+    "metastore.commit": _drive_metastore("metastore.commit"),
+    "metastore.remove": _drive_metastore("metastore.remove"),
+    "snapshot.prepare": _drive_snapshotter,
+    "snapshot.commit": _drive_snapshotter,
+    "snapshot.usage": _drive_snapshotter,
+    "snapshot.cleanup": _drive_snapshotter,
+    "fs.mount": _drive_fs_mount,
+    "fs.umount": _drive_fs_umount,
+    "manager.restart": _drive_manager_restart,
+}
+
+
+GROUPS = (DRIVERS, FETCH_DRIVERS, DAEMON_DRIVERS, CONTROL_DRIVERS)
+ALL_DRIVERS = {site: drive for group in GROUPS for site, drive in group.items()}
+
+
+def test_every_ported_site_has_one_driver():
+    """The driver tables below fire every ported site, each from one table."""
+    assert set(ALL_DRIVERS) == PORTED_SITES
+    assert len(ALL_DRIVERS) == sum(map(len, GROUPS))
+
+
+@pytest.mark.parametrize("site", sorted(CONTROL_DRIVERS))
+def test_each_control_plane_site_fires_in_both_packages(tmp_path, site):
+    for pkg in ("port", "ref"):
+        fp = PKG[pkg].fp
+        fp.inject(site, "error(OSError:site-chaos)*1")
+        with pytest.raises(OSError, match="site-chaos"):
+            CONTROL_DRIVERS[site](pkg, tmp_path / f"{pkg}1")
+        assert fp.counts().get(site) == 1, pkg
+        other = PKG["ref" if pkg == "port" else "port"].fp
+        assert site not in other.counts(), pkg
+        fp.clear()
+
+
 @pytest.mark.parametrize("site", sorted(DAEMON_DRIVERS))
 def test_each_daemon_site_fires_in_both_packages(tmp_path, site):
-    assert set(DRIVERS) | set(FETCH_DRIVERS) | set(DAEMON_DRIVERS) == PORTED_SITES
     for pkg in ("port", "ref"):
         fp = PKG[pkg].fp
         fp.inject(site, "error(OSError:site-chaos)*1")
@@ -632,7 +738,6 @@ def test_each_daemon_site_fires_in_both_packages(tmp_path, site):
 
 @pytest.mark.parametrize("site", sorted(FETCH_DRIVERS))
 def test_each_fetch_side_site_fires_in_both_packages(tmp_path, site):
-    assert set(DRIVERS) | set(FETCH_DRIVERS) | set(DAEMON_DRIVERS) == PORTED_SITES
     for pkg in ("port", "ref"):
         fp = PKG[pkg].fp
         fp.inject(site, "error(OSError:site-chaos)*1")
@@ -648,7 +753,6 @@ def test_each_fetch_side_site_fires_in_both_packages(tmp_path, site):
 
 @pytest.mark.parametrize("site", sorted(DRIVERS))
 def test_each_ported_site_fires_in_both_packages(monkeypatch, tmp_path, site):
-    assert set(DRIVERS) | set(FETCH_DRIVERS) | set(DAEMON_DRIVERS) == PORTED_SITES
     monkeypatch.setenv("NTPU_PACK_THREADS", "4")
     monkeypatch.setenv("NTPU_PACK_THREADS_FORCE", "1")
     for pkg in ("port", "ref"):
