@@ -10,6 +10,7 @@
     python3 chip_smoke.py --fetch-only    # phases 0-3 and 21 alone
     python3 chip_smoke.py --serve-only    # phases 0-3 and 22 alone
     python3 chip_smoke.py --snapshot-only  # phases 0-3 and 23 alone
+    python3 chip_smoke.py --cli-only       # phases 0-3 and 24 alone
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -470,6 +471,26 @@ Phases (any failure exits non-zero; nothing is caught):
    Printed: ms per RPC (median, p95), ms from each image's first layer
    Prepare to its container's Mounts, ms a read, each index build's time,
    K1 and K2 launches over the phase.
+24. command line — ``cmd.snapshotter.build_stack`` in this process on a
+   config with tarfs on and ``accel_backend = "jax"`` on the card: phase
+   19's tarfs image (behind the registry again) pulled and a container
+   prepared through ``SnapshotsClient``; K2 once per layer, K1, K3 and K4
+   never; every ``layer.boot`` and the ``image.boot`` equal phase 23's (the
+   host route's under ``--cli-only``). Then ``python -m
+   nydus_snapshotter_tpu_torch.cmd.snapshotter --config <toml>`` as a
+   process (system controller, fleet plane, metrics exporter on; a shared
+   daemon): ms to its ready sockets, the same pull and container (ms from
+   the first layer's Prepare to the Mounts); the process holds a CUDA
+   context and its daemon none; its launches, counted at its exit by a
+   ``sitecustomize`` this phase puts on its path, K2 once per layer; the
+   indexes equal; ``SNAP_READS`` seeded files read through the container
+   (the kernel EROFS mount where loop devices are allowed, else the
+   layers' tars by the merged chunk table); ``/v1/metrics`` and the
+   controller's fleet members, federated metrics and daemons scraped;
+   everything removed, SIGTERM: exit 0 within ``CLI_EXIT_S`` (ms printed),
+   no socket, mount or daemon left. fanotify: where ``fanotify_init`` is
+   allowed, ``optimizer-server`` is built and one trace run; else the
+   reason is printed.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -6391,6 +6412,10 @@ def snapshot_phase(dev, tar: bytes, kernels) -> dict:
                 f"reads through the " + ("kernel EROFS mount" if real_mounts else
                                          "layers' tars by the merged chunk table (mounts recorded)")
                 + f": {fmt(reads['tarfs'])}")
+            out["tarfs_boot_sha256"] = {
+                "layers": [hashlib.sha256(Path(tm.layer_meta_file_path(sn.upper_path(s))).read_bytes()).hexdigest()
+                           for s in sids],
+                "image": hashlib.sha256(merged_t).hexdigest()}
             out.update(tarfs_launches=t_launches, index_build_s={s: index_s[s] for s in sids},
                        digest_many_s={c[0]: c[2] for c in digest_calls}, host_index_s=host_s,
                        start_ms={"nydus": nydus_start_ms, "tarfs": tarfs_start_ms})
@@ -6564,14 +6589,410 @@ def snapshot_phase(dev, tar: bytes, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the snapshotter's command line: build_stack, then the process
+# ---------------------------------------------------------------------------
+
+CLI_EXIT_S = 15.0  # SIGTERM must end the snapshotter within this (its gRPC grace is 2 s)
+CLI_READY_S = 180.0
+CLI_LAUNCHES_SITE = """\
+import atexit, json, os, sys
+
+
+def _dump():
+    kernels = {"gear": ("gear_cuda", "KERNEL"), "sha": ("sha256_cuda", "KERNEL"),
+               "probe": ("probe_cuda", "KERNEL"), "b3_leaves": ("blake3_cuda", "LEAVES"),
+               "b3_parents": ("blake3_cuda", "PARENTS")}
+    out = {}
+    for key, (mod, attr) in kernels.items():
+        m = sys.modules.get("nydus_snapshotter_tpu_torch.ops." + mod)
+        out[key] = getattr(m, attr).launches if m is not None else 0
+    with open(os.path.join(os.environ["CHIP_SMOKE_LAUNCHES"], f"{os.getpid()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+atexit.register(_dump)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def children(pid: int) -> list[int]:
+    """The pids whose parent is ``pid``."""
+    import os
+
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            with contextlib.suppress(OSError):
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        out.append(int(d))
+    return out
+
+
+def probe_fanotify() -> str:
+    """'' when this process may call fanotify_init(2) (CAP_SYS_ADMIN), else
+    the operating system's reason."""
+    import os
+
+    libc = ctypes.CDLL("libc.so.6", use_errno=True)
+    fd = libc.fanotify_init(0, os.O_RDONLY)  # FAN_CLASS_NOTIF
+    if fd < 0:
+        return (f"fanotify_init refused: {os.strerror(ctypes.get_errno())} (euid {os.geteuid()}; optimizer-server "
+                "needs fanotify(7) and CAP_SYS_ADMIN)")
+    os.close(fd)
+    return ""
+
+
+def tarfs_pull(client, ref: str, mdigest: str, ldigests: list[str], tag: str) -> list[str]:
+    """containerd's pull transcript of a tarfs image: every layer's Prepare
+    claimed by the tarfs arm (ALREADY_EXISTS) and labelled a tarfs layer.
+    Returns the chains, bottom first."""
+    import grpc
+
+    from nydus_snapshotter_tpu_torch import constants as C
+
+    parent, chains = "", []
+    for i, ld in enumerate(ldigests):
+        chain = f"sha256:{tag}-chain-{i}"
+        labels = {C.CRI_IMAGE_REF: ref, C.CRI_MANIFEST_DIGEST: mdigest, C.CRI_LAYER_DIGEST: ld,
+                  C.CRI_IMAGE_LAYERS: ",".join(ldigests), C.TARGET_SNAPSHOT_REF: chain}
+        try:
+            client.prepare(f"extract-{tag}{i} {chain}", parent, labels)
+            raise AssertionError("a tarfs layer's Prepare did not answer ALREADY_EXISTS")
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.ALREADY_EXISTS:
+                raise
+        if client.stat(chain).labels.get(C.NYDUS_TARFS_LAYER) != ld.split(":", 1)[1]:
+            raise AssertionError(f"layer {i} took no tarfs route (a quiet fallback)")
+        chains.append(chain)
+        parent = chain
+    return chains
+
+
+def cli_phase(dev, tar: bytes, kernels, want_boots: dict | None) -> dict:
+    """Phase 24: the snapshotter's command line. ``cmd.snapshotter.build_stack``
+    in this process on a config with tarfs on and ``accel_backend = "jax"``
+    (the tarfs engine on this card): a tarfs container prepared through
+    ``SnapshotsClient``, K2 once per layer. Then ``python -m
+    nydus_snapshotter_tpu_torch.cmd.snapshotter --config <toml>`` as a
+    process, with the system controller, the fleet plane and the metrics
+    exporter on: the same container prepared over its socket, read, the
+    exporter and the controller scraped, SIGTERM. ``want_boots`` holds the
+    sha256 of phase 23's ``layer.boot`` files and ``image.boot``; without it
+    (``--cli-only``) the engine-less manager builds them on the host."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from nydus_snapshotter_tpu_torch import constants as C
+    from nydus_snapshotter_tpu_torch import tarfs
+    from nydus_snapshotter_tpu_torch.api.client import SnapshotsClient
+    from nydus_snapshotter_tpu_torch.api.service import serve
+    from nydus_snapshotter_tpu_torch.cmd import snapshotter as cli
+    from nydus_snapshotter_tpu_torch.utils import udshttp
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    t_layers = tarfs_layers(tar)
+    reg = OciRegistry()
+    mdigest, ldigests = reg.publish(
+        "v1", [(blob, "sha256:" + hashlib.sha256(raw).hexdigest()) for blob, raw in t_layers],
+        annotations={C.TARFS_HINT: "true"})
+    tref = f"{reg.host}/library/cli:v1"
+    files = merged_view([raw for _b, raw in t_layers])
+    rng = np.random.default_rng(SEED + 24)
+    nonempty = sorted(p for p, v in files.items() if v)
+    reads = [nonempty[i] for i in rng.choice(len(nonempty), SNAP_READS, replace=False)]
+    where = "/dev/shm" if os.path.isdir("/dev/shm") else "/tmp"
+    loop_why = probe_loop_erofs(where)
+    w = Path(tempfile.mkdtemp(prefix="n24", dir=where))
+    out: dict = {"loop_erofs": loop_why or "made", "device": smi}
+    child = None
+    try:
+        held_to = "phase 23's"
+        if want_boots is None:  # --cli-only: the reference's engine-less route on the host
+            held_to = "the host route's"
+            host = tarfs.Manager(cache_dir_path=str(w / "host-cache"), engine=None, insecure=True)
+            uppers = []
+            for i, ld in enumerate(ldigests):
+                uppers.append(str(w / "host" / str(i) / "fs"))
+                os.makedirs(uppers[-1])
+                host.prepare_layer({C.CRI_IMAGE_REF: tref, C.CRI_MANIFEST_DIGEST: mdigest,
+                                    C.CRI_LAYER_DIGEST: ld}, str(i), uppers[-1])
+            for i in range(len(ldigests)):
+                host.wait_layer_ready(str(i), timeout=600)
+            host.merge_layers(type("Snap", (), {"id": "x", "parent_ids": [str(i) for i in
+                                                                          range(len(ldigests))][::-1]})(),
+                              lambda sid: uppers[int(sid)])
+            want_boots = {"layers": [hashlib.sha256(Path(host.layer_meta_file_path(u)).read_bytes()).hexdigest()
+                                     for u in uppers],
+                          "image": hashlib.sha256(Path(host.image_meta_file_path(uppers[-1])).read_bytes()).hexdigest()}
+
+        def boots_of(sn_upper, chains_sids) -> dict:
+            layers = [hashlib.sha256(Path(sn_upper(s), "image", tarfs.LAYER_BOOTSTRAP_NAME).read_bytes()).hexdigest()
+                      for s in chains_sids]
+            image = hashlib.sha256(Path(sn_upper(chains_sids[-1]), "image",
+                                        tarfs.IMAGE_BOOTSTRAP_NAME).read_bytes()).hexdigest()
+            return {"layers": layers, "image": image}
+
+        # -- 1. build_stack in this process: the tarfs engine on this card --------
+        for k in kernels.values():
+            k.launches = 0
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ["--root", str(w / "s" / "r"), "--address", str(w / "s" / "grpc.sock"), "--daemon-mode", "none"]))
+        cfg.experimental.tarfs_enable = True
+        cfg.daemon.accel_backend = "jax"
+        cfg.metrics.address = ""
+        t0 = time.perf_counter()
+        sn, fs, managers, db = cli.build_stack(cfg, device=dev)
+        stack_s = time.perf_counter() - t0
+        eng = fs.tarfs_mgr.engine
+        if eng.backend != "jax" or eng.device != dev:
+            raise AssertionError(f"build_stack gave the tarfs manager {eng.backend} on {eng.device}, not jax on {dev}")
+        index_s: dict[str, float] = {}
+        gen = fs.tarfs_mgr._generate_bootstrap
+
+        def timed_gen(tar_bytes, snapshot_id, blob_id, upper):
+            t1 = time.perf_counter()
+            gen(tar_bytes, snapshot_id, blob_id, upper)
+            index_s[snapshot_id] = time.perf_counter() - t1
+
+        fs.tarfs_mgr._generate_bootstrap = timed_gen
+        server = serve(sn, cfg.address)
+        client = SnapshotsClient(cfg.address, timeout=600.0)
+        try:
+            t0 = time.perf_counter()
+            chains = tarfs_pull(client, tref, mdigest, ldigests, "a")
+            client.prepare("default/24/tarfs-ctr", chains[-1], {C.CRI_IMAGE_REF: tref})
+            mounts = client.mounts("default/24/tarfs-ctr")
+            inproc_ms = (time.perf_counter() - t0) * 1e3
+            sids = [sn.ms.get_snapshot(c).id for c in chains]
+            inproc_launches = {key: k.launches for key, k in kernels.items()}
+            want_l = {key: 0 for key in kernels}
+            want_l.update(sha=len(t_layers))
+            if inproc_launches != want_l:
+                raise AssertionError(f"build_stack's tarfs pull launched {inproc_launches}; want {want_l}")
+            got_boots = boots_of(sn.upper_path, sids)
+            if got_boots != want_boots:
+                raise AssertionError(f"build_stack's tarfs indexes {got_boots} differ from {held_to} {want_boots}")
+            for key in ("default/24/tarfs-ctr", *chains[::-1]):
+                client.remove(key)
+            client.cleanup()
+        finally:
+            client.close()
+            server.stop(grace=None)
+            fs.teardown()
+            sn.close()
+            for m in managers.values():
+                m.stop()
+            db.close()
+        log(f"[24] build_stack (in this process, tarfs on, accel_backend jax on {dev}): stack up in {stack_s:.3f} s; "
+            f"the tarfs container {inproc_ms:.1f} ms from its first layer's Prepare to its Mounts "
+            f"({mounts[0].type}); K2 {inproc_launches['sha']} launches, one per layer index build ("
+            + ", ".join(f"{sid}: {index_s[sid]:.3f} s" for sid in sids)
+            + f"), K1 K3 K4 none; layer.boot x{len(sids)} and image.boot == {held_to}; on {smi}")
+        out.update(build_stack_s=stack_s, build_stack_start_ms=inproc_ms, launches=inproc_launches,
+                   index_build_s=[index_s[s] for s in sids])
+
+        # -- 2. the command line as a process ----------------------------------------
+        cdir = w / "c"
+        (cdir / "site").mkdir(parents=True)
+        (cdir / "site" / "sitecustomize.py").write_text(CLI_LAUNCHES_SITE)
+        metrics_addr = f"127.0.0.1:{free_port()}"
+        toml = cdir / "config.toml"
+        toml.write_text(
+            f'root = "{cdir}/r"\naddress = "{cdir}/grpc.sock"\ndaemon_mode = "shared"\n'
+            f'[system]\naddress = "{cdir}/system.sock"\n[metrics]\naddress = "{metrics_addr}"\n'
+            f'[fleet]\nenable = true\n'
+            f'[log]\nlog_to_stdout = false\nlog_dir = "{cdir}/log"\nlog_level = "info"\n'
+            f'[daemon]\naccel_backend = "jax"\n'
+            f'[experimental]\ntarfs_enable = true\ntarfs_mount_on_host = {"false" if loop_why else "true"}\n')
+        env = {k: v for k, v in os.environ.items() if not k.startswith("NTPU_")}
+        env["PYTHONPATH"] = os.pathsep.join([str(cdir / "site"), str(Path(__file__).resolve().parent)])
+        env["CHIP_SMOKE_LAUNCHES"] = str(cdir / "launches")  # <pid>.json per process at its exit
+        (cdir / "launches").mkdir()
+        argv = [sys.executable, "-m", "nydus_snapshotter_tpu_torch.cmd.snapshotter", "--config", str(toml)]
+        if dev.type == "cpu":  # a rehearsal without the card: the kernels' plain versions
+            argv += ["--device", "cpu"]
+        apps_before = compute_pids()  # nvidia-smi may show another pid namespace's numbers: count them
+        t0 = time.perf_counter()
+        child = subprocess.Popen(argv, cwd=str(cdir), env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        sockets = [cdir / "grpc.sock", cdir / "system.sock"]
+        while not all(p.exists() for p in sockets):
+            if child.poll() is not None or time.perf_counter() - t0 > CLI_READY_S:
+                raise AssertionError(f"the snapshotter never served (rc {child.poll()}): "
+                                     + child.stderr.read().decode(errors="replace")[-3000:]
+                                     if child.poll() is not None else "the snapshotter never served")
+            time.sleep(0.01)
+        ready_ms = (time.perf_counter() - t0) * 1e3
+        daemons = [p for p in children(child.pid) if "nydus_snapshotter_tpu_torch.daemon.server" in
+                   " ".join(Path(f"/proc/{p}/cmdline").read_bytes().decode(errors="replace").split("\0"))]
+        client = SnapshotsClient(str(cdir / "grpc.sock"), timeout=600.0)
+        try:
+            t0 = time.perf_counter()
+            chains = tarfs_pull(client, tref, mdigest, ldigests, "b")
+            client.prepare("default/24/cli-ctr", chains[-1], {C.CRI_IMAGE_REF: tref})
+            mounts = client.mounts("default/24/cli-ctr")
+            cli_ms = (time.perf_counter() - t0) * 1e3
+            apps = compute_pids()
+            c_fds, c_libs = cuda_handles(child.pid)
+            if len(apps) != len(apps_before) + 1 or not c_fds or not any(n.startswith("libcuda.") for n in c_libs):
+                raise AssertionError(f"the snapshotter (pid {child.pid}) holds no CUDA context: compute apps "
+                                     f"{apps} (before it {apps_before}), /dev/nvidia files {c_fds}, libraries "
+                                     f"{c_libs}")
+            if not daemons:
+                raise AssertionError(f"the snapshotter (pid {child.pid}) spawned no daemon")
+            for d in daemons:
+                d_fds, d_libs = cuda_handles(d)
+                if d_fds or any(n.startswith("libcuda.") for n in d_libs):
+                    raise AssertionError(f"its daemon (pid {d}) holds a CUDA context: {d_fds} {d_libs}")
+            # the chains' snapshot directories, by the snapshotter's own metastore file
+            import sqlite3
+
+            with contextlib.closing(sqlite3.connect(f"file:{cdir}/r/snapshots/metadata.db?mode=ro",
+                                                    uri=True)) as con:
+                ids = dict(con.execute("SELECT key, id FROM snapshots").fetchall())
+            sids = [str(ids[c]) for c in chains]
+            upper = lambda sid: str(cdir / "r" / "snapshots" / sid / "fs")  # noqa: E731
+            cli_boots = boots_of(upper, sids)
+            if cli_boots != want_boots:
+                raise AssertionError(f"the process's tarfs indexes {cli_boots} differ from {want_boots}")
+            lower = next(o for o in mounts[0].options if o.startswith("lowerdir=")).split("=", 1)[1].split(":")[-1]
+            if not loop_why:
+                if not mounted([lower]):
+                    raise AssertionError(f"no EROFS mount at {lower}")
+                read_one = lambda p: Path(lower + p).read_bytes()  # noqa: E731
+                how = f"the kernel EROFS mount at {lower}"
+            else:
+                merged_boot = Path(upper(sids[-1]), "image", tarfs.IMAGE_BOOTSTRAP_NAME).read_bytes()
+                read_one = tarfs_host_reader(merged_boot, lambda bid: str(cdir / "r" / "cache" / bid))
+                how = "the layers' tars by the merged chunk table (no loop devices here)"
+            t1 = time.perf_counter()
+            for path in reads:
+                if read_one(path) != files[path]:
+                    raise AssertionError(f"{path}: the container's read differs from the tar")
+            read_s = time.perf_counter() - t1
+            # the metrics exporter and the controller's fleet routes
+            import urllib.request
+
+            with urllib.request.urlopen(f"http://{metrics_addr}/v1/metrics", timeout=30) as resp:
+                exported = resp.read().decode()
+            members = udshttp.get_json(str(cdir / "system.sock"), "/api/v1/fleet/members")
+            status, fed = udshttp.request(str(cdir / "system.sock"), "/api/v1/fleet/metrics")
+            daemons_route = udshttp.get_json(str(cdir / "system.sock"), "/api/v1/daemons")
+            if ("snapshotter_memory_usage_kilobytes" not in exported or status != 200
+                    or "snapshotter" not in [m["name"] for m in members]
+                    or sorted(d["pid"] for d in daemons_route) != sorted(daemons)):
+                raise AssertionError(f"scrapes: exporter {len(exported)} bytes, members {members}, federated "
+                                     f"{status}, daemons {daemons_route}")
+            for key in ("default/24/cli-ctr", *chains[::-1]):
+                client.remove(key)
+            client.cleanup()
+        finally:
+            client.close()
+        t0 = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        try:
+            rc = child.wait(timeout=CLI_EXIT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the snapshotter did not exit within {CLI_EXIT_S} s of SIGTERM") from None
+        exit_ms = (time.perf_counter() - t0) * 1e3
+        err = child.stderr.read().decode(errors="replace")
+        if rc != 0:
+            raise AssertionError(f"the snapshotter exited {rc} on SIGTERM: {err[-3000:]}")
+        deadline = time.perf_counter() + CLI_EXIT_S
+        while any(pid_alive(d) for d in daemons) and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        with open("/proc/mounts") as f:
+            left_mounts = [line.split()[1] for line in f if str(w) in line.split()[1]]
+        left = [p for p in sockets if p.exists()] + left_mounts + [d for d in daemons if pid_alive(d)]
+        if left:
+            raise AssertionError(f"left after SIGTERM: {left}")
+        cli_launches = json.loads((cdir / "launches" / f"{child.pid}.json").read_text())
+        want_l = {key: 0 for key in kernels}
+        want_l.update(sha=len(t_layers))
+        if cli_launches != want_l:
+            raise AssertionError(f"the snapshotter process launched {cli_launches}; want {want_l}")
+        log(f"[24] {' '.join(argv[1:])}: sockets ready {ready_ms:.1f} ms after the start (the system "
+            f"controller, the fleet plane and the metrics exporter on {metrics_addr}; a shared daemon, pid "
+            f"{daemons}); the tarfs container {cli_ms:.1f} ms from its first layer's Prepare to its Mounts "
+            f"({mounts[0].type}); the process holds a CUDA context (one more compute app, {len(c_fds)} /dev/nvidia "
+            f"files, libcuda mapped), its daemon none; K2 {cli_launches['sha']} launches in the process (counted at its exit), K1 K3 K4 "
+            f"none; layer.boot x{len(sids)} and image.boot == build_stack's; {len(reads)} files read through "
+            f"{how} in {read_s:.3f} s, equal; /v1/metrics {len(exported)} bytes, fleet members "
+            f"{[m['name'] for m in members]}, /api/v1/fleet/metrics {len(fed)} bytes; SIGTERM to exit 0 in "
+            f"{exit_ms:.1f} ms, no socket, mount or daemon left; on {smi}")
+        out.update(ready_ms=ready_ms, start_ms=cli_ms, exit_ms=exit_ms, cli_launches=cli_launches,
+                   read_s=read_s, daemons=len(daemons))
+        child = None
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        reg.close()
+        with open("/proc/mounts") as f:
+            for target in [line.split()[1] for line in f if str(w) in line.split()[1]][::-1]:
+                ctypes.CDLL("libc.so.6").umount2(target.encode(), 2)
+        shutil.rmtree(w, ignore_errors=True)
+
+    # -- 3. fanotify: the optimizer-server tracer, where the machine allows it ------
+    fan_why = probe_fanotify()
+    if not fan_why:
+        if not (shutil.which("make") and shutil.which("g++")):
+            fan_why = "no make or g++ on this machine to build optimizer-server"
+    if fan_why:
+        log(f"[24] fanotify: not run, {fan_why}")
+        out["fanotify"] = fan_why
+    else:
+        from nydus_snapshotter_tpu_torch.fanotify import Server, default_binary_path
+        from nydus_snapshotter_tpu_torch.utils import native_build
+
+        binary = default_binary_path()
+        if not os.path.exists(binary):
+            raise AssertionError(f"optimizer-server did not build: {native_build.failure_reason('optimizer-server')}")
+        d = Path(tempfile.mkdtemp(prefix="n24f", dir="/tmp"))
+        try:
+            persist = d / "results" / "app:latest"
+            tracer = Server(binary_path=binary, container_pid=0, image_name="app:latest", persist_file=str(persist))
+            tracer.run_server()
+            try:
+                time.sleep(0.3)
+                victim = str(Path(__file__).resolve())
+                Path(victim).read_bytes()
+                deadline = time.time() + 5
+                while time.time() < deadline and not (persist.exists() and victim in persist.read_text()):
+                    time.sleep(0.05)
+            finally:
+                tracer.stop_server()
+            if victim not in persist.read_text():
+                raise AssertionError("the fanotify trace did not see the file this phase opened")
+            log(f"[24] fanotify: optimizer-server built ({binary}), one trace of this mount namespace "
+                f"saw {victim} ({len(persist.read_text().splitlines())} paths)")
+            out["fanotify"] = "traced"
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[24] {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
     if args not in ([], ["--mesh-only"], ["--ha-only"], ["--convert-only"], ["--registry-only"],
-                    ["--formats-only"], ["--fetch-only"], ["--serve-only"], ["--snapshot-only"]):
+                    ["--formats-only"], ["--fetch-only"], ["--serve-only"], ["--snapshot-only"], ["--cli-only"]):
         print(f"usage: {sys.argv[0]} [--mesh-only | --ha-only | --convert-only | --registry-only | "
-              "--formats-only | --fetch-only | --serve-only | --snapshot-only]", file=sys.stderr)
+              "--formats-only | --fetch-only | --serve-only | --snapshot-only | --cli-only]", file=sys.stderr)
         return 2
     mesh_only = args == ["--mesh-only"]
     ha_only = args == ["--ha-only"]
@@ -6581,6 +7002,7 @@ def main() -> int:
     fetch_only = args == ["--fetch-only"]
     serve_only = args == ["--serve-only"]
     snapshot_only = args == ["--snapshot-only"]
+    cli_only = args == ["--cli-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -6898,6 +7320,14 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                   "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if cli_only:  # phases 0-3, then 24 on phase 4's tar (its indexes held to the host route's)
+        cp = cli_phase(dev, layer_tar(FileGen(SEED + 3).pool(PACK_MIB)), all_kernels, None)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s (--cli-only: phases 0-3 and 24)")
+        print(smi, flush=True)
+        print(json.dumps({"cli": cp}, default=float), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 4. pack -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -7101,6 +7531,9 @@ def main() -> int:
     # -- 23. a container start through the snapshots service: nydus and tarfs images --
     sp = snapshot_phase(dev, tar, all_kernels)
 
+    # -- 24. the snapshotter's command line: build_stack, then the process -----
+    cp = cli_phase(dev, tar, all_kernels, sp["tarfs_boot_sha256"])
+
     def formats_launches(*keys):  # phase 20: per card ref pack; the adaptor path launches none
         out = {name: sum(p["launches"].get(k, 0) for k in keys) for name, p in fm["packs"].items()}
         out["adaptor_prepare_and_merge"] = 0
@@ -7160,6 +7593,7 @@ def main() -> int:
             ha_batch_launches=ha["batch_launches"]["gear"], ociref_launches=ociref_launches("gear"),
             convert_launches=convert_launches("gear"), fetch_launches=fe["launches"]["gear"],
             serve_launches=sv["launches"]["gear"], snapshot_launches=sp["launches"]["gear"],
+            cli_launches=cp["cli_launches"]["gear"], cli_build_stack_launches=cp["launches"]["gear"],
             window_kernel_ms=windowed["window_kernel_ms"], window_bound_ms=windowed["window_bound_ms"]),
         row("sha", "sha256_chunks", pkg + "sha256.cu",
             "nydus_snapshotter_tpu/ops/sha256_pallas.py:125", k2_err, k2_ms, k2_call_ms, k2_plain_ms,
@@ -7180,6 +7614,7 @@ def main() -> int:
             formats_launches=formats_launches("sha"), fetch_launches=fe["launches"]["sha"],
             serve_launches=sv["launches"]["sha"], snapshot_launches=sp["launches"]["sha"],
             snapshot_tarfs_index_builds=len(sp["index_build_s"]),
+            cli_launches=cp["cli_launches"]["sha"], cli_build_stack_launches=cp["launches"]["sha"],
             batch32_kernel_ms=windowed["batch_kernel_ms"], batch32_bound_ms=windowed["batch_bound_ms"],
             chunks_1m_kernel_ms=windowed["k2_1m_kernel_ms"], chunks_1m_bound_ms=windowed["k2_1m_bound_ms"],
             chunks_1m_longest_blocks=windowed["longest_1m_blocks"]),
@@ -7192,6 +7627,7 @@ def main() -> int:
             fused_after_insert_launches=fused_grown["launches"]["probe"],
             mesh_launches=mesh_launches("probe"), fetch_launches=fe["launches"]["probe"],
             serve_launches=sv["launches"]["probe"], snapshot_launches=sp["launches"]["probe"],
+            cli_launches=cp["cli_launches"]["probe"], cli_build_stack_launches=cp["launches"]["probe"],
             ha_replica_probe_launches=ha["replica_probe_launches"],
             ha_promoted_probe_launches=ha["promoted_probe_launches"],
             ha={k: v for k, v in ha.items() if k != "batch_launches"},
@@ -7225,6 +7661,8 @@ def main() -> int:
             fetch_launches=fe["launches"]["b3_leaves"] + fe["launches"]["b3_parents"],
             serve_launches=sv["launches"]["b3_leaves"] + sv["launches"]["b3_parents"],
             snapshot_launches=sp["launches"]["b3_leaves"] + sp["launches"]["b3_parents"],
+            cli_launches=cp["cli_launches"]["b3_leaves"] + cp["cli_launches"]["b3_parents"],
+            cli_build_stack_launches=cp["launches"]["b3_leaves"] + cp["launches"]["b3_parents"],
             fused_gib_per_s=b3["gib_per_s"], pack_fused_wall_s=b3["pack_wall_s"],
             pack_jax_wall_s=b3["pack_jax_wall_s"], windowed_1m_wall_s=b3["windowed_1m_wall_s"]),
     ]}

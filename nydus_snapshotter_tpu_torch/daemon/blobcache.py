@@ -324,12 +324,23 @@ class CachedBlob:
         """A capacity-watermark eviction (cache/manager.py) may unlink the
         cache files under a live instance. The open fd keeps old bytes
         readable but new write-through would land in an unlinked inode —
-        so detect the dropped link and start the cache over."""
+        so detect the dropped link and start the cache over. The link
+        count alone misses it where an open, unlinked file keeps
+        ``st_nlink`` 1 (9p): the path must also still name the fd's
+        inode."""
         try:
-            if os.fstat(self._data_fd).st_nlink > 0:
-                return
+            st = os.fstat(self._data_fd)
         except OSError:
             return
+        if st.st_nlink > 0:
+            try:
+                on_disk = os.stat(self.data_path)
+            except FileNotFoundError:
+                on_disk = None
+            except OSError:
+                return
+            if on_disk is not None and (on_disk.st_dev, on_disk.st_ino) == (st.st_dev, st.st_ino):
+                return
         try:
             os.close(self._data_fd)
         except OSError:

@@ -268,6 +268,11 @@ class CachefilesOndemandDaemon:
                     pass
             self.device.write(f"copen {msg_id},-2".encode())  # -ENOENT
             return
+        # A second OPEN of a live object id replaces it: release the first
+        # (its fd and closer) rather than leak it.
+        stale = self.objects.pop(object_id, None)
+        if stale is not None:
+            self._release(stale)
         self.objects[object_id] = _Object(
             object_id=object_id,
             fd=fd,

@@ -1240,7 +1240,9 @@ class DaemonServer:
     def _erofs_meta_bytes(self, bootstrap_path: str) -> bytes:
         """Kernel-mountable EROFS meta image rendered from a bootstrap
         (internal or real layout), cached per path — the bytes the fsid
-        mount's metadata cookie reads."""
+        mount's metadata cookie reads. The render runs outside the lock;
+        the image is cached only while a bind still names the path, so an
+        open that races ``unbind_blob`` cannot keep an unbound image."""
         meta = self._erofs_meta_cache.get(bootstrap_path)
         if meta is None:
             from nydus_snapshotter_tpu_torch.models.erofs_image import erofs_from_rafs
@@ -1248,7 +1250,9 @@ class DaemonServer:
 
             with open(bootstrap_path, "rb") as f:
                 meta = erofs_from_rafs(load_any_bootstrap(f.read()))
-            self._erofs_meta_cache[bootstrap_path] = meta
+            with self._lock:
+                if bootstrap_path in self._meta_binds.values():
+                    self._erofs_meta_cache[bootstrap_path] = meta
         return meta
 
     def _push_state_async(self) -> None:

@@ -27,8 +27,8 @@ Config: ``[chunk_dict]`` ``shards`` / ``replicas`` /
 env is how the section reaches spawned dict-service processes).
 Failpoints: ``ha.place`` / ``ha.replicate`` / ``ha.promote``. Metrics:
 ``ntpu_dict_ha_*``. The controller side that serves the map
-(``/api/v1/fleet/placement``) is the reference's fleet plane; this
-package carries the member half of ``fleet/``.
+(``/api/v1/fleet/placement``) is ``fleet.FleetPlane`` on the system
+controller (``cmd/snapshotter.py`` attaches a ``PlacementController``).
 """
 
 from __future__ import annotations

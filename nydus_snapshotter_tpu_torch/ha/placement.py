@@ -1,13 +1,13 @@
 """Placement controller: shard -> primary + R replicas over live fleet
 members, with sticky primaries and automatic promotion.
 
-The reference package ticks it from its fleet plane's scrape loop on the
-system controller. Its inputs are injected: ``members_fn`` returns the
+The fleet plane (``fleet.FleetPlane``) ticks it from its scrape loop on
+the system controller. Its inputs are injected: ``members_fn`` returns the
 fleet registry's members (objects with ``name``, ``component``,
 ``address``, ``pid`` and ``extra``), ``liveness_fn`` the scrape liveness
 by name (``{"up": bool, "stale": bool}``), and :meth:`report_down` takes
 peer-reported down signals. ``engine`` is anything with
-``record_event(kind, **fields)`` (the reference's ``SloEngine``).
+``record_event(kind, **fields)`` (``metrics.slo.SloEngine``).
 
 Assignment rules (the minimal-churn contract):
 

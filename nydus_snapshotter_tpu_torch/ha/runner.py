@@ -70,8 +70,8 @@ def main(argv=None) -> int:
     agent = HaAgent(service, cfg=ha_mod.resolve_ha_config(), role=role)
     if role == "replica":
         agent.configure("replica", upstream=args.upstream)
-    service.run(args.listen)
-
+    # The handlers go in before the socket answers: a SIGTERM sent as soon
+    # as the service serves must end it cleanly, not kill it.
     stop = threading.Event()
 
     def _on_signal(_signum, _frame):
@@ -79,6 +79,7 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
+    service.run(args.listen)
     try:
         stop.wait()
     finally:

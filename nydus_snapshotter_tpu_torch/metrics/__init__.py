@@ -1,8 +1,9 @@
 """Metrics: a dependency-free registry rendering the Prometheus text
 exposition format (:mod:`.registry`), the snapshotter's metric set
-(:mod:`.data`), the ``/proc`` samplers (:mod:`.tool`) and the periodic
-collectors (:mod:`.collector`). The reference package's HTTP listener
-(``metrics/serve.py``) is not ported yet."""
+(:mod:`.data`), the ``/proc`` samplers (:mod:`.tool`), the periodic
+collectors (:mod:`.collector`), the HTTP listener serving ``/v1/metrics``
+(:mod:`.serve`, metrics/listener.go:32-53) and the fleet's metrics
+federation (:mod:`.federation`)."""
 
 from nydus_snapshotter_tpu_torch.metrics.registry import (
     Counter,
@@ -12,6 +13,7 @@ from nydus_snapshotter_tpu_torch.metrics.registry import (
     TTLGauge,
     default_registry,
 )
+from nydus_snapshotter_tpu_torch.metrics.serve import MetricsServer
 
 __all__ = [
     "Counter",
@@ -20,4 +22,5 @@ __all__ = [
     "Registry",
     "TTLGauge",
     "default_registry",
+    "MetricsServer",
 ]

@@ -43,9 +43,10 @@ probe bodies are concatenated raw 32-byte digests, answers little-endian
 client of either package talks to a service of the other, and a replica of
 either package tails a primary of the other.
 
-The controller that serves the placement map (``/api/v1/fleet/placement``,
-the reference's fleet plane) is not in this package yet; ``service+ha://``
-clients and runners work against the reference's.
+The controller that serves the placement map (``/api/v1/fleet/placement``)
+is the fleet plane (``fleet.FleetPlane``) on the system controller's
+socket; ``service+ha://`` clients and runners work against either
+package's.
 """
 
 from __future__ import annotations

@@ -230,19 +230,20 @@ class TestServiceDict:
 
 def _ha_batch_equals_reference(tmp_path, corpus, reference, template: str) -> None:
     """A port primary and its port replica behind ``template`` (a ``|``
-    group, or ``service+ha://`` through the reference's fleet plane serving
-    the port's placement map). The primary dies after the first image; the
-    replica is promoted, and the batch equals the reference's."""
-    from nydus_snapshotter_tpu import fleet as jfleet
-    from nydus_snapshotter_tpu.system.system import SystemController
+    group, or ``service+ha://`` through the port's fleet plane and system
+    controller serving the port's placement map). The primary dies after
+    the first image; the replica is promoted, and the batch equals the
+    reference's."""
+    from nydus_snapshotter_tpu_torch import fleet as tfleet
     from nydus_snapshotter_tpu_torch.ha.placement import PlacementController
     from nydus_snapshotter_tpu_torch.ha.replicate import HaAgent
+    from nydus_snapshotter_tpu_torch.system import SystemController
 
     svcs = [pds.DictService(device="cpu") for _ in range(2)]
     for i, svc in enumerate(svcs):
         HaAgent(svc, role="unassigned")
         svc.run(str(tmp_path / f"m{i}.sock"))
-    plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+    plane = tfleet.FleetPlane(cfg=tfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
     pc = PlacementController(plane.registry.members, plane.federator.liveness, shards=1,
                              replicas=1)
     plane.attach_placement(pc)
@@ -251,7 +252,7 @@ def _ha_batch_equals_reference(tmp_path, corpus, reference, template: str) -> No
     bc = None
     try:
         for i, svc in enumerate(svcs):
-            plane.registry.register(jfleet.Member(name=f"dict-{i}", component="dict",
+            plane.registry.register(tfleet.Member(name=f"dict-{i}", component="dict",
                                                   address=svc.sock_path, pid=i + 1))
         pc.tick()
         seat = pc.map()["assignments"][0]["primary"]

@@ -14,8 +14,8 @@ packages' managers over copies of one numpy-seeded cache dir (sizes and
 access times drawn from a seed) give equal usage, equal age-GC and
 watermark removals, and each counts the eviction on its own registry only;
 a ``CachedBlob`` of either package survives the other's eviction. One
-case pins, in both packages, that an eviction goes unseen where an open,
-unlinked file keeps its link count.
+case pins that an eviction goes unseen in the reference where an open,
+unlinked file keeps its link count, and that the port sees it by inode.
 """
 
 from __future__ import annotations
@@ -152,12 +152,14 @@ def test_eviction_under_other_package_cached_blob(tmp_path, evictor, reader):
 
 @pytest.mark.parametrize("side", SIDES)
 def test_eviction_unseen_where_unlinked_file_keeps_its_link(tmp_path, monkeypatch, side):
-    """Both packages notice an eviction through ``fstat(fd).st_nlink == 0``.
-    A filesystem that reports an open, unlinked file with a link count of 1
-    (9p, the card machine's root) hides it: the ``CachedBlob`` goes on
-    serving the evicted bytes from its open file, equal, and fetches
-    nothing; the evicted files stay gone. Pinned in both packages
-    (ROADMAP.md Queue C)."""
+    """A filesystem that reports an open, unlinked file with a link count of
+    1 (9p, the card machine's root) hides an eviction from
+    ``fstat(fd).st_nlink == 0``, the reference's only test: its
+    ``CachedBlob`` goes on serving the evicted bytes from its open file,
+    equal, fetches nothing, and the evicted files stay gone. The port also
+    compares the fd's inode with the path's (ROADMAP.md Queue C, C3): it
+    sees the eviction, fetches again and writes a new cache file. The reads
+    are equal in both packages."""
     real_fstat = os.fstat
 
     def fstat_9p(fd):
@@ -176,8 +178,14 @@ def test_eviction_unseen_where_unlinked_file_keeps_its_link(tmp_path, monkeypatc
         assert _cm(side).CacheManager(str(tmp_path)).gc_watermark(1)
         n = len(calls)
         assert cb.read_at(10, 50_000) == blob[10:50_010]
-        assert len(calls) == n  # the eviction went unseen: nothing re-fetched
-        assert not os.path.exists(tmp_path / ("9f" * 32 + ".blob.data"))
+        data_file = tmp_path / ("9f" * 32 + ".blob.data")
+        if side == "ref":
+            assert len(calls) == n  # the eviction went unseen: nothing re-fetched
+            assert not os.path.exists(data_file)
+        else:
+            assert len(calls) > n  # seen by inode: the range is fetched again
+            assert os.path.exists(data_file)
+            assert cb.read_at(20, 1000) == blob[20:1020]
     finally:
         monkeypatch.undo()
         cb.close()

@@ -28,12 +28,22 @@ import socket
 import stat
 import struct
 import tarfile
+import threading
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 from tests.test_torch_fetch_sched import ROOTS, SIDES, other_package_still, ported_cases
+
+# tests/test_torch_fanotify_nri.py collects TestNativeBuild from the same
+# twin of tests/test_utils_infra.py (one twin module per reference file), so
+# both files pass these substitutions: the port's native builder keeps a
+# target's sources in native/, not beside the target.
+UTILS_INFRA_SUBS = (
+    ('os.path.dirname(os.path.dirname(target)), "chunk_engine", "sha256.h"',
+     'native_build.source_dir("chunk_engine"), "sha256.h"'),
+)
 
 ported_cases(
     "test_cachefiles",
@@ -43,7 +53,7 @@ ported_cases(
 ported_cases(
     "test_utils_infra",
     globals(),
-    keep=("from nydus_snapshotter_tpu.utils import native_build, retry",),
+    subs=UTILS_INFRA_SUBS,
     only=(
         "TestFuseProtocolLayouts::test_header_sizes",
         "TestFuseProtocolLayouts::test_opcode_values_match_kernel",
@@ -349,3 +359,94 @@ def test_meta_cookie_equals_erofs_from_rafs(tmp_path, image, monkeypatch, side):
         blob = f.read()
     assert size == len(blob) and reader(1000, 5000) == blob[1000:6000]
     closer()
+
+
+class _Device:
+    """Captures the daemon's copen writes; tests call ``handle_msg``."""
+
+    def __init__(self):
+        self.writes = []
+
+    def write(self, data: bytes) -> int:
+        self.writes.append(bytes(data))
+        return len(data)
+
+    def ioctl(self, obj_fd: int, req: int, arg: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _open(cf, msg_id: int, object_id: int, cookie: bytes, fd: int) -> bytes:
+    payload = struct.pack("<IIII", 2, len(cookie), fd, 0) + b"v\x00" + cookie
+    return struct.pack("<IIII", msg_id, object_id, cf.OP_OPEN, 16 + len(payload)) + payload
+
+
+def test_port_duplicate_open_releases_the_first_object(tmp_path):
+    """OPEN object 5 with fd r1, OPEN object 5 again with fd r2, CLOSE
+    object 5: the port's daemon closes both fds and runs both closers (the
+    second OPEN replaces the first and releases it; ROADMAP.md Queue C,
+    C1). Both OPENs are answered with the blob's size."""
+    cf = PORT.cachefiles
+    closed = []
+    blob = bytes(range(256)) * 16
+
+    def resolver(key):
+        return len(blob), lambda off, ln: blob[off:off + ln], lambda: closed.append(key)
+
+    dev = _Device()
+    daemon = cf.CachefilesOndemandDaemon(resolver, device=dev)
+    r1 = os.open(str(tmp_path / "o1"), os.O_RDWR | os.O_CREAT)
+    r2 = os.open(str(tmp_path / "o2"), os.O_RDWR | os.O_CREAT)
+    daemon.handle_msg(_open(cf, 1, 5, b"blob-a", r1))
+    daemon.handle_msg(_open(cf, 2, 5, b"blob-a", r2))
+    daemon.handle_msg(struct.pack("<IIII", 3, 5, cf.OP_CLOSE, 16))
+    assert dev.writes == [f"copen 1,{len(blob)}".encode(), f"copen 2,{len(blob)}".encode()]
+    assert closed == ["blob-a", "blob-a"] and 5 not in daemon.objects
+    for fd in (r1, r2):
+        with pytest.raises(OSError):
+            os.fstat(fd)
+
+
+def test_port_meta_cache_drops_an_image_unbound_during_its_render(tmp_path, image, monkeypatch):
+    """An open of the EROFS meta cookie renders outside the daemon's lock.
+    With an ``unbind_blob`` of that bind forced between the render and the
+    insert, the port's daemon still serves the rendered image to that open
+    but does not cache it (ROADMAP.md Queue C, C2): after the unbind no
+    cache entry names the path."""
+    from nydus_snapshotter_tpu.tarfs.bootstrap import tarfs_bootstrap_from_tar
+
+    p = PORT
+    boot = tmp_path / "tarfs.boot"
+    boot.write_bytes(tarfs_bootstrap_from_tar(io.BytesIO(image.tar), "cd" * 32).to_bytes())
+    monkeypatch.setattr(p.cachefiles, "supported", lambda: False)
+    srv = p.server.DaemonServer("cf-race", str(tmp_path / "api.sock"), workdir=str(tmp_path))
+    srv.bind_blob(json.dumps({"id": image.blob_id, "metadata_path": str(boot), "fscache_id": "fsid-7"}))
+    rendered = threading.Event()
+    unbound = threading.Event()
+    render = p.erofs.erofs_from_rafs
+
+    def paused_render(bs):
+        out = render(bs)
+        rendered.set()
+        assert unbound.wait(10)
+        return out
+
+    monkeypatch.setattr(p.erofs, "erofs_from_rafs", paused_render)
+    got = {}
+    opener = threading.Thread(target=lambda: got.update(r=srv._resolve_cachefiles_cookie("fsid-7")))
+    opener.start()
+    assert rendered.wait(10)
+    srv.unbind_blob("fsid-7", image.blob_id)
+    unbound.set()
+    opener.join(10)
+    size, reader, _ = got["r"]
+    want = REF.erofs.erofs_from_rafs(REF.real.load_any_bootstrap(boot.read_bytes()))
+    assert size == len(want) and reader(0, size) == want
+    assert str(boot) not in srv._erofs_meta_cache and not srv._meta_binds
+    # a bind that stays keeps its rendered image cached
+    monkeypatch.setattr(p.erofs, "erofs_from_rafs", render)
+    srv.bind_blob(json.dumps({"id": image.blob_id, "metadata_path": str(boot), "fscache_id": "fsid-8"}))
+    srv._resolve_cachefiles_cookie("fsid-8")
+    assert srv._erofs_meta_cache[str(boot)] == want

@@ -11,7 +11,7 @@ probe RPC on a primary or a replica is one ``lookup_u32`` through kernel
 K3's plain version. Then the cross-package checks: equal placement maps on
 the same member and liveness sequences, a reference primary tailed by a
 port replica and the reverse, a replica tail that crosses an index
-rebuild, a ``service+ha://`` batch resolved through the reference's fleet
+rebuild, a ``service+ha://`` batch resolved through the port's fleet
 plane and system controller with the port's placement controller attached
 (a primary killed mid-batch, its replica promoted), byte-identical to the
 reference's batch, and the port's runner as a child process on the CPU.
@@ -46,7 +46,6 @@ from nydus_snapshotter_tpu.ha import replicate as jreplicate
 from nydus_snapshotter_tpu.ha import resolve_ha_config as j_resolve_ha_config
 from nydus_snapshotter_tpu.metrics.slo import SloEngine
 from nydus_snapshotter_tpu.parallel import dict_service as jds
-from nydus_snapshotter_tpu.system.system import SystemController
 from nydus_snapshotter_tpu.utils import udshttp as judshttp
 from nydus_snapshotter_tpu_torch import failpoint as tfp
 from nydus_snapshotter_tpu_torch import fleet as tfleet
@@ -56,6 +55,7 @@ from nydus_snapshotter_tpu_torch.ha import placement as tplacement
 from nydus_snapshotter_tpu_torch.ha import replicate as treplicate
 from nydus_snapshotter_tpu_torch.ha import resolve_ha_config as t_resolve_ha_config
 from nydus_snapshotter_tpu_torch.parallel import dict_service as tds
+from nydus_snapshotter_tpu_torch.system import SystemController
 from nydus_snapshotter_tpu_torch.utils import udshttp as tudshttp
 
 REPO = Path(__file__).resolve().parent.parent
@@ -416,8 +416,8 @@ class TestPlacement:
 
     @BOTH
     def test_fleet_placement_routes(self, pkg):
-        """The reference's fleet plane serves either package's controller."""
-        plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+        """The port's fleet plane serves either package's controller."""
+        plane = tfleet.FleetPlane(cfg=tfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
         members = _members(2)
         pc = PKG[pkg].PlacementController(lambda: members, lambda: _live(members),
                                           shards=1, replicas=1, engine=plane.slo)
@@ -610,7 +610,7 @@ class TestPlannedDemotion:
         status, _body = PKG[pkg].udshttp.request(svc.sock_path, "/api/v1/ha/demote",
                                                  method="POST", body=b"{}")
         assert status == 409
-        plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+        plane = tfleet.FleetPlane(cfg=tfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
         status, _ctype, _body = plane.handle("POST", "/api/v1/fleet/placement/demote", {},
                                              b'{"shard": 0}')
         assert status == 404
@@ -776,12 +776,13 @@ def _parse_delta(payload: bytes):
 
 
 def test_service_ha_batch_through_reference_controller(stack, tmp_path):
-    """``service+ha://`` resolved through the reference's fleet plane and
-    system controller, with the port's placement controller attached over
-    two port members. The primary is killed after the first image; a down
-    report and a tick promote the replica, and the batch's blobs and
-    bootstraps equal the reference's private-dict batch."""
-    plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+    """``service+ha://`` resolved through the port's fleet plane and system
+    controller (the reference's until they were ported; the name stays),
+    with the port's placement controller attached over two port members.
+    The primary is killed after the first image; a down report and a tick
+    promote the replica, and the batch's blobs and bootstraps equal the
+    reference's private-dict batch."""
+    plane = tfleet.FleetPlane(cfg=tfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
     pc = tplacement.PlacementController(plane.registry.members, plane.federator.liveness,
                                         shards=1, replicas=1, engine=plane.slo)
     plane.attach_placement(pc)
@@ -791,7 +792,7 @@ def test_service_ha_batch_through_reference_controller(stack, tmp_path):
     try:
         svcs = [stack("port", f"m{i}", role="unassigned") for i in range(2)]
         for i, s in enumerate(svcs):
-            plane.registry.register(jfleet.Member(name=f"dict-{i}", component="dict",
+            plane.registry.register(tfleet.Member(name=f"dict-{i}", component="dict",
                                                   address=s.sock_path, pid=i + 1))
         pc.tick()
         seat = pc.map()["assignments"][0]

@@ -357,18 +357,19 @@ class TestPackThroughService:
         """Refused until the HA plane was ported (same name): both packages
         now open a ``|`` group (the first address is the shard's route key,
         the rest its failover candidates) and ``service+ha://`` (shards and
-        candidates from the placement map, served here by the reference's
-        fleet plane with the port's placement controller) alike."""
-        from nydus_snapshotter_tpu import fleet as jfleet
-        from nydus_snapshotter_tpu.system.system import SystemController
+        candidates from the placement map, served here by the port's fleet
+        plane and system controller with the port's placement controller)
+        alike."""
+        from nydus_snapshotter_tpu_torch import fleet as tfleet
         from nydus_snapshotter_tpu_torch.ha.placement import PlacementController
+        from nydus_snapshotter_tpu_torch.system import SystemController
 
         svc = pool("port")
-        plane = jfleet.FleetPlane(cfg=jfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
+        plane = tfleet.FleetPlane(cfg=tfleet.FleetRuntimeConfig(enable=True), slo_objectives=[])
         pc = PlacementController(plane.registry.members, plane.federator.liveness, shards=1,
                                  replicas=0)
         plane.attach_placement(pc)
-        plane.registry.register(jfleet.Member(name="dict-0", component="dict",
+        plane.registry.register(tfleet.Member(name="dict-0", component="dict",
                                               address=svc.sock_path, pid=1))
         pc.tick()
         ctl = SystemController(fs=None, managers=[], sock_path=str(tmp_path / "ctl.sock"),

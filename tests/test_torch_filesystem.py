@@ -10,10 +10,8 @@ the host, ``device="cpu"``), and so do the ``store.boltdb`` cases of
 tests/test_fuzz_parsers.py and the ``store`` cases of
 tests/test_reference_fixtures.py (which skip in both packages where the
 reference tree's bbolt fixtures are absent). Each daemon a port case
-spawns is checked to run the port's server. Left out until
-``system/`` is ported: ``TestRollingUpgrade::test_rest_upgrade_preserves_reads``
-(the system controller's upgrade route). Left out until the fleet server
-half and the scenario runner are ported:
+spawns is checked to run the port's server. Left out until the
+scenario runner is ported:
 ``TestRegistry::test_known_sites_catalog_is_wired``, which wants every
 cataloged site fired somewhere in the package; its port counterpart,
 tests/test_torch_planes.py::test_catalog_equal_and_ported_sites_wired,
@@ -58,7 +56,6 @@ ported_cases(
     "test_daemon_lifecycle",
     globals(),
     host=("pack_layer",),
-    leave_out=("TestRollingUpgrade::test_rest_upgrade_preserves_reads",),
 )
 ported_cases(
     "test_failpoint_chaos",

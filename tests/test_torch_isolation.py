@@ -623,6 +623,83 @@ _SNAPSHOTTER_CHILD = textwrap.dedent(
 )
 
 
+_CLI_CHILD = textwrap.dedent(
+    """
+    import os, shutil, signal, sys, tempfile, threading, time
+    from nydus_snapshotter_tpu_torch.cmd import snapshotter as cli
+
+    base = tempfile.gettempdir()
+    d = tempfile.mkdtemp(prefix="isc", dir=base if len(base) <= 48 else "/tmp")
+    backend = sys.argv[1]
+    toml = os.path.join(d, "config.toml")
+    with open(toml, "w") as f:
+        f.write(f'root = "{d}/r"\\naddress = "{d}/grpc.sock"\\ndaemon_mode = "none"\\n'
+                f'[system]\\naddress = "{d}/system.sock"\\n[metrics]\\naddress = "127.0.0.1:0"\\n'
+                f'[fleet]\\nenable = true\\n[log]\\nlog_to_stdout = false\\n'
+                f'[experimental]\\ntarfs_enable = {"true" if backend == "jax" else "false"}\\n'
+                f'[daemon]\\naccel_backend = "{backend}"\\n')
+    argv = ["--config", toml] + (["--device", "cpu"] if backend == "jax" else [])
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    assert cfg.system.enable and cfg.fleet.enable and cfg.daemon.accel_backend == backend
+    if backend == "jax":
+        sn, fs, managers, db = cli.build_stack(cfg, device="cpu")
+        assert fs.tarfs_mgr.engine.device.type == "cpu" and fs.tarfs_mgr.engine.backend == "jax"
+        sn.close()
+        assert "torch" in sys.modules, "the card lane's engine loaded no torch"
+    else:
+        served = []
+
+        def drive():
+            from nydus_snapshotter_tpu_torch.api.client import SnapshotsClient
+            from nydus_snapshotter_tpu_torch.utils import udshttp
+
+            deadline = time.time() + 60
+            while not (os.path.exists(cfg.address) and os.path.exists(cfg.system.address)):
+                assert time.time() < deadline, "the snapshotter never served"
+                time.sleep(0.02)
+            client = SnapshotsClient(cfg.address, timeout=10.0)
+            client.prepare("ctr", "")
+            served.append(sorted(i.name for i in client.list()))
+            client.close()
+            served.append([m["name"] for m in udshttp.get_json(cfg.system.address, "/api/v1/fleet/members")])
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        t = threading.Thread(target=drive)
+        t.start()
+        assert cli.main(argv) == 0
+        t.join()
+        assert served == [["ctr"], ["snapshotter"]], served
+        assert not os.path.exists(cfg.system.address)
+        assert "torch" not in sys.modules, "torch imported by the default snapshotter"
+    shutil.rmtree(d)
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
+    print("LEAKED", bad)
+    sys.exit(1 if bad else 0)
+    """
+)
+
+
+@pytest.mark.parametrize("backend", ["hybrid", "jax"])
+def test_snapshotter_cli_imports_neither_jax_nor_reference(backend):
+    """``cmd.snapshotter`` in a fresh interpreter. Under the default config
+    (``hybrid``, tarfs off; here with ``daemon_mode = "none"`` and the
+    sockets in a temporary directory) ``main`` serves a Prepare, the system
+    controller lists the fleet plane's own member, SIGTERM ends it with 0,
+    and neither jax, the reference package nor torch is loaded. With
+    ``accel_backend = "jax"`` and tarfs on, ``build_stack`` gives the tarfs
+    manager the card lane's engine (here on ``--device cpu``): torch is
+    loaded, jax and the reference still are not."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and not k.startswith("NTPU_")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_CHILD, backend], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 def test_snapshotter_stack_imports_neither_jax_nor_reference_nor_torch():
     """The snapshotter stack in a fresh interpreter: the snapshots service
     and client, the snapshotter and its metastore, the daemon store and

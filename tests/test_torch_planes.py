@@ -72,7 +72,7 @@ PORTED_SITES = {
     "daemon.spawn", "daemon.rpc",
     "metastore.create", "metastore.commit", "metastore.remove", "snapshot.prepare",
     "snapshot.commit", "snapshot.usage", "snapshot.cleanup", "fs.mount", "fs.umount",
-    "manager.restart",
+    "manager.restart", "fleet.scrape", "fleet.collect",
 }
 
 
@@ -241,7 +241,7 @@ def test_catalog_equal_and_ported_sites_wired():
     assert wired == PORTED_SITES
     assert PORTED_SITES <= set(tfp.KNOWN_SITES)
     not_ported = set(tfp.KNOWN_SITES) - PORTED_SITES
-    assert "fleet.collect" in not_ported
+    assert not_ported == {"scenario.phase", "soak.wave", "soak.evolve"}  # the scenario runner's
 
 
 def _drive_pack(pkg):
@@ -696,7 +696,49 @@ CONTROL_DRIVERS = {
 }
 
 
-GROUPS = (DRIVERS, FETCH_DRIVERS, DAEMON_DRIVERS, CONTROL_DRIVERS)
+def _fleet_plane(pkg):
+    fleet = importlib.import_module(f"{_root(pkg)}.fleet")
+    plane = fleet.FleetPlane(cfg=fleet.FleetRuntimeConfig(enable=True, scrape_interval_secs=60.0))
+    plane.register_local("site")
+    return plane
+
+
+def _drive_fleet_scrape(pkg, tmp_path):
+    if _fleet_plane(pkg).federator.scrape_once()["errors"]:
+        raise OSError("site-chaos: a member's scrape failed")
+
+
+def _drive_fleet_collect(pkg, tmp_path):
+    if _fleet_plane(pkg).collector.collect()["fleet"]["errors"]:
+        raise OSError("site-chaos: a member's trace pull failed")
+
+
+# The fleet controller's sites: a member's failed scrape or trace pull is
+# counted against that member and the federated answer goes on, so the
+# drivers raise when the answer counts an error.
+FLEET_DRIVERS = {"fleet.scrape": _drive_fleet_scrape, "fleet.collect": _drive_fleet_collect}
+
+
+@pytest.mark.parametrize("site", sorted(FLEET_DRIVERS))
+def test_each_fleet_site_fires_in_both_packages(monkeypatch, tmp_path, site):
+    for pkg in ("port", "ref"):
+        # the plane claims the process's member slot: give it back after
+        monkeypatch.setattr(importlib.import_module(f"{_root(pkg)}.fleet"), "_self_member", None)
+        fp = PKG[pkg].fp
+        fed = importlib.import_module(f"{_root(pkg)}.metrics.federation")
+        before = fed.FLEET_SCRAPE_ERRORS.value("site") or 0
+        fp.inject(site, "error(OSError:site-chaos)*1")
+        with pytest.raises(OSError, match="site-chaos"):
+            FLEET_DRIVERS[site](pkg, tmp_path)
+        assert fp.counts().get(site) == 1, pkg
+        assert fed.FLEET_SCRAPE_ERRORS.value("site") == before + 1, pkg
+        other = PKG["ref" if pkg == "port" else "port"].fp
+        assert site not in other.counts(), pkg
+        FLEET_DRIVERS[site](pkg, tmp_path)  # one shot spent: the next round is clean
+        fp.clear()
+
+
+GROUPS = (DRIVERS, FETCH_DRIVERS, DAEMON_DRIVERS, CONTROL_DRIVERS, FLEET_DRIVERS)
 ALL_DRIVERS = {site: drive for group in GROUPS for site, drive in group.items()}
 
 

@@ -8,16 +8,10 @@ the 16-pod conservation storm and the heat closed loop.
 Every portable case of tests/test_provenance.py and
 tests/test_provenance_storm.py runs in both packages (``pkg``, through
 ``ported_cases``: the reference's own bodies, sizes and tolerances), and
-the other package's counters must not move in any of them. Left out until
-their modules exist (ROADMAP.md A15):
-
-- ``TestCollectorTiming::test_collect_once_observes_per_collector_seconds``
-  and ``::test_failing_collector_still_timed`` start
-  ``metrics.serve.MetricsServer`` and read ``metrics.data``;
-- ``TestFleetFederation::test_fleet_provenance_route_joins_members`` and
-  ``::test_member_pull_failure_degrades`` run the fleet controller
-  (``fleet.FleetPlane``, the server half), which federates the ledger of
-  its own process.
+the other package's counters must not move in any of them. That includes
+the collector timing of ``metrics.serve.MetricsServer`` and the fleet
+controller (``fleet.FleetPlane``), which federates the ledger of its own
+process.
 
 Cross-package cases, on numpy-seeded reads: both ledgers fed the same
 fetch and read events agree on conservation, snapshots and heat extents;
@@ -34,17 +28,7 @@ import pytest
 
 from tests.test_torch_fetch_sched import ROOTS, SIDES, other_package_still, ported_cases
 
-ported_cases(
-    "test_provenance",
-    globals(),
-    keep=("from nydus_snapshotter_tpu.metrics import data",),
-    leave_out=(
-        "TestCollectorTiming::test_collect_once_observes_per_collector_seconds",
-        "TestCollectorTiming::test_failing_collector_still_timed",
-        "TestFleetFederation::test_fleet_provenance_route_joins_members",
-        "TestFleetFederation::test_member_pull_failure_degrades",
-    ),
-)
+ported_cases("test_provenance", globals())
 ported_cases("test_provenance_storm", globals())
 _other_package_still = other_package_still()
 

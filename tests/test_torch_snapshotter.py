@@ -8,10 +8,7 @@ tests/test_snapshot_concurrency.py and tests/test_containerd_transcript.py
 are in tests/test_torch_snapshot_concurrency.py, since their fixtures
 share names with these). tests/test_grpc_service.py imports ``FakeFs``
 from tests/test_snapshotter.py, and its port twin imports it from that
-file's port twin, whose fake raises the port's errdefs. Left out until
-``cmd/snapshotter.py`` is ported:
-``TestCliEntry::test_cli_builds_and_serves`` (it builds the stack through
-``cmd.snapshotter.build_stack``).
+file's port twin, whose fake raises the port's errdefs.
 
 ``tmp_path`` is a short directory in the temp directory (or /tmp where
 that is too long) in this file and in every
@@ -123,12 +120,7 @@ def spawns_own_server():
 tmp_path = short_tmp_path()
 SNAPSHOTTER = port_twin("test_snapshotter")
 ported_cases("test_snapshotter", globals())
-ported_cases(
-    "test_grpc_service",
-    globals(),
-    twins=("test_snapshotter",),
-    leave_out=("TestCliEntry::test_cli_builds_and_serves",),
-)
+ported_cases("test_grpc_service", globals(), twins=("test_snapshotter",))
 _other_package_still = other_package_still()
 _spawns_own_server = spawns_own_server()
 

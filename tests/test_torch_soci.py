@@ -7,9 +7,9 @@ tests/test_soci_backend.py runs in both packages (``pkg``): the readers
 over a plain ``read_at`` and over the blob cache's ``CachedBlob.read_at``
 (``daemon.blobcache``, ``daemon.fetch_sched``), the index artifacts
 replicated through the peer tier (``daemon.peer``) and the cache
-manager's accounting of the index companions (``cache.manager``). Left
-out, as ROADMAP.md A15 lists, are the cases that need modules the
-port does not have: ``TestSociOverGrpc`` (the gRPC snapshotter).
+manager's accounting of the index companions (``cache.manager``).
+``TestSociOverGrpc`` (the gRPC snapshotter) runs in
+tests/test_torch_grpc_stargz.py beside the other snapshots-service twins.
 ``TestChaos::test_daemon_store_chaos_degrades_to_sequential`` reads through
 each package's serving daemon (``daemon.server._Instance``). Cross-package
 cases feed both
