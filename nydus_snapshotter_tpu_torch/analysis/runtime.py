@@ -28,6 +28,7 @@ per-span hot path; see trace/ring.py).
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 import threading
@@ -48,6 +49,21 @@ _seen_cycles: set = set()
 # Eraser state per annotated variable name.
 _vars: dict[str, dict] = {}
 _races: list[dict] = []
+
+
+# A thread's identity for the lockset state: drawn once per thread from a
+# counter, never reused. ``threading.get_ident()`` is reused as soon as a
+# thread ends, so a thread started after another one joined would be taken
+# for it and a race between the two would go unseen.
+_thread_tokens = itertools.count(1)
+
+
+def _thread_token() -> int:
+    try:
+        return _tls.token
+    except AttributeError:
+        t = _tls.token = next(_thread_tokens)
+        return t
 
 
 def _held() -> list:
@@ -200,7 +216,7 @@ def note(name: str, write: bool = True) -> None:
     ``ENABLED`` so the disabled path costs one global load."""
     if not ENABLED:
         return
-    tid = threading.get_ident()
+    tid = _thread_token()
     lockset = frozenset(h.name for h in _held())
     where = _caller()
     with _meta:

@@ -29,6 +29,9 @@ The arms, each with the reference's return conventions
 - chunk-dict tables: ``ntpu_dict_build``/``insert``/``upsert``/``probe``,
   which ``parallel/sharded_dict`` grows, persists and host-probes with.
 
+``NTPU_CHUNK_ENGINE_SO`` loads a library its caller built instead of
+the source-hashed one (read once, at the first :func:`load`).
+
 The SIMD arms are chosen at run time; ``NTPU_GEAR_FORCE_ISA``,
 ``NTPU_CDC_FORCE_ISA`` and ``NTPU_B3_FORCE_ISA`` pin them, read once per
 process inside the library (:func:`gear_active_isa`, :func:`cdc_active_isa`
@@ -104,14 +107,28 @@ def build() -> Path:
     return out
 
 
+def _lib_path() -> str:
+    """``NTPU_CHUNK_ENGINE_SO`` names an engine library its caller built
+    (an instrumented build, say the ASan/UBSan arm loaded in a child with
+    libasan preloaded); without it, the source-hashed build of
+    :func:`build`."""
+    override = os.environ.get("NTPU_CHUNK_ENGINE_SO")
+    if override:
+        if not os.path.exists(override):
+            raise FileNotFoundError(f"NTPU_CHUNK_ENGINE_SO names no file: {override}")
+        return override
+    return str(build())
+
+
 def load() -> ctypes.CDLL:
-    """The engine library, built on first use per checkout and bound with
-    the reference's argtypes."""
+    """The engine library, built on first use per checkout (or the one
+    ``NTPU_CHUNK_ENGINE_SO`` names) and bound with the reference's
+    argtypes."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(_lib_path())
         i64, u32, vp = ctypes.c_int64, ctypes.c_uint32, ctypes.c_void_p
         cdc_args = [
             vp, i64,  # data, n

@@ -19,15 +19,24 @@ phases** into one gated end-to-end run:
   bindings, fault schedule and SLO budget;
 - :mod:`scenario.arrivals` and :mod:`scenario.evolution` — the soak's
   arrival process and corpus-evolution (drift) model, pure functions of
-  ``(seed, epoch)``.
+  ``(seed, epoch)``;
+- :mod:`scenario.orchestrator` — the runner: drives the REAL converter,
+  snapshot control plane, blobcache/peer data plane, cache GC and SLO
+  engine through the spec, replayable serially for byte-identity, with
+  an end-state metastore/cache audit; its shard-failover arm keeps the
+  dict services' indexes on ``device`` (CUDA unless the caller asks for
+  the CPU);
+- :mod:`scenario.soak` and :mod:`scenario.sentinel` — the endurance loop
+  (epochs of arrival waves over an evolving corpus, the closed-loop
+  scale-up policy) and its leak sentinels.
 
-The runner that drives a spec (the reference's ``scenario/orchestrator.py``,
-with ``soak.py`` and ``sentinel.py``) needs the snapshot control plane, the
-blob cache, the peer tier and the SLO engine, which the port does not have
-yet; the spec catalog lives in ``misc/scenarios/``.
+The spec catalog lives in ``misc/scenarios/``; ``chip_smoke.py
+--scenario-only`` runs ``worst_day.toml`` and ``soak_smoke.toml`` on the
+card.
 
-Metrics: ``ntpu_scenario_*``, registered here for the runner to count
-into. Config: ``[scenario]`` with ``NTPU_SCENARIO*`` env overrides.
+Failpoint: ``scenario.phase`` fires at every phase entry (an armed error
+fails the run loudly, naming the phase). Metrics: ``ntpu_scenario_*``.
+Config: ``[scenario]`` with ``NTPU_SCENARIO*`` env overrides.
 """
 
 from __future__ import annotations

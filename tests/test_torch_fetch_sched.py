@@ -143,6 +143,26 @@ def _dispatch(mods: dict, path: tuple[str, ...], fn):
     return case
 
 
+def _class_autouse(mods: dict, cls: str, name: str, scope: str):
+    """A class's autouse fixture for the collected class: each case runs the
+    fixture of its own package's class (an instance of it as ``self``, its
+    other arguments from the case's fixtures)."""
+
+    def fixture(self, request):
+        owner = getattr(mods[request.getfixturevalue("pkg")], cls)
+        fn = vars(owner)[name]._get_wrapped_function()
+        params = list(inspect.signature(fn).parameters)[1:]
+        result = fn(owner(), **{p: request.getfixturevalue(p) for p in params})
+        if inspect.isgenerator(result):
+            yield next(result)
+            next(result, None)
+        else:
+            yield result
+
+    fixture.__name__ = name
+    return pytest.fixture(autouse=True, scope=scope, name=name)(fixture)
+
+
 def ported_cases(
     name: str,
     ns: dict,
@@ -160,7 +180,8 @@ def ported_cases(
     ``only``, when given, names the sole cases to collect. The reference
     file's autouse fixtures run for both packages; each of its other
     fixtures is collected under its own name and, in a case, takes the
-    definition of the case's package."""
+    definition of the case's package; a class's autouse fixtures run, for
+    each case of the class, from the case's package."""
     mods = {"ref": importlib.import_module(f"tests.{name}"), "port": port_twin(name, keep, host, twins, subs, tools)}
     for side, mod in mods.items():
         for attr, obj in list(vars(mod).items()):
@@ -191,6 +212,10 @@ def ported_cases(
                 if m.startswith("test") and inspect.isfunction(fn) and wanted(f"{attr}::{m}")
             }
             if body:
+                for m, fn in vars(obj).items():
+                    marker = getattr(fn, "_fixture_function_marker", None)
+                    if marker is not None and marker.autouse:
+                        body[m] = _class_autouse(mods, attr, m, marker.scope)
                 body["pytestmark"] = module_marks + list(getattr(obj, "pytestmark", []))
                 assert attr not in ns, f"{attr} collected twice"
                 ns[attr] = type(attr, (), body)

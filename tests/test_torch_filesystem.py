@@ -10,12 +10,12 @@ the host, ``device="cpu"``), and so do the ``store.boltdb`` cases of
 tests/test_fuzz_parsers.py and the ``store`` cases of
 tests/test_reference_fixtures.py (which skip in both packages where the
 reference tree's bbolt fixtures are absent). Each daemon a port case
-spawns is checked to run the port's server. Left out until the
-scenario runner is ported:
-``TestRegistry::test_known_sites_catalog_is_wired``, which wants every
-cataloged site fired somewhere in the package; its port counterpart,
-tests/test_torch_planes.py::test_catalog_equal_and_ported_sites_wired,
-holds the port's fired sites to exactly the ported modules' sites, and
+spawns is checked to run the port's server.
+``TestRegistry::test_known_sites_catalog_is_wired`` wants every cataloged
+site fired somewhere in the package: the port fires them all since its
+scenario runner (``scenario.phase``, ``soak.wave``, ``soak.evolve``);
+tests/test_torch_planes.py::test_catalog_equal_and_ported_sites_wired
+holds the port's fired sites to exactly the catalog, and
 ``test_each_control_plane_site_fires_in_both_packages`` there fires each
 site this file's modules carry.
 
@@ -60,7 +60,6 @@ ported_cases(
 ported_cases(
     "test_failpoint_chaos",
     globals(),
-    leave_out=("TestRegistry::test_known_sites_catalog_is_wired",),
     subs=(
         ("fused_convert.FusedDeviceEngine(chunk_size=0x10000)",
          'fused_convert.FusedDeviceEngine(chunk_size=0x10000, device="cpu")'),

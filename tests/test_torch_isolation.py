@@ -680,6 +680,50 @@ _CLI_CHILD = textwrap.dedent(
 )
 
 
+_SCENARIO_CHILD = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    from nydus_snapshotter_tpu_torch.scenario import orchestrator, sentinel, soak, spec
+    from nydus_snapshotter_tpu_torch.analysis import baseline, drift, locks, model, package, runtime
+    from nydus_snapshotter_tpu_torch.cmd import analyze
+
+    catalog = os.path.join(os.getcwd(), "misc", "scenarios")
+    report, fp, audit = orchestrator.run_scenario(
+        spec.load_spec(os.path.join(catalog, "mini.toml")), serial=True, device="cpu")
+    assert report["ok"] and audit["clean"] and fp["reads"], report["error"]
+    smoke = spec.load_spec(os.path.join(catalog, "soak_smoke.toml"))
+    with tempfile.TemporaryDirectory() as d:
+        runner = soak.SoakRunner(smoke, d, serial=True, epochs=1, device="cpu")
+        try:
+            rep = runner.run_soak()
+        finally:
+            runner.close()
+    assert rep["ok"] and rep["sentinel"]["issues"] == [], rep["error"]
+    assert sentinel.fit_slope([1, 2, 3]) == 1.0
+    assert analyze.main(["--fail-on-new", "--fail-on-stale"]) == 0
+    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                 or m == "nydus_snapshotter_tpu" or m.startswith("nydus_snapshotter_tpu."))
+    print("LEAKED", bad)
+    sys.exit(1 if bad else 0)
+    """
+)
+
+
+def test_scenario_runner_and_analyzers_import_neither_jax_nor_reference():
+    """The scenario runner, the soak and its sentinels, the static analyzers
+    and ``cmd.analyze`` in a fresh interpreter: a serial ``mini.toml`` run
+    and one ``soak_smoke.toml`` epoch on ``device="cpu"``, and the analyzer
+    gate over the port package, without loading jax or the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and not k.startswith("NTPU_")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCENARIO_CHILD], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 @pytest.mark.parametrize("backend", ["hybrid", "jax"])
 def test_snapshotter_cli_imports_neither_jax_nor_reference(backend):
     """``cmd.snapshotter`` in a fresh interpreter. Under the default config
@@ -790,6 +834,12 @@ def test_main_path_imports_neither_jax_nor_reference():
     assert "LEAKED []" in proc.stdout
 
 
+def _scenario(name: str):
+    from nydus_snapshotter_tpu_torch.scenario.spec import load_spec
+
+    return load_spec(os.path.join(REPO, "misc", "scenarios", name))
+
+
 def _adaptive():
     from nydus_snapshotter_tpu_torch.converter import codec
 
@@ -826,13 +876,22 @@ def _adaptive():
             ["--listen", "/nonexistent/r.sock"]),
         lambda: __import__("nydus_snapshotter_tpu_torch.converter.hooks", fromlist=["hooks"])
         .layer_convert_func(PackOption(oci_ref=True)),
+        lambda: __import__("nydus_snapshotter_tpu_torch.scenario.orchestrator", fromlist=["o"])
+        .ScenarioRunner(_scenario("mini.toml"), "/nonexistent/scn"),
+        lambda: __import__("nydus_snapshotter_tpu_torch.scenario.orchestrator", fromlist=["o"])
+        .run_scenario(_scenario("mini.toml"), workdir="/nonexistent/scn"),
+        lambda: __import__("nydus_snapshotter_tpu_torch.scenario.soak", fromlist=["s"])
+        .SoakRunner(_scenario("soak_smoke.toml"), "/nonexistent/soak"),
+        lambda: __import__("nydus_snapshotter_tpu_torch.scenario.soak", fromlist=["s"])
+        .replay_epoch(_scenario("soak_smoke.toml"), 0, "/nonexistent/soak"),
     ],
     ids=["engine", "dict", "from_tables", "entry", "pack_layer", "chunk_engine", "pack_layer_jax",
          "engine_blake3", "chunk_engine_blake3", "chunk_engine_fused_blake3",
          "device_digester_blake3", "pack_layer_blake3", "pack_layer_jax_blake3",
          "pack_layer_jax_zstd", "dict_load", "dict_service", "batch_one_layer",
          "batch_fanout", "pack_layer_encrypt", "pack_layer_adaptive", "batch_adaptive",
-         "make_mesh", "sharded_convert_step", "ha_runner", "hooks_oci_ref"],
+         "make_mesh", "sharded_convert_step", "ha_runner", "hooks_oci_ref", "scenario_runner",
+         "run_scenario", "soak_runner", "replay_epoch"],
 )
 def test_entry_points_refuse_missing_cuda(call):
     if torch.cuda.is_available():

@@ -52,6 +52,26 @@ def test_library_is_the_ports_own_build():
     assert native_cdc.available()
 
 
+def test_engine_library_override_loads_the_named_copy(tmp_path, monkeypatch):
+    """``NTPU_CHUNK_ENGINE_SO`` loads the library it names (here a copy of
+    the port's build), as the reference's ``_lib_path`` does; a name of no
+    file is an error, never a silent rebuild."""
+    import shutil
+
+    copy = tmp_path / "libchunk_engine_copy.so"
+    shutil.copy(native_cdc.build(), copy)
+    monkeypatch.setattr(native_cdc, "_lib", None)
+    monkeypatch.setenv("NTPU_CHUNK_ENGINE_SO", str(copy))
+    lib = native_cdc.load()
+    assert lib._name == str(copy)
+    data, ext = _items(SEED)
+    assert native_cdc.sha256_many_native(data, ext) == j_native.sha256_many_native(data, ext)
+    monkeypatch.setattr(native_cdc, "_lib", None)
+    monkeypatch.setenv("NTPU_CHUNK_ENGINE_SO", str(tmp_path / "absent.so"))
+    with pytest.raises(FileNotFoundError, match="NTPU_CHUNK_ENGINE_SO"):
+        native_cdc.load()
+
+
 def test_every_reference_arm_has_a_counterpart():
     """Every public function of the reference's native_cdc exists in the
     port's, and every ``*_available`` says yes on the port's build."""

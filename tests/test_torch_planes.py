@@ -57,8 +57,8 @@ PKG = {
     "ref": SimpleNamespace(fp=jfp, spec=jspec, trace=jtrace, reg=jreg, errdefs=jerrdefs),
 }
 
-# The sites of the modules this package has ported; the rest of the
-# reference's catalog belongs to modules it does not have yet.
+# The sites this package's modules fire: since the scenario runner, the
+# reference's whole catalog.
 PORTED_SITES = {
     "converter.pack", "pipeline.chunk", "pipeline.queue", "pipeline.compress",
     "pipeline.assemble", "fused.dispatch", "dict.insert", "dict.rebuild", "dict.rpc",
@@ -73,6 +73,7 @@ PORTED_SITES = {
     "metastore.create", "metastore.commit", "metastore.remove", "snapshot.prepare",
     "snapshot.commit", "snapshot.usage", "snapshot.cleanup", "fs.mount", "fs.umount",
     "manager.restart", "fleet.scrape", "fleet.collect",
+    "scenario.phase", "soak.wave", "soak.evolve",
 }
 
 
@@ -230,18 +231,17 @@ class TestFailpointRegistry:
 
 
 def test_catalog_equal_and_ported_sites_wired():
-    """The port keeps the reference's whole catalog. Every site its
-    modules fire is cataloged, and they are exactly the ported modules'
-    sites; the others belong to modules not yet ported."""
+    """The port keeps the reference's whole catalog, every site its
+    modules fire is cataloged, and no cataloged site is left unwired."""
     assert tfp.KNOWN_SITES == jfp.KNOWN_SITES
     wired = set()
     for path in PORT.rglob("*.py"):
-        if path.parent.name != "failpoint":  # its docstring's example
+        if path.parent.name not in ("failpoint", "analysis"):  # their docstrings' examples
             wired |= set(re.findall(r'hit\("([a-z_.]+)"\)', path.read_text()))
     assert wired == PORTED_SITES
     assert PORTED_SITES <= set(tfp.KNOWN_SITES)
     not_ported = set(tfp.KNOWN_SITES) - PORTED_SITES
-    assert not_ported == {"scenario.phase", "soak.wave", "soak.evolve"}  # the scenario runner's
+    assert not_ported == set()
 
 
 def _drive_pack(pkg):
@@ -738,7 +738,73 @@ def test_each_fleet_site_fires_in_both_packages(monkeypatch, tmp_path, site):
         fp.clear()
 
 
-GROUPS = (DRIVERS, FETCH_DRIVERS, DAEMON_DRIVERS, CONTROL_DRIVERS, FLEET_DRIVERS)
+SITE_SPEC = """
+[scenario]
+name = "site"
+seed = 1
+pods = 1
+
+[scenario.soak]
+epochs = 1
+base_pods = 1
+flash_prob = 0.0
+
+[[scenario.corpus]]
+id = "img"
+kind = "compressible"
+mib = 1
+
+[[scenario.phases]]
+op = "convert"
+corpus = ["img"]
+"""
+
+
+def _scenario_run(pkg, tmp_path, soak: bool):
+    """One serial scenario (or soak) run of ``SITE_SPEC``; a failed run's
+    report error is raised."""
+    spec = importlib.import_module(f"{_root(pkg)}.scenario.spec").loads(SITE_SPEC)
+    kw = {"device": "cpu"} if pkg == "port" else {}
+    if soak:
+        runner = importlib.import_module(f"{_root(pkg)}.scenario.soak").SoakRunner(
+            spec, str(tmp_path / f"soak-{pkg}"), serial=True, **kw)
+        run = runner.run_soak
+    else:
+        runner = importlib.import_module(f"{_root(pkg)}.scenario.orchestrator").ScenarioRunner(
+            spec, str(tmp_path / f"scn-{pkg}"), serial=True, **kw)
+        run = runner.run
+    try:
+        report = run()
+    finally:
+        runner.close()
+    if not report["ok"]:
+        raise OSError(report["error"])
+
+
+# The scenario runner's sites: an armed error fails the run loudly (the
+# report names the phase or the epoch); the drivers raise it.
+SCENARIO_DRIVERS = {
+    "scenario.phase": lambda pkg, tmp_path: _scenario_run(pkg, tmp_path, soak=False),
+    "soak.wave": lambda pkg, tmp_path: _scenario_run(pkg, tmp_path, soak=True),
+    "soak.evolve": lambda pkg, tmp_path: _scenario_run(pkg, tmp_path, soak=True),
+}
+
+
+@pytest.mark.parametrize("site", sorted(SCENARIO_DRIVERS))
+def test_each_scenario_site_fires_in_both_packages(tmp_path, site):
+    for pkg in ("port", "ref"):
+        fp = PKG[pkg].fp
+        fp.inject(site, "error(OSError:site-chaos)*1")
+        with pytest.raises(OSError, match="site-chaos"):
+            SCENARIO_DRIVERS[site](pkg, tmp_path / f"{pkg}1")
+        assert fp.counts().get(site) == 1, pkg
+        other = PKG["ref" if pkg == "port" else "port"].fp
+        assert site not in other.counts(), pkg
+        SCENARIO_DRIVERS[site](pkg, tmp_path / f"{pkg}2")  # one shot spent: the next run is clean
+        fp.clear()
+
+
+GROUPS = (DRIVERS, FETCH_DRIVERS, DAEMON_DRIVERS, CONTROL_DRIVERS, FLEET_DRIVERS, SCENARIO_DRIVERS)
 ALL_DRIVERS = {site: drive for group in GROUPS for site, drive in group.items()}
 
 

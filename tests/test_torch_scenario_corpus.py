@@ -1,20 +1,21 @@
 """The port's scenario corpora (scenario/corpus.py) against the JAX
 package's.
 
-Every case of tests/test_scenario_corpus.py but one runs in both packages
+Every case of tests/test_scenario_corpus.py runs in both packages
 (``pkg``); every generator's bytes equal the reference's; the real-vs-real
 cross-tree dedup gives the reference's figures. Then the adversarial
 layers go through the port's pack lanes: the device lanes (``fused``,
 ``jax``) on ``device="cpu"``, where the kernels' plain versions run, each
 byte-identical to the reference's same lane and to the host lane, with
-the resonance visible in the packed chunk table. ``test_peer_crc_rejects_
-corrupt_blob`` waits for the port's ``daemon/peer`` and
-``scenario/orchestrator.py``.
+the resonance visible in the packed chunk table.
 """
 
 from __future__ import annotations
 
+import hashlib
+import importlib
 import io
+import os
 import tarfile
 import zlib
 from types import SimpleNamespace
@@ -171,6 +172,54 @@ class TestCorruptVariants:
             pkg.corpus.corrupt_variant(b"", 1, "flip")
         with pytest.raises(ValueError):
             pkg.corpus.corrupt_variant(b"x", 1, "shuffle")
+
+    def test_peer_crc_rejects_corrupt_blob(self, pkg, tmp_path):
+        """The hostile-peer contract end to end (the reference case's body,
+        in the ``pkg``'s modules): a peer serving a corrupted payload under a
+        stale CRC header is rejected by the requester's CRC check, the
+        fetcher falls back to the origin, and the requester's cache holds
+        the TRUE bytes."""
+        root = pkg.corpus.__name__.rsplit(".scenario.", 1)[0]
+        peer = importlib.import_module(f"{root}.daemon.peer")
+        CachedBlob = importlib.import_module(f"{root}.daemon.blobcache").CachedBlob
+        FetchConfig = importlib.import_module(f"{root}.daemon.fetch_sched").FetchConfig
+        CorruptPeerServer = importlib.import_module(f"{root}.scenario.orchestrator").CorruptPeerServer
+
+        blob = pkg.corpus.incompressible_layer(2, 1)
+        blob_id = "cd" * 32
+        owner = CachedBlob(
+            str(tmp_path / "owner"), blob_id,
+            lambda off, size: blob[off : off + size], blob_size=len(blob),
+            config=FetchConfig(fetch_workers=1, merge_gap=0, readahead=0),
+        )
+        owner.read_at(0, len(blob))  # warmed: serves cover hits
+        export = peer.PeerExport()
+        export.register(blob_id, owner)
+        srv = CorruptPeerServer(peer.PeerChunkServer(export, pull_through=True), seed=4)
+        addr = str(tmp_path / "peer.sock")
+        srv.run(addr)
+        try:
+            router = peer.PeerRouter([addr], self_address="")
+            fetcher = peer.PeerAwareFetcher(
+                blob_id, lambda off, size: blob[off : off + size], router, timeout_s=5.0,
+            )
+            requester = CachedBlob(
+                str(tmp_path / "req"), blob_id, fetcher.read_range, blob_size=len(blob),
+                config=FetchConfig(fetch_workers=1, merge_gap=0, readahead=0),
+            )
+            got = requester.read_at(0, len(blob))
+            requester.close()
+            assert srv.corrupted > 0, "hostile peer never served"
+            assert hashlib.sha256(got).hexdigest() == hashlib.sha256(blob).hexdigest()
+            # The poisoned payload must never land in the cache file.
+            cache_file = str(tmp_path / "req" / f"{blob_id}.blob.data")
+            if os.path.exists(cache_file):
+                with open(cache_file, "rb") as f:
+                    cached = f.read()
+                assert cached[: len(blob)] == blob
+        finally:
+            srv.stop()
+            owner.close()
 
 
 # ---------------------------------------------------------------------------
