@@ -41,6 +41,7 @@ import io
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from time import perf_counter
 from typing import Optional
 
 import torch
@@ -48,6 +49,7 @@ import torch
 from nydus_snapshotter_tpu_torch import trace
 from nydus_snapshotter_tpu_torch.converter.convert import Merge, Pack, PackResult
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, MergeOption, PackOption
+from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
     BatchRecord,
     Bootstrap,
@@ -56,6 +58,30 @@ from nydus_snapshotter_tpu_torch.models.bootstrap import (
     CipherRecord,
 )
 from nydus_snapshotter_tpu_torch.tensors import resolve_device
+
+_reg = _metrics.default_registry
+_STAGE_SECONDS = _reg.register(
+    _metrics.Counter(
+        "ntpu_batch_stage_seconds",
+        "Wall seconds of each stage of an image's critical path in BatchConverter: "
+        "the layer fan-out, Merge, the dict's growth, codec training",
+        ("stage",),
+    )
+)
+_IMAGES = _reg.register(_metrics.Counter("ntpu_batch_images", "Images BatchConverter converted"))
+_STAGES = {k: _STAGE_SECONDS.labels(k) for k in ("fanout", "merge", "dict_grow", "train")}
+
+
+@contextlib.contextmanager
+def _stage(name: str, **attrs):
+    """One stage of an image's critical path: a ``batch.<name>`` span and
+    its wall seconds in ``ntpu_batch_stage_seconds``."""
+    t0 = perf_counter()
+    try:
+        with trace.span("batch." + name, **attrs):
+            yield
+    finally:
+        _STAGES[name].inc(perf_counter() - t0)
 
 
 class GrowingChunkDict:
@@ -223,8 +249,12 @@ class BatchConverter:
     compression bytes from the same ``MemoryBudget``, so batch memory is
     bounded however many layers are in flight. ``memory_budget_mib`` sizes
     a converter-private budget instead of the process-shared one. Each
-    image is one ``convert`` trace span; its layers' spans join it from the
-    pool's threads.
+    image is one ``convert`` trace span; its layers' ``pack`` spans join it
+    from the pool's threads. The image's critical path is clocked stage by
+    stage in ``ntpu_batch_stage_seconds{stage}``: ``fanout`` (the pool,
+    from its start to the last layer's return), ``merge``, ``dict_grow``
+    (the first three also spans ``batch.<stage>`` under ``convert``) and
+    ``train`` (the codec's between-images training).
 
     With a dict service configured (``dict_service=`` unix-socket address,
     ``,``-separated shard addresses or a ``service://`` argument, or
@@ -324,29 +354,37 @@ class BatchConverter:
             raise ConvertError(f"image {name}: no layers")
         chunk_dict = self.dict if len(self.dict) else None
 
-        def pack_one(tar: bytes, ctx) -> tuple[bytes, PackResult]:
-            with trace.with_context(ctx), self._layer_stream():
+        def pack_one(i: int, tar: bytes, ctx) -> tuple[bytes, PackResult]:
+            with (trace.with_context(ctx), trace.span("pack", layer=i, bytes=len(tar)) as sp,
+                  self._layer_stream()):
                 out = io.BytesIO()
                 res = Pack(out, tar, self.opt, chunk_dict=chunk_dict, device=self.device,
                            budget=self.budget, codec=self.codec)
+                sp.annotate(route=res.route)
                 return out.getvalue(), res
 
         with trace.span("convert", image=name, layers=len(layer_tars)):
-            ctx = trace.capture()  # contextvars do not cross the pool: carry the span
-            if len(layer_tars) > 1:
-                fanout = self.layer_fanout or self.max_workers
-                with ThreadPoolExecutor(max_workers=fanout) as pool:
-                    packed = list(pool.map(lambda t: pack_one(t, ctx), layer_tars))
-            else:
-                packed = [pack_one(layer_tars[0], ctx)]
+            with _stage("fanout", layers=len(layer_tars)):
+                ctx = trace.capture()  # contextvars do not cross the pool: carry the span
+                if len(layer_tars) > 1:
+                    fanout = self.layer_fanout or self.max_workers
+                    with ThreadPoolExecutor(max_workers=fanout) as pool:
+                        packed = list(pool.map(lambda it: pack_one(*it, ctx), enumerate(layer_tars)))
+                else:
+                    packed = [pack_one(0, layer_tars[0], ctx)]
 
-            merged = Merge(
-                [blob for blob, _ in packed],
-                MergeOption(fs_version=self.opt.fs_version),
-                chunk_dict=chunk_dict,
-            )
-            added = self.dict.add_bootstrap_bytes(merged.bootstrap)
+            with _stage("merge"):
+                merged = Merge(
+                    [blob for blob, _ in packed],
+                    MergeOption(fs_version=self.opt.fs_version),
+                    chunk_dict=chunk_dict,
+                )
+            with _stage("dict_grow"):
+                added = self.dict.add_bootstrap_bytes(merged.bootstrap)
+        t0 = perf_counter()
         self._maybe_train_codec()
+        _STAGES["train"].inc(perf_counter() - t0)
+        _IMAGES.inc()
         layer_blobs = {res.blob_id: blob for blob, res in packed if res.blob_id}
         return ImageResult(
             name=name,

@@ -114,10 +114,11 @@ from typing import BinaryIO, Optional
 import numpy as np
 import torch
 
-from nydus_snapshotter_tpu_torch import constants, failpoint
+from nydus_snapshotter_tpu_torch import constants, failpoint, trace
 from nydus_snapshotter_tpu_torch.converter import codec as codec_mod
 from nydus_snapshotter_tpu_torch.converter import crypto
 from nydus_snapshotter_tpu_torch.converter.types import ConvertError, PackOption
+from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
 from nydus_snapshotter_tpu_torch.models import fstree, layout, nydus_tar, toc
 from nydus_snapshotter_tpu_torch.models.bootstrap import (
     CHUNK_FLAG_BATCH,
@@ -140,6 +141,17 @@ from nydus_snapshotter_tpu_torch.utils import zstd as zstd_native
 
 SEGMENT_BYTES = 4 << 20  # tar read granularity
 DIGEST_BATCH_BYTES = 32 << 20  # chunk bytes per digest batch
+
+_reg = _metrics.default_registry
+_STAGE_SECONDS = _reg.register(
+    _metrics.Counter("ntpu_pack_stage_seconds", "Wall seconds per Pack stage", ("stage",))
+)
+_LAYERS = _reg.register(_metrics.Counter("ntpu_pack_layers", "Layers Pack converted"))
+# Pack's stage split: the ``stats=`` keys, summed over every pack
+_STAGES = {
+    k: _STAGE_SECONDS.labels(k)
+    for k in ("scan", "chunk_digest", "fused_pack", "dedup", "assemble", "bootstrap")
+}
 
 
 @dataclass
@@ -365,6 +377,10 @@ class _DeferredSectionWriter:
     def finish(self) -> None:
         if not self._items:
             return
+        with trace.span("pack.assemble", chunks=len(self._items)):
+            self._finish()
+
+    def _finish(self) -> None:
         ext = np.asarray(self._items, dtype=np.int64)
         side = np.frombuffer(self._side, dtype=np.uint8) if self._side else np.empty(0, np.uint8)
         self.threads = _pack_threads()
@@ -808,7 +824,8 @@ def Pack(
     where the device backends run (CUDA unless ``"cpu"`` is asked for).
 
     ``stats``: optional dict that accumulates wall seconds per stage, with
-    the reference's keys, from the start of the tar walk: ``scan`` (tar
+    the reference's keys, from the start of the tar walk (every pack adds
+    the same seconds to ``ntpu_pack_stage_seconds{stage}``): ``scan`` (tar
     walk and metadata), ``chunk_digest`` (cuts and chunk digests: engine
     and chunker calls, digest batch submit and collect), ``assemble``
     (compression, blob append, blob digest: with the deferred writer its
@@ -1295,17 +1312,20 @@ def _pack(dest, src_tar, opt: PackOption, chunk_dict, device, stats, budget, cod
     out.write(toc_bytes)
     out.write(nydus_tar.make_header(toc.ENTRY_BLOB_TOC, len(toc_bytes)))
 
-    if stats is not None:
-        for key, s in (
-            ("scan", t_lane - t_walk - walk_chunk - walk_asm),
-            ("chunk_digest", t_chunk),
-            # the whole-layer pack_files call: chunk, dedup and assemble in one
-            ("fused_pack", t_fused),
-            ("dedup", t_end - t_lane - (t_chunk - walk_chunk) - (t_asm - walk_asm) - t_fused),
-            ("assemble", t_asm),
-            ("bootstrap", perf_counter() - t_end),
-        ):
+    split = (
+        ("scan", t_lane - t_walk - walk_chunk - walk_asm),
+        ("chunk_digest", t_chunk),
+        # the whole-layer pack_files call: chunk, dedup and assemble in one
+        ("fused_pack", t_fused),
+        ("dedup", t_end - t_lane - (t_chunk - walk_chunk) - (t_asm - walk_asm) - t_fused),
+        ("assemble", t_asm),
+        ("bootstrap", perf_counter() - t_end),
+    )
+    for key, s in split:
+        _STAGES[key].inc(s)
+        if stats is not None:
             stats[key] = stats.get(key, 0.0) + s
+    _LAYERS.inc()
 
     return PackResult(
         blob_id=blob_id,

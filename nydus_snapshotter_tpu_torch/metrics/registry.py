@@ -80,6 +80,40 @@ class Counter(_Metric):
         return "\n".join(lines)
 
 
+class LazyCounter(Counter):
+    """Counter whose value is pulled from a callback at read/render time.
+
+    A hot path that must not take the registry metric lock per event (the
+    span ring, the collector's callback) keeps exact totals of its own, and
+    this counter folds them into the exposition only when someone actually
+    looks (scrape, ``.value()``). The callback returns the total, or for a
+    labelled counter ``{label values tuple: total}``.
+    """
+
+    def __init__(self, name: str, help_: str, label_names: Sequence[str] = ()):
+        super().__init__(name, help_, label_names)
+        self._fn = None
+
+    def bind(self, fn) -> None:
+        self._fn = fn
+
+    def _sync(self) -> None:
+        if self._fn is not None:
+            got = self._fn()
+            items = got.items() if isinstance(got, dict) else (((), got),)
+            with self._lock:
+                for key, total in items:
+                    self._values[key] = float(total)
+
+    def value(self, *values: str) -> float:
+        self._sync()
+        return super().value(*values)
+
+    def render(self) -> str:
+        self._sync()
+        return super().render()
+
+
 class _CounterChild:
     def __init__(self, parent: Counter, key: tuple):
         self._parent = parent

@@ -32,6 +32,8 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from nydus_snapshotter_tpu_torch import trace
+from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
 from nydus_snapshotter_tpu_torch.ops import (
     blake3, blake3_cuda, cdc, gear, gear_cuda, probe_cuda, sha256, sha256_cuda,
 )
@@ -53,39 +55,39 @@ class FusedOverflow(RuntimeError):
     the work on the host under the device backend's name."""
 
 
-def _record_dispatch(n_bytes: int, pass1_s: float, host_s: float, pass2_s: float) -> None:
-    """Fused-convert stage counters next to the pipeline's
-    (ntpu_convert_pipeline_*): pass1 = layout, upload and K1 with the
-    candidate compaction, host = cut resolution and chunk extents (the
-    host arm between the passes), pass2 = digests (K2 or K4), the probe
-    (K3) and the download."""
-    from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
+_reg = _metrics.default_registry
+_DISPATCHES = _reg.register(
+    _metrics.Counter("ntpu_fused_convert_dispatches", "Fused device convert batches dispatched")
+)
+_BYTES = _reg.register(
+    _metrics.Counter("ntpu_fused_convert_bytes", "Bytes processed by fused device convert batches")
+)
+_STAGE_SECONDS = _reg.register(
+    _metrics.Counter(
+        "ntpu_fused_convert_stage_seconds", "Wall seconds per fused-convert stage", ("stage",)
+    )
+)
+_STAGES = {
+    k: _STAGE_SECONDS.labels(k)
+    for k in ("pass1_gear", "pass1_layout", "pass1_upload", "host_resolve", "pass2_digest")
+}
 
-    reg = _metrics.default_registry
-    disp = reg.register(
-        _metrics.Counter(
-            "ntpu_fused_convert_dispatches",
-            "Fused device convert batches dispatched",
-        )
-    )
-    by_bytes = reg.register(
-        _metrics.Counter(
-            "ntpu_fused_convert_bytes",
-            "Bytes processed by fused device convert batches",
-        )
-    )
-    busy = reg.register(
-        _metrics.Counter(
-            "ntpu_fused_convert_stage_seconds",
-            "Wall seconds per fused-convert stage",
-            ("stage",),
-        )
-    )
-    disp.inc()
-    by_bytes.inc(n_bytes)
-    busy.labels("pass1_gear").inc(pass1_s)
-    busy.labels("host_resolve").inc(host_s)
-    busy.labels("pass2_digest").inc(pass2_s)
+
+def _record_dispatch(n_bytes: int, pass1_s: float, layout_s: float, upload_s: float,
+                     host_s: float, pass2_s: float) -> None:
+    """Fused-convert stage counters next to the pipeline's
+    (ntpu_convert_pipeline_*): pass1_gear = layout, upload and K1 with the
+    candidate compaction, of which pass1_layout is the layout and
+    pass1_upload the host-to-device copy; host_resolve = cut resolution and
+    chunk extents (the host arm between the passes); pass2_digest = digests
+    (K2 or K4), the probe (K3) and the download."""
+    _DISPATCHES.inc()
+    _BYTES.inc(n_bytes)
+    _STAGES["pass1_gear"].inc(pass1_s)
+    _STAGES["pass1_layout"].inc(layout_s)
+    _STAGES["pass1_upload"].inc(upload_s)
+    _STAGES["host_resolve"].inc(host_s)
+    _STAGES["pass2_digest"].inc(pass2_s)
 
 
 def chunk_digests(
@@ -428,23 +430,28 @@ class FusedDeviceEngine:
                 probe=np.zeros(0, np.int32) if chunk_dict is not None else None,
             )
         t0 = perf_counter()
-        buf, table = self.layout(arrs)
-        buffer_dev = torch.from_numpy(buf).to(self.device)
-        cand_s, cand_l = self.candidates(buffer_dev, n)
+        with trace.span("fused.pass1", bytes=n, streams=len(arrs)):
+            buf, table = self.layout(arrs)
+            t_up = perf_counter()
+            buffer_dev = torch.from_numpy(buf).to(self.device)
+            t_k1 = perf_counter()
+            cand_s, cand_l = self.candidates(buffer_dev, n)
         t1 = perf_counter()
-        cuts = self.resolve(cand_s, cand_l, table)
-        extents = self.chunk_extents(table, cuts)
+        with trace.span("fused.host_resolve"):
+            cuts = self.resolve(cand_s, cand_l, table)
+            extents = self.chunk_extents(table, cuts)
         t2 = perf_counter()
-        states, probe = self.digest_probe(buffer_dev, extents, chunk_dict)
-        raw = state_bytes(to_u32(states), self.digester)
-        probe_np = probe.cpu().numpy().astype(np.int32) if probe is not None else None
+        with trace.span("fused.pass2", chunks=extents.shape[1]):
+            states, probe = self.digest_probe(buffer_dev, extents, chunk_dict)
+            raw = state_bytes(to_u32(states), self.digester)
+            probe_np = probe.cpu().numpy().astype(np.int32) if probe is not None else None
         t3 = perf_counter()
         self.stats["batches"] += 1
         self.stats["bytes"] += n
         self.stats["pass1_s"] += t1 - t0
         self.stats["host_s"] += t2 - t1
         self.stats["pass2_s"] += t3 - t2
-        _record_dispatch(n, t1 - t0, t2 - t1, t3 - t2)
+        _record_dispatch(n, t1 - t0, t_up - t0, t_k1 - t_up, t2 - t1, t3 - t2)
 
         out_digests: list[list[bytes]] = []
         pos = 0

@@ -23,14 +23,17 @@ are exported three ways (:mod:`.export`): Chrome ``trace_event`` JSON on
 ``/api/v1/traces`` (the dict service), a slow-op flight
 recorder that logs the full reconstructed tree of any root op over
 ``slow_op_threshold_ms``, and over-p95 ``trace_exemplars`` on the metrics
-summaries.
+summaries. While a ``torch.profiler`` records, every span also opens a
+profiler range of its own name (utils/profiler_ranges.py), so the spans
+sit in the profile on the device trace's clock.
 
 Zero-overhead contract: with
 tracing disabled, :func:`span` is one global load, one branch and a
 no-op context manager — no ids, no clock reads, no allocation beyond the
-kwargs dict. Sampling is decided once at the ROOT span (``sample_ratio``)
-and inherited by the whole tree, so a sampled-out request costs the same
-as a disabled tracer. Configuration: ``[trace]`` section
+kwargs dict. With no profiler recording, a live span's profiler range
+costs one flag read. Sampling is decided once at the ROOT span
+(``sample_ratio``) and inherited by the whole tree, so a sampled-out
+request costs the same as a disabled tracer. Configuration: ``[trace]`` section
 (config/config.py) overridden by ``NTPU_TRACE*`` environment variables —
 the env is also how the section reaches spawned processes.
 """
@@ -59,7 +62,9 @@ from nydus_snapshotter_tpu_torch.trace.export import (
     format_tree,
     to_chrome_trace,
 )
-from nydus_snapshotter_tpu_torch.trace.ring import SPANS_DROPPED, LazyCounter, SpanRing
+from nydus_snapshotter_tpu_torch.metrics.registry import LazyCounter
+from nydus_snapshotter_tpu_torch.trace.ring import SPANS_DROPPED, SpanRing
+from nydus_snapshotter_tpu_torch.utils import profiler_ranges as _prof
 
 __all__ = [
     "Span",
@@ -91,7 +96,7 @@ DEFAULT_SLOW_OP_MS = 1000.0
 
 _reg = _metrics.default_registry
 # Lazy: synced from the ring's per-stripe totals at scrape time, so the
-# span hot path never touches a registry metric lock (see ring.LazyCounter).
+# span hot path never touches a registry metric lock (see registry.LazyCounter).
 SPANS_TOTAL = _reg.register(
     LazyCounter(
         "ntpu_trace_spans_total", "Spans recorded into the trace ring buffer"
@@ -187,6 +192,7 @@ class Span:
         "_tracer",
         "_t0",
         "_token",
+        "_range",
     )
 
     sampled = True  # a live span in the context ⇒ the trace is sampled
@@ -207,6 +213,7 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
+        self._range = _prof.open_range(self.name) if _prof.recording() else None
         self.thread = _thread_name()
         self._t0 = t0 = perf_counter()
         self.start = _EPOCH_OFFSET + t0
@@ -215,6 +222,9 @@ class Span:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.duration_ms = (perf_counter() - self._t0) * 1000.0
+        if self._range is not None:
+            _prof.close_range(self._range)
+            self._range = None
         if exc is not None:
             self.attrs["error"] = f"{exc_type.__name__}: {exc}"
         _current.reset(self._token)

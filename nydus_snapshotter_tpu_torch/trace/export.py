@@ -128,7 +128,8 @@ class SlowOpRecorder:
         self._records: deque = deque(maxlen=keep)
 
     def record(self, root, ring) -> None:
-        tree = format_tree(ring.snapshot(), root.trace_id)
+        # the root's own trace only: a snapshot sorts the whole ring
+        tree = format_tree(ring.of_trace(root.trace_id), root.trace_id)
         logger.warning(
             "slow op %s took %.1fms (threshold %.0fms), trace %s:\n%s",
             root.name,

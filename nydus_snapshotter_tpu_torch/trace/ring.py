@@ -19,38 +19,7 @@ import threading
 from collections import deque
 
 from nydus_snapshotter_tpu_torch.metrics import registry as _metrics
-
-
-class LazyCounter(_metrics.Counter):
-    """Counter whose value is pulled from a callback at read/render time.
-
-    The span hot path must not take the registry metric lock per span;
-    the ring keeps exact per-stripe totals under the stripe locks it
-    already holds, and this counter folds them into the exposition only
-    when someone actually looks (scrape, ``.value()``).
-    """
-
-    def __init__(self, name: str, help_: str):
-        super().__init__(name, help_)
-        self._fn = None
-
-    def bind(self, fn) -> None:
-        self._fn = fn
-
-    def _sync(self) -> None:
-        if self._fn is not None:
-            total = float(self._fn())
-            with self._lock:
-                self._values[()] = total
-
-    def value(self, *values: str) -> float:
-        self._sync()
-        return super().value(*values)
-
-    def render(self) -> str:
-        self._sync()
-        return super().render()
-
+from nydus_snapshotter_tpu_torch.metrics.registry import LazyCounter
 
 SPANS_DROPPED = _metrics.default_registry.register(
     LazyCounter(
@@ -106,6 +75,14 @@ class SpanRing:
             with st.lock:
                 out.extend(st.items)
         out.sort(key=lambda s: s.start)
+        return out
+
+    def of_trace(self, trace_id) -> list:
+        """The buffered spans of one trace, in no order."""
+        out = []
+        for st in self._stripes:
+            with st.lock:
+                out.extend([s for s in st.items if s.trace_id == trace_id])
         return out
 
     def dropped(self) -> int:
